@@ -1,0 +1,4 @@
+"""Cameras (port of pbrt_tpu/cameras/, perspective only)."""
+from .cameras import CameraParams, generate_rays, make_perspective_camera
+
+__all__ = ["CameraParams", "generate_rays", "make_perspective_camera"]

@@ -1,0 +1,194 @@
+"""The path integrator's main loop, bounce-major over a flat ray batch.
+
+Port of pbrt_tpu/integrators/path.py (PathIntegrator::Li, path.cpp:64-188,
+and SamplerIntegrator::Render, integrator.cpp:228-339) for scenes without
+subsurface materials.  One Python loop iteration per bounce takes the place
+of the JAX package's lax.scan; both draw the same sampler dimensions.
+
+Dimension schedule (path.py:13-14): camera dims 0-4; from dim 5, each bounce
+b draws 5 NEE dims and 2 BSDF dims, plus 1 Russian-roulette dim after
+bounce 3.
+
+Traversal launches: the camera rays' closest hit is one launch; each later
+bounce's closest hit rides the previous bounce's NEE launch
+(integrators/common.py), so a sample costs 1 + max_depth launches.
+
+Profiler ranges named "layer: ..." mark the calls into each layer; without
+the profiler each costs a few microseconds on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import film as fm
+from ..accel import traverse as tv
+from ..cameras import generate_rays
+from ..core import spectrum
+from ..core.vecmath import absdot, offset_ray_origin
+from ..filters import make_filter
+from ..lights import lights as lt
+from ..materials import bsdf as bx
+from ..samplers import samplers as sa
+from ..scene import SceneArrays, resolve_device
+from ..utils import stats as st
+from . import common
+
+
+RR_THRESHOLD = 1.0  # Russian roulette when max(beta * etaScale) is below it
+
+
+@dataclasses.dataclass(frozen=True)
+class PathConfig:
+    """The light distribution is the scene's own (SceneBuilder.light_strategy)."""
+    max_depth: int = 5
+
+
+def dims_per_bounce(bounce: int) -> int:
+    """5 NEE + 2 BSDF dims, +1 Russian-roulette dim after bounce 3."""
+    return 7 + (1 if bounce > 3 else 0)
+
+
+def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
+            cfg: PathConfig, counters, start_dim: int = 5):
+    """Radiance along a batch of camera rays: L [n, 3]."""
+    n = o.shape[0]
+    dev = o.device
+    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    specular_bounce = torch.zeros(n, dtype=torch.bool, device=dev)
+    eta_scale = torch.ones(n, dtype=torch.float32, device=dev)
+
+    t, prim = tv.intersect_closest(scene, o, d, 1e30)
+    dim = start_dim
+    for bounce in range(cfg.max_depth + 1):
+        st.bump(counters, "Intersections/Regular ray intersection tests", alive)
+        with record_function("layer: hit record"):
+            rec = tv.hit_record(scene, o, d, t, prim)
+        found = rec["hit"] & alive
+
+        # Emitted radiance for camera rays and rays leaving a specular
+        # bounce; the others were counted by MIS (path.cpp:91-101).
+        count_le = specular_bounce | (bounce == 0)
+        le_surf = lt.area_light_emission(scene, rec["arealight"], rec["ng"],
+                                         rec["wo"])
+        L = L + torch.where((found & count_le)[:, None], beta * le_surf, 0.0)
+        le_inf = lt.escaped_radiance(scene, d, scene.light_types)
+        L = L + torch.where((alive & ~rec["hit"] & count_le)[:, None],
+                            beta * le_inf, 0.0)
+        alive = found
+        if bounce == cfg.max_depth:
+            break
+
+        mat = bx.gather_material(scene.materials, rec["material"])
+        frame = bx.frame_from_rec(rec)
+        ss, ts, ns = frame
+        wo_local = bx.to_local(ss, ts, ns, rec["wo"])
+        has_bsdf = alive & (rec["material"] >= 0)
+
+        # NEE draws (dims +0..+4), then the BSDF draw (+5, +6), taken before
+        # the NEE launch so the extension ray can ride it.
+        u_select = sa.get_1d(sampler_cfg, sampler_state, dim)
+        u_light = sa.get_2d(sampler_cfg, sampler_state, dim + 1)
+        u_scatter = sa.get_2d(sampler_cfg, sampler_state, dim + 3)
+        u_bsdf = sa.get_2d(sampler_cfg, sampler_state, dim + 5)
+        st.bump(counters, "Intersections/Shadow ray intersection tests",
+                2.0 * has_bsdf.to(torch.float64).sum())
+        bs = bx.sample_material(mat, wo_local, u_bsdf, scene.mat_types)
+        wi_world = bx.to_world(ss, ts, ns, bs["wi"])
+        o_next = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], wi_world)
+        with record_function("layer: NEE incl. its traversal"):
+            ld, (t_next, prim_next) = common.sample_one_light(
+                scene, rec, frame, mat, wo_local, u_select, u_light, u_scatter,
+                has_bsdf, extra_ray=(o_next, wi_world))
+        L = L + torch.where(has_bsdf[:, None], beta * ld, 0.0)
+
+        valid = has_bsdf & bs["valid"]
+        pdf_s = torch.where(valid, bs["pdf"], 1.0)
+        contrib = bs["f"] * (absdot(wi_world, ns)
+                             / torch.clamp(pdf_s, min=1e-20))[:, None]
+        contrib = torch.where(valid[:, None], contrib, 0.0)
+        alive = alive & valid
+        beta = torch.where(alive[:, None], beta * contrib, beta)
+        specular_bounce = bs["is_specular"]
+        # etaScale through specular transmission (path.cpp:144-150).
+        transmitted = bs["is_specular"] & (bs["wi"][:, 2] * wo_local[:, 2] < 0.0)
+        et = mat["eta"]
+        eta_fac = torch.where(wo_local[:, 2] > 0.0, et * et,
+                              1.0 / torch.clamp(et * et, min=1e-12))
+        eta_scale = torch.where(transmitted, eta_scale * eta_fac, eta_scale)
+        o = torch.where(alive[:, None], o_next, o)
+        d = torch.where(alive[:, None], wi_world, d)
+
+        if bounce > 3:  # Russian roulette (path.cpp:176-184)
+            u_rr = sa.get_1d(sampler_cfg, sampler_state, dim + 7)
+            rr_beta_max = spectrum.max_component(beta * eta_scale[:, None])
+            q = torch.clamp(1.0 - rr_beta_max, min=0.05)
+            do_rr = rr_beta_max < RR_THRESHOLD
+            die = do_rr & (u_rr < q)
+            alive = alive & ~die
+            beta = torch.where((do_rr & ~die)[:, None],
+                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                               beta)
+        dim += dims_per_bounce(bounce)
+        t, prim = t_next, prim_next
+    return L
+
+
+def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:
+    """All pixels in the cropped bounds as an [Npix, 2] int array."""
+    px0, px1, py0, py1 = film_cfg.cropped_pixel_bounds
+    xs, ys = np.meshgrid(np.arange(px0, px1), np.arange(py0, py1))
+    return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
+
+
+def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
+                        sampler_cfg, cfg: PathConfig, counters):
+    """One sample per pixel, accumulated into film_state (in place)."""
+    n = pixels.shape[0]
+    state = sa.init_state(sampler_cfg, pixels,
+                          torch.full((n,), sample_num, dtype=torch.int64,
+                                     device=pixels.device))
+    if sampler_cfg.name == "halton":
+        # All of the batch's halton dims at once, one row per dimension.
+        n_dims = 5 + sum(dims_per_bounce(b) for b in range(cfg.max_depth)) + 1
+        with record_function("layer: sampler table"):
+            state["table"] = sa.halton_table(sampler_cfg, state, n_dims)
+    p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
+    with record_function("layer: camera rays"):
+        o, d, _, weight = generate_rays(camera, p_film, p_lens, time_u)
+    L = li_path(scene, o, d, sampler_cfg, state, cfg, counters)
+    # NaN / negative radiance -> black (integrator.cpp:294-315).
+    bad = ~torch.all(torch.isfinite(L), -1) | torch.any(L < 0.0, -1)
+    L = torch.where(bad[:, None], 0.0, L)
+    with record_function("layer: film"):
+        fm.add_samples(film_state, p_film, L, weight)
+    return film_state
+
+
+def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
+           cfg: PathConfig = PathConfig(), count_rays: bool = False,
+           device="cuda"):
+    """Full render: one batch per sample per pixel.  Runs on the card unless
+    device="cpu"; the scene must already be on that device.  Returns the
+    image [H, W, 3], with the rays traced when count_rays."""
+    device = resolve_device(device)
+    if scene.device != device:
+        raise ValueError(f"scene is on {scene.device}, render asked for {device}")
+    camera = camera.to(device)
+    film_state = fm.make_film_state(film_cfg, make_filter(film_cfg.filter_name),
+                                    device)
+    pixels = torch.as_tensor(make_pixel_grid(film_cfg), device=device)
+    counters = st.zeros(device)
+    with torch.no_grad():
+        for s in range(sampler_cfg.spp):
+            render_sample_batch(scene, camera, film_state, pixels, s,
+                                sampler_cfg, cfg, counters)
+        img = fm.to_image(film_state, scale=film_cfg.scale)
+    if count_rays:
+        return img, st.ray_total(counters)
+    return img

@@ -1,0 +1,190 @@
+"""Light sampling for point lights and diffuse area lights on spheres and
+triangles.
+
+Port of the point / area parts of pbrt_tpu/lights/lights.py (lights/point.cpp,
+lights/diffuse.cpp, sphere.cpp:232-318 cone sampling, triangle.cpp Sample and
+shape.cpp:56 solid-angle conversion).  The scene has no infinite light in
+this port, so escaped rays carry no radiance.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import scene as sc
+from ..core import sampling as smp
+from ..core.vecmath import (coordinate_system, cross, distance_squared, dot,
+                            length, normalize, safe_sqrt,
+                            spherical_direction_basis)
+from ..shapes.triangle import intersect_triangle
+
+
+def _gather_tri(scene, tri_idx):
+    vid = scene.tri_indices[torch.clamp(tri_idx, 0, scene.tri_indices.shape[0] - 1)]
+    vid = vid.to(torch.int64)
+    return scene.tri_p[vid[:, 0]], scene.tri_p[vid[:, 1]], scene.tri_p[vid[:, 2]]
+
+
+def _sphere_center_radius(scene, q_idx):
+    qi = torch.clamp(q_idx, 0, scene.q_type.shape[0] - 1)
+    return scene.q_o2w[qi, :3, 3], scene.q_params[qi, 0]
+
+
+def sample_li(scene, light_idx, ref_p, u, light_types):
+    """Light::Sample_Li.  Returns dict: wi, li (radiance), pdf (solid angle),
+    p_light (shadow-ray target), is_delta."""
+    lt = scene.lights
+    li_t = lt.light_type[light_idx]
+    L = lt.L[light_idx]
+    n = ref_p.shape[0]
+    wi = torch.zeros_like(ref_p)
+    li = torch.zeros_like(ref_p)
+    pdf = torch.zeros(n, dtype=torch.float32, device=ref_p.device)
+    p_light = torch.zeros_like(ref_p)
+    is_delta = torch.zeros(n, dtype=torch.bool, device=ref_p.device)
+
+    if sc.LIGHT_POINT in light_types:
+        m = li_t == sc.LIGHT_POINT
+        pos = lt.pos[light_idx]
+        dd = pos - ref_p
+        dist2 = torch.clamp(dot(dd, dd), min=1e-12)
+        mv = m[:, None]
+        wi = torch.where(mv, dd / torch.sqrt(dist2)[:, None], wi)
+        li = torch.where(mv, L / dist2[:, None], li)
+        pdf = torch.where(m, 1.0, pdf)
+        p_light = torch.where(mv, pos, p_light)
+        is_delta = is_delta | m
+
+    if sc.LIGHT_AREA in light_types:
+        m_area = li_t == sc.LIGHT_AREA
+        stype = lt.shape_type[light_idx]
+        sidx = lt.shape_idx[light_idx].to(torch.int64)
+        two = lt.two_sided[light_idx]
+
+        # sphere: cone sampling outside, uniform area sampling inside
+        m = (m_area & (stype == sc.SHAPE_SPHERE))[:, None]
+        center, radius = _sphere_center_radius(scene, sidx)
+        dc_v = center - ref_p
+        dist2 = torch.clamp(dot(dc_v, dc_v), min=1e-12)
+        dc = torch.sqrt(dist2)
+        inside = dist2 <= radius * radius * (1.0 + 1e-4)
+        wc = dc_v / dc[:, None]
+        wc_x, wc_y = coordinate_system(wc)
+        cos_t_max = safe_sqrt(1.0 - radius * radius / dist2)
+        cos_t = (1.0 - u[:, 0]) + u[:, 0] * cos_t_max
+        sin_t = safe_sqrt(1.0 - cos_t * cos_t)
+        phi = u[:, 1] * 2.0 * math.pi
+        ds = dc * cos_t - safe_sqrt(radius * radius - dist2 * sin_t * sin_t)
+        cos_a = (dist2 + radius * radius - ds * ds) / torch.clamp(
+            2.0 * dc * radius, min=1e-12)
+        sin_a = safe_sqrt(1.0 - cos_a * cos_a)
+        n_obj = spherical_direction_basis(sin_a, cos_a, phi, -wc_x, -wc_y, -wc)
+        p_s = center + radius[:, None] * n_obj
+        wi_s = normalize(p_s - ref_p)
+        pdf_cone = smp.uniform_cone_pdf(cos_t_max)
+        w_uniform = smp.uniform_sample_sphere(u)
+        p_in = center + radius[:, None] * w_uniform
+        wi_in = normalize(p_in - ref_p)
+        d2_in = distance_squared(ref_p, p_in)
+        cos_surf = torch.abs(dot(w_uniform, -wi_in))
+        area = 4.0 * math.pi * radius * radius
+        pdf_in = d2_in / torch.clamp(cos_surf * area, min=1e-12)
+        iv = inside[:, None]
+        wi_m = torch.where(iv, wi_in, wi_s)
+        p_m = torch.where(iv, p_in, p_s)
+        n_m = torch.where(iv, w_uniform, n_obj)
+        emit = two | (dot(n_m, -wi_m) > 0.0)
+        wi = torch.where(m, wi_m, wi)
+        li = torch.where(m, torch.where(emit[:, None], L, 0.0), li)
+        pdf = torch.where(m[:, 0], torch.where(inside, pdf_in, pdf_cone), pdf)
+        p_light = torch.where(m, p_m, p_light)
+
+        # triangle: uniform area sampling, converted to solid angle
+        m = (m_area & (stype == sc.SHAPE_TRIANGLE))[:, None]
+        p0, p1, p2 = _gather_tri(scene, sidx)
+        b = smp.uniform_sample_triangle(u)
+        p_t = b[:, 0:1] * p0 + b[:, 1:2] * p1 + (1.0 - b[:, 0:1] - b[:, 1:2]) * p2
+        ng = cross(p1 - p0, p2 - p0)
+        area_t = 0.5 * length(ng)
+        ng = normalize(ng)
+        d_t = p_t - ref_p
+        d2_t = torch.clamp(dot(d_t, d_t), min=1e-12)
+        wi_t = d_t / torch.sqrt(d2_t)[:, None]
+        cos_surf = torch.abs(dot(ng, -wi_t))
+        pdf_t = d2_t / torch.clamp(cos_surf * area_t, min=1e-12)
+        pdf_t = torch.where(cos_surf < 1e-7, 0.0, pdf_t)
+        emit = two | (dot(ng, -wi_t) > 0.0)
+        wi = torch.where(m, wi_t, wi)
+        li = torch.where(m, torch.where(emit[:, None], L, 0.0), li)
+        pdf = torch.where(m[:, 0], pdf_t, pdf)
+        p_light = torch.where(m, p_t, p_light)
+
+    return {"wi": wi, "li": li, "pdf": pdf, "p_light": p_light,
+            "is_delta": is_delta}
+
+
+def pdf_li(scene, light_idx, ref_p, wi, light_types):
+    """Light::Pdf_Li for the BSDF-sampling MIS weight; 0 for delta lights."""
+    lt = scene.lights
+    li_t = lt.light_type[light_idx]
+    n = ref_p.shape[0]
+    pdf = torch.zeros(n, dtype=torch.float32, device=ref_p.device)
+    if sc.LIGHT_AREA not in light_types:
+        return pdf
+    m_area = li_t == sc.LIGHT_AREA
+    stype = lt.shape_type[light_idx]
+    sidx = lt.shape_idx[light_idx].to(torch.int64)
+
+    m = m_area & (stype == sc.SHAPE_SPHERE)
+    center, radius = _sphere_center_radius(scene, sidx)
+    dist2 = torch.clamp(distance_squared(ref_p, center), min=1e-12)
+    outside = dist2 > radius * radius
+    cos_t_max = safe_sqrt(1.0 - radius * radius / dist2)
+    oc = ref_p - center
+    b_q = 2.0 * dot(wi, oc)
+    c_q = dot(oc, oc) - radius * radius
+    disc = b_q * b_q - 4.0 * c_q
+    hits = disc >= 0.0
+    root = safe_sqrt(disc)
+    t0 = 0.5 * (-b_q - root)
+    t1 = 0.5 * (-b_q + root)
+    t_hit = torch.where(t0 > 1e-4, t0, t1)
+    p_hit = ref_p + t_hit[:, None] * wi
+    n_hit = (p_hit - center) / torch.clamp(radius, min=1e-12)[:, None]
+    cos_surf = torch.abs(dot(n_hit, -wi))
+    area = 4.0 * math.pi * radius * radius
+    pdf_in = (t_hit * t_hit) / torch.clamp(cos_surf * area, min=1e-12)
+    pdf_in = torch.where(hits & (t_hit > 1e-4), pdf_in, 0.0)
+    pdf_m = torch.where(outside,
+                        torch.where(hits, smp.uniform_cone_pdf(cos_t_max), 0.0),
+                        pdf_in)
+    pdf = torch.where(m, pdf_m, pdf)
+
+    m = m_area & (stype == sc.SHAPE_TRIANGLE)
+    p0, p1, p2 = _gather_tri(scene, sidx)
+    r = intersect_triangle(ref_p, wi, torch.full((n,), 1e30, device=ref_p.device),
+                           p0, p1, p2)
+    ng = cross(p1 - p0, p2 - p0)
+    area_t = 0.5 * length(ng)
+    ng = normalize(ng)
+    cos_surf = torch.abs(dot(ng, -wi))
+    t_s = torch.where(r["hit"], r["t"], 1.0)
+    pdf_m = torch.where(r["hit"] & (cos_surf > 1e-7),
+                        t_s * t_s / torch.clamp(cos_surf * area_t, min=1e-12), 0.0)
+    return torch.where(m, pdf_m, pdf)
+
+
+def area_light_emission(scene, arealight_idx, ng, wo):
+    """DiffuseAreaLight::L (diffuse.cpp:53): emitted radiance toward wo."""
+    lt = scene.lights
+    m = arealight_idx >= 0
+    ai = torch.clamp(arealight_idx.to(torch.int64), 0, lt.L.shape[0] - 1)
+    emit = lt.two_sided[ai] | (dot(ng, wo) > 0.0)
+    return torch.where((m & emit)[:, None], lt.L[ai], 0.0)
+
+
+def escaped_radiance(scene, d, light_types):
+    """Radiance of escaped rays: infinite lights only, which this port does
+    not have (the scene refuses them), so zero."""
+    return torch.zeros_like(d)
