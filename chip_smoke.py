@@ -3,23 +3,36 @@
 
     python3 chip_smoke.py [--profile FILE]
 
-Phases, each printing its result on a line of its own:
+Phases, each printing its result on a line of its own and its seconds:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/bvh4_traverse.cu (nvcc, sm_90a) and the host BVH builder
-     (g++), both compilers started together, into build/;
-  3. kernel: bvh4_traverse held against its plain PyTorch version on the
-     card, on a 200-triangle soup, on a ~1M-triangle mesh with 64k rays, and
-     on every launch of one sample of the main path (its camera rays and
-     each bounce's merged NEE batch, timed with its any-hit shadow lanes as
-     the render launches it); each with two floors, the bytes of one read
-     of the tables and rays, and the bytes of every node and triangle visit;
-  4. main path: pbrt_tpu_torch.integrators.path.render on a 400x400, 8 spp,
+  2. build: csrc/bvh4_traverse.cu and csrc/bvh2_traverse.cu (one nvcc each,
+     sm_90a) and the host BVH builder (g++), all compilers started together,
+     into build/; then the layout probe's Triton kernel, compiled once;
+  3. BVH kernels: bvh4_traverse and bvh2_traverse each held against its
+     plain PyTorch version on the card, and bvh2 against bvh4, on a
+     200-triangle soup, on a ~1M-triangle mesh with 64k rays, and on every
+     launch of one sample of the main path (its camera rays and each
+     bounce's merged NEE batch, timed with its any-hit shadow lanes as the
+     render launches it), once as the default path launches them and once
+     under PBRT_TPU_BVH4=0; each with two floors, the bytes of one read of
+     the tables and rays, and the bytes of every node and triangle visit;
+  4. layout probe: the Triton chain (form C) against form B at N = 163840,
+     forms A, B and C timed, then the probe's entry point driven once;
+  5. main path: pbrt_tpu_torch.integrators.path.render on a 400x400, 8 spp,
      depth-5 scene of ~262k triangles (halton sampler, box filter): finite,
      non-zero, 8 x (1 + 5) kernel launches, and a bit-identical repeat;
-     with --profile FILE, one more sample under torch.profiler, its
-     table of device operations written to FILE;
-  5. card against CPU: a small scene rendered on the card and on the CPU
+     with --profile FILE, one more sample under torch.profiler, its table
+     of device operations written to FILE;
+  6. card against CPU: a small scene rendered on the card and on the CPU
      (the plain versions) at depth 1 (per pixel) and depth 3 (image mean);
+  7. parity ladder: the in-repo ladder scenes through render.render_file on
+     the card, against the pbrt-v3 goldens at tests/test_parity_images.py's
+     thresholds;
+  8. CLI: the main scene written as a .pbrt file and a binary PLY, rendered
+     by `python -m pbrt_tpu_torch` in a subprocess and by render_file with
+     each BVH kernel in turns, twice each (spatial light distribution), 48
+     launches of that kernel and none of the other, images equal to phase
+     5's;
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -27,6 +40,7 @@ needs the repository beside it and a CUDA card; it does not use JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -37,10 +51,26 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
+SMOKE_DIR = HERE / "build" / "smoke"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-NODE_FLOPS = 4 * 27  # per 4-wide node visit: 4 slab tests
+SLAB_FLOPS = 27  # one box's slab test
 TRI_FLOPS = 45  # per Moller-Trumbore test
+SPP, DEPTH, RES = 8, 5, (400, 400)
+
+# tests/test_parity_images.py:35-42: (scene, rel-tol, min match_frac,
+# max mean-rel).  c2u_uniform has no golden; d_media_volpath (media) and
+# killeroo_64_4spp (it includes files from outside the repository) are not
+# rendered.
+LADDER = [
+    ("a_floor_point", 1e-3, 0.995, 5e-3),
+    ("c3_plastic_d1", 1e-3, 0.995, 5e-3),
+    ("b_arealight", 1e-3, 0.999, 1e-4),
+    ("c2_twolights_d2", 1e-3, 0.995, 1e-3),
+    ("c4_mirror_d3", 1e-3, 0.995, 1e-3),
+    ("c1_matte_point_d5", 1e-3, 0.70, 1e-3),
+    ("c_indirect", 2e-2, 0.70, 2e-2),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -50,6 +80,25 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str):
     if not ok:
         raise SmokeFailure(what)
+
+
+def phase(name: str, t0: float):
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+@contextlib.contextmanager
+def bvh_switch(value: str):
+    """PBRT_TPU_BVH4 (the JAX package's switch, which the port reads at
+    each traversal) set to `value` inside the block, restored after."""
+    old = os.environ.get("PBRT_TPU_BVH4")
+    os.environ["PBRT_TPU_BVH4"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PBRT_TPU_BVH4")
+        else:
+            os.environ["PBRT_TPU_BVH4"] = old
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +190,73 @@ def camera_for(cameras, tf, res):
         tf.look_at([0, -8, 4], [0, 0, 2], [0, 0, 1]), res, fov_deg=45.0)
 
 
+MAIN_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "main.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]
+WorldBegin
+Material "matte" "rgb Kd" [0.5 0.5 0.8]
+Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+  "integer indices" [0 1 2 2 3 0]
+Shape "trianglemesh" "point P" [-10 6 0  10 6 0  10 6 12  -10 6 12]
+  "integer indices" [0 1 2 2 3 0]
+AttributeBegin
+  Material "plastic" "rgb Kd" [0.4 0.2 0.2] "rgb Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  Shape "plymesh" "string filename" "blob.ply"
+AttributeEnd
+AttributeBegin
+  Material "mirror" "rgb Kr" [0.9 0.9 0.9]
+  Translate 3.7 -0.5 1.2
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [40 40 40]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_main_pbrt(out_dir: Path) -> Path:
+    """main_scene as a .pbrt file (the default light strategy, spatial) and
+    its blob as a binary little-endian PLY, shape for shape."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(512, 256, seed=0, center=(0.0, 0.0, 2.2), radius=2.0)
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(idx)}\nproperty list uchar int vertex_indices\n"
+            "end_header\n").encode()
+    faces = np.zeros(len(idx), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    faces["n"] = 3
+    faces["i"] = idx
+    with open(out_dir / "blob.ply", "wb") as f:
+        f.write(head + v.astype("<f4").tobytes() + faces.tobytes())
+    path = out_dir / "main.pbrt"
+    path.write_text(MAIN_PBRT.format(xres=RES[0], yres=RES[1], spp=SPP,
+                                     depth=DEPTH))
+    return path
+
+
 # ---------------------------------------------------------------------------
-# Kernel against plain
+# BVH kernels against their plain versions and against each other
 # ---------------------------------------------------------------------------
+
+def bvh_kernels(bvh) -> dict:
+    """The two traversal kernels: wrapper, plain version, the scene's table
+    and depth fields, and the bytes and operations of one node visit."""
+    return {
+        "bvh4": dict(wrapper=bvh.bvh4_traverse, plain=bvh.bvh4_traverse_plain,
+                     nodes="bvh4_nodes", depth="bvh4_depth",
+                     node_bytes=bvh.NODE_BYTES, node_flops=4 * SLAB_FLOPS),
+        "bvh2": dict(wrapper=bvh.bvh2_traverse, plain=bvh.bvh2_traverse_plain,
+                     nodes="bvh2_nodes", depth="bvh2_depth",
+                     node_bytes=bvh.NODE2_BYTES, node_flops=SLAB_FLOPS),
+    }
+
 
 def time_cuda(fn, reps: int) -> float:
     import torch
@@ -160,8 +273,8 @@ def time_cuda(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_case(name, bvh, scene, o, d, t_max, any_mask, timed: str):
-    """Hold the kernel against the plain version on one ray batch (with and
+def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
+    """Hold one kernel against its plain version on one ray batch (with and
     without the any-hit mask); returns its measurements.  timed = "mask"
     times and counts the launch with the any-hit mask (as the main path
     launches its merged batches), "closest" without it."""
@@ -172,20 +285,21 @@ def kernel_case(name, bvh, scene, o, d, t_max, any_mask, timed: str):
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     mode = any_mask.to(torch.float32)
     timed_mode = {"mask": mode, "closest": zeros}[timed]
-    args = (scene.bvh4_nodes, scene.prim_tris, o, d, t_max)
-    saved = bvh.bvh4_traverse.launches
-    t_k, p_k = bvh.bvh4_traverse(*args, zeros, scene.bvh4_depth)
-    tm_k, pm_k = bvh.bvh4_traverse(*args, mode, scene.bvh4_depth)
-    t_p, p_p = bvh.bvh4_traverse_plain(*args, zeros)
-    tm_p, pm_p = bvh.bvh4_traverse_plain(*args, mode)
+    nodes, depth = getattr(scene, k["nodes"]), getattr(scene, k["depth"])
+    args = (nodes, scene.prim_tris, o, d, t_max)
+    wrapper, plain = k["wrapper"], k["plain"]
+    saved = wrapper.launches
+    t_k, p_k = wrapper(*args, zeros, depth)
+    tm_k, pm_k = wrapper(*args, mode, depth)
+    t_p, p_p = plain(*args, zeros)
+    tm_p, pm_p = plain(*args, mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, visits, tests = bvh.bvh4_traverse_plain(*args, timed_mode,
-                                                  return_counts=True)
+    _, _, visits, tests = plain(*args, timed_mode, return_counts=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ms = time_cuda(lambda: bvh.bvh4_traverse(*args, timed_mode, scene.bvh4_depth), 10)
-    bvh.bvh4_traverse.launches = saved  # comparison launches do not count
+    ms = time_cuda(lambda: wrapper(*args, timed_mode, depth), 10)
+    wrapper.launches = saved  # comparison launches do not count
 
     hk, hp = p_k >= 0, p_p >= 0
     hit_agree = (hk == hp).float().mean().item()
@@ -209,21 +323,53 @@ def kernel_case(name, bvh, scene, o, d, t_max, any_mask, timed: str):
     # once (the node and triangle tables, 40 B per ray), against the
     # operations this run's visits need.  visit_bound_ms: every node visit
     # and triangle test read from device memory, as if nothing stayed in L2.
-    table_bytes = scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes
+    table_bytes = nodes.nbytes + scene.prim_tris.nbytes
     t_bytes = (table_bytes + n * bvh.RAY_BYTES) / H100_BYTES_PER_S * 1e3
-    t_ops = (node_v * NODE_FLOPS + prim_t * TRI_FLOPS) / H100_F32_FLOPS * 1e3
-    visit_bytes = node_v * bvh.NODE_BYTES + prim_t * bvh.PRIM_BYTES + n * bvh.RAY_BYTES
+    t_ops = (node_v * k["node_flops"] + prim_t * TRI_FLOPS) / H100_F32_FLOPS * 1e3
+    visit_bytes = node_v * k["node_bytes"] + prim_t * bvh.PRIM_BYTES + n * bvh.RAY_BYTES
     out = dict(case=name, rays=n, timed=timed, hit_agree=hit_agree,
                prim_agree=prim_agree, t_rel_err=t_rel, max_abs_err=max_abs,
                mismatch_frac=1.0 - (hk == hp).float().mean().item()
                + (both & ~same).float().mean().item(),
                ms=ms, plain_ms=plain_ms, node_visits_per_ray=node_v / n,
                tri_tests_per_ray=prim_t / n, table_mb=table_bytes / 1e6,
+               visit_mb=visit_bytes / 1e6,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3)
-    print("kernel-check " + json.dumps(out), flush=True)
+    print(f"kernel-check {json.dumps(out)}", flush=True)
     return out
+
+
+def cross_check(name, kernels, scene, o, d, t_max, any_mask):
+    """bvh2 against bvh4 on one batch: hit flags equal, t equal where the
+    prims agree, prims agree on >= 99.9% of the hits, and the any-hit
+    occlusion equal."""
+    import torch
+
+    n = o.shape[0]
+    zeros = torch.zeros(n, dtype=torch.float32, device=o.device)
+    mode = any_mask.to(torch.float32)
+    out = {}
+    for kind, k in kernels.items():
+        saved = k["wrapper"].launches
+        nodes, depth = getattr(scene, k["nodes"]), getattr(scene, k["depth"])
+        out[kind] = [k["wrapper"](nodes, scene.prim_tris, o, d, t_max, m, depth)
+                     for m in (zeros, mode)]
+        k["wrapper"].launches = saved
+    (t2, p2), (_, pm2) = out["bvh2"]
+    (t4, p4), (_, pm4) = out["bvh4"]
+    hits = p4 >= 0
+    same = hits & (p2 == p4)
+    prim_agree = (same.sum() / hits.sum().clamp(min=1)).item()
+    check(torch.equal(p2 >= 0, hits), f"{name}: bvh2 and bvh4 hit flags differ")
+    check(torch.equal(t2[same], t4[same]), f"{name}: bvh2 and bvh4 t differ")
+    check(prim_agree >= 0.999, f"{name}: bvh2/bvh4 prim agreement {prim_agree}")
+    check(torch.equal((pm2 >= 0)[any_mask], (pm4 >= 0)[any_mask]),
+          f"{name}: bvh2 and bvh4 any-hit occlusion differ")
+    print(f"kernel-cross {name}: bvh2 vs bvh4 hit flags equal, prims agree "
+          f"{prim_agree:.6f}, t equal where they agree, occlusion equal",
+          flush=True)
 
 
 def mesh_rays(rs, n, center, radius, device):
@@ -285,42 +431,31 @@ def profile_render(scene, camera, film_cfg, cfg, res, table_path: Path):
 
 
 # ---------------------------------------------------------------------------
-# The run
+# Phases
 # ---------------------------------------------------------------------------
 
-def run(profile: Path | None = None) -> dict:
+def reset_counts(counted):
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def read_counts(counted) -> dict:
+    return {name: fn.launches for name, fn in counted.items()}
+
+
+def bvh_phase(sc, tf, path, bvh, cameras, film_cls, sampler_cls, dev):
+    """Phase 3.  Returns {kernel: {case: measurements}}."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SmokeFailure("torch.cuda.is_available() is false")
-    if not (HERE / "pbrt_tpu_torch" / "csrc" / "bvh4_traverse.cu").exists():
-        raise SmokeFailure("pbrt_tpu_torch/ is not beside chip_smoke.py")
-    sys.path.insert(0, str(HERE))
-    from pbrt_tpu_torch import cameras, native
-    from pbrt_tpu_torch import scene as sc
-    from pbrt_tpu_torch.core import transform as tf
-    from pbrt_tpu_torch.film import FilmConfig
-    from pbrt_tpu_torch.integrators import path
-    from pbrt_tpu_torch.ops import bvh
-    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    kernels = bvh_kernels(bvh)
+    results = {kind: {} for kind in kernels}
 
-    dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else name
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    def both(label, scene, o, d, t_max, mask, timed):
+        for kind, k in kernels.items():
+            results[kind][label] = kernel_case(f"{kind}-{label}", k, bvh, scene,
+                                               o, d, t_max, mask, timed)
+        cross_check(label, kernels, scene, o, d, t_max, mask)
 
-    # 2. build
-    t0 = time.perf_counter()
-    native.build()
-    print(f"build: bvh4_traverse.cu + bvh_builder.cpp in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    # 3. kernel against plain
     rs = np.random.RandomState(1)
     soup = soup_scene(sc.SceneBuilder, sc, tf).build(device=dev)
     n = 65536
@@ -334,10 +469,8 @@ def run(profile: Path | None = None) -> dict:
     mask = torch.as_tensor(rs.rand(n) < 0.5, device=dev)
     for label, (oo, dd) in (("soup200-coherent", (o, d)),
                             ("soup200-incoherent", (oi, di))):
-        kernel_case(label, bvh, soup,
-                    torch.as_tensor(oo, device=dev).contiguous(),
-                    torch.as_tensor(dd, device=dev).contiguous(), tmax, mask,
-                    timed="closest")
+        both(label, soup, torch.as_tensor(oo, device=dev).contiguous(),
+             torch.as_tensor(dd, device=dev).contiguous(), tmax, mask, "closest")
 
     t0 = time.perf_counter()
     big = sc.SceneBuilder()
@@ -346,85 +479,310 @@ def run(profile: Path | None = None) -> dict:
     big.add_triangle_mesh(idx, v, material=m)
     big.add_point_light(tf.translate(0, 0, 10), (1, 1, 1))
     big = big.build(device=dev)
-    big_build_s = time.perf_counter() - t0
     print(f"mesh-1M: {idx.shape[0]} triangles, {big.bvh4_nodes.shape[0]} "
-          f"4-wide nodes, depth {big.bvh4_depth}, host build {big_build_s:.2f} s",
-          flush=True)
+          f"4-wide nodes (depth {big.bvh4_depth}), {big.bvh2_nodes.shape[0]} "
+          f"binary nodes (depth {big.bvh2_depth}), host build "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     o_b, d_b = mesh_rays(rs, 65536, (0.0, 0.0, 0.0), 3.0, dev)
-    kernel_case("mesh1M-64k", bvh, big, o_b, d_b,
-                torch.full((65536,), 1e30, device=dev), mask, timed="closest")
+    both("mesh1M-64k", big, o_b, d_b, torch.full((65536,), 1e30, device=dev),
+         mask, "closest")
     del big
 
-    # main scene: capture the kernel's inputs on one sample of the main path
-    # (the camera rays, then each bounce's merged [shadow | MIS | extension]
-    # batch, whose dead lanes carry t_max = 0)
-    res = (400, 400)
-    spp, depth = 8, 5
+    # The main scene: capture the kernels' inputs on one sample of the main
+    # path (its camera rays, then each bounce's merged [shadow | MIS |
+    # extension] batch, whose dead lanes carry t_max = 0), once as the
+    # default path traverses and once under PBRT_TPU_BVH4=0.
     t0 = time.perf_counter()
     scene = main_scene(sc.SceneBuilder, sc, tf).build(device=dev)
     torch.cuda.synchronize()
-    host_build_s = time.perf_counter() - t0
     n_tris = int((scene.prim_tris[:, 3] == 0).sum())
-    print(f"main scene: {n_tris} triangles, host build {host_build_s:.2f} s",
-          flush=True)
-    camera = camera_for(cameras, tf, res)
-    film_cfg = FilmConfig(full_resolution=res)
-    cfg = path.PathConfig(max_depth=depth)
-    with bvh.record_calls() as captured:
-        path.render(scene, camera, film_cfg, SamplerConfig("halton", 1, res), cfg)
-    check(len(captured) == 1 + depth,
-          f"one sample launched the kernel {len(captured)} times, not {1 + depth}")
-    labels = ["main-camera"] + [f"main-nee-merged-b{b}" for b in range(depth)]
-    results = {}
-    for label, (oc, dc, tc, mc) in zip(labels, captured):
-        results[label] = kernel_case(label, bvh, scene, oc, dc, tc, mc > 0,
-                                     timed="mask")
-    del captured
-    kernel_ms_per_spp = sum(r["ms"] for r in results.values())
-    plain_ms_per_spp = sum(r["plain_ms"] for r in results.values())
-    bound_ms_per_spp = sum(r["bound_ms"] for r in results.values())
-    visit_bound_ms_per_spp = sum(r["visit_bound_ms"] for r in results.values())
+    print(f"main scene: {n_tris} triangles, binary depth {scene.bvh2_depth}, "
+          f"host build {time.perf_counter() - t0:.2f} s", flush=True)
+    camera = camera_for(cameras, tf, RES)
+    film_cfg = film_cls(full_resolution=RES)
+    cfg = path.PathConfig(max_depth=DEPTH)
+    labels = ["main-camera"] + [f"main-nee-merged-b{b}" for b in range(DEPTH)]
+    for kind, switch in (("bvh4", "1"), ("bvh2", "0")):
+        with bvh_switch(switch), bvh.record_calls() as captured:
+            path.render(scene, camera, film_cfg, sampler_cls("halton", 1, RES), cfg)
+        check(len(captured) == 1 + DEPTH,
+              f"one sample launched {kind} {len(captured)} times, not {1 + DEPTH}")
+        for label, (oc, dc, tc, mc) in zip(labels, captured):
+            results[kind][label] = kernel_case(f"{kind}-{label}", kernels[kind], bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask")
+            cross_check(f"{kind}-{label}", kernels, scene, oc, dc, tc, mc > 0)
+        del captured
+    return results, scene, camera, film_cfg, cfg
 
-    # 4. main path, through the entry point a user calls
-    sampler = SamplerConfig("halton", spp, res)
-    bvh.bvh4_traverse.launches = 0
+
+def probe_phase(bp, dev, counted):
+    """Phase 4: the Triton chain against form B, the three forms timed, and
+    the probe's entry point driven once with the counts at 0."""
+    import torch
+
+    n = bp.N
+    p, d, ns, t = bp.inputs(n, dev)
+    pT, dT, nsT = (x.t().contiguous() for x in (p, d, ns))
+    saved = bp.chain_fused.launches
+    pc, tc = bp.chain_fused(pT, dT, nsT, t)
+    pb, tb = bp.chain_planar(pT, dT, nsT, t)
     torch.cuda.synchronize()
-    t0, c0 = time.perf_counter(), time.process_time()
-    img, rays = path.render(scene, camera, film_cfg, sampler, cfg,
-                            count_rays=True)
+    bp.chain_fused.launches = saved
+    out = {}
+    for key, got, ref in (("p", pc, pb), ("t", tc, tb)):
+        err = (got - ref).abs()
+        within = (err <= 1e-5 * ref.abs() + 1e-6).float().mean().item()
+        out[key] = dict(max_abs=err.max().item(), exact=(err == 0).float().mean().item(),
+                        within=within)
+        check(bool(torch.isfinite(got).all()), f"probe form C {key} is not finite")
+        check(within >= 0.999, f"probe form C {key}: {within} within 1e-5 relative")
+    print(f"probe-check form C vs B at N={n}: {json.dumps(out)}", flush=True)
+    ms_a = bp.time_ms(bp.chain_rows, p, d, ns, t)
+    ms_b = bp.time_ms(bp.chain_planar, pT, dT, nsT, t)
+    ms_c = bp.time_ms(bp.chain_fused, pT, dT, nsT, t)
+    bp.chain_fused.launches = saved
+    t_bytes = n * bp.BYTES_PER_ELEMENT / H100_BYTES_PER_S * 1e3
+    t_ops = n * bp.FLOPS_PER_ELEMENT / H100_F32_FLOPS * 1e3
+    print(f"probe times: A {ms_a:.4f} ms, B {ms_b:.4f} ms, C {ms_c:.4f} ms per call; "
+          f"C's floor {max(t_bytes, t_ops):.5f} ms ("
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}: {t_bytes:.5f} ms of "
+          f"bytes, {t_ops:.5f} ms of operations)", flush=True)
+    reset_counts(counted)
+    bp.main(["--reps", "20"])
+    launches = read_counts(counted)
+    check(launches["chain_fused"] > 0, "the probe's entry point launched no kernel")
+    print(f"probe entry point: launches {launches}", flush=True)
+    return dict(ms=ms_c, plain_ms=ms_b, rows_ms=ms_a, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=max(out["p"]["max_abs"], out["t"]["max_abs"]),
+                exact_frac=min(out["p"]["exact"], out["t"]["exact"]),
+                launches=launches["chain_fused"], n=n)
+
+
+def ladder_phase(render, read_pfm, dev):
+    """Phase 7: the parity ladder on the card against the goldens."""
+    out_dir = SMOKE_DIR / "ladder"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, tol, min_frac, max_mean_rel in LADDER:
+        t0 = time.perf_counter()
+        img, _ = render.render_file(str(HERE / "refgold/parity" / f"{name}.pbrt"),
+                                    out=str(out_dir / f"{name}.pfm"), device=dev)
+        ref = read_pfm(str(HERE / "refgold/goldens/parity" / f"{name}.pfm"))
+        check(img.shape == ref.shape, f"ladder {name}: shape {img.shape}")
+        rel = np.abs(ref - img) / np.maximum(np.abs(ref), 1e-2)
+        frac = float(np.all(rel <= tol, -1).mean())
+        mean_rel = abs(float(img.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-6)
+        print(f"ladder {name}: match_frac {frac:.4f} (>= {min_frac}), mean rel "
+              f"{mean_rel:.3e} (<= {max_mean_rel}), {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        check(frac >= min_frac and mean_rel <= max_mean_rel,
+              f"ladder {name}: match_frac {frac}, mean rel {mean_rel}")
+    img, _ = render.render_file(str(HERE / "refgold/parity/c2u_uniform.pbrt"),
+                                out=str(out_dir / "c2u_uniform.pfm"), device=dev)
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          "ladder c2u_uniform: image not finite or black")
+    print(f"ladder c2u_uniform: no golden; finite, mean {float(img.mean()):.6f}",
+          flush=True)
+    print("ladder skipped: d_media_volpath (media are not ported), "
+          "killeroo_64_4spp (it includes files from outside the repository)",
+          flush=True)
+
+
+def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
+    """Phase 8: the main scene as a .pbrt file through the CLI and through
+    render_file with each BVH kernel."""
+    import torch
+
+    scene_path = write_main_pbrt(SMOKE_DIR)
+    out = SMOKE_DIR / "out.pfm"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", str(scene_path),
+                        "-o", str(out), "--quiet"], cwd=HERE,
+                       capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m pbrt_tpu_torch exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    img = read_pfm(str(out))
+    check(img.shape == (RES[1], RES[0], 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, "CLI image not finite or black")
+    print(f"cli subprocess: {sub_s:.2f} s for the process; it printed: "
+          f"{r.stdout.strip().splitlines()[0]}", flush=True)
+
+    # Each kernel twice, in turns (bvh4, bvh2, bvh2, bvh4), so that the two
+    # render walls are compared within one call on one host.
+    runs = {}
+    for kind, switch in (("bvh4", "1"), ("bvh2", "0"), ("bvh2", "0"),
+                         ("bvh4", "1")):
+        with bvh_switch(switch):
+            reset_counts(counted)
+            img, st = render.render_file(str(scene_path), out=str(out), device=dev)
+            launches = read_counts(counted)
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == SPP * (1 + DEPTH),
+              f"render_file ({kind}) launched it {launches[f'{kind}_traverse']} "
+              f"times, not {SPP * (1 + DEPTH)}")
+        check(launches[f"{other}_traverse"] == 0,
+              f"render_file ({kind}) launched {other}")
+        check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+              f"render_file ({kind}): image not finite or black")
+        ph = st["phases"]
+        mrays = st["rays_traced"] / ph["Rendering"] / 1e6
+        print(f"cli render_file {kind}: parse + PLY load {ph['Parsing']:.3f} s, host "
+              f"build {ph['Scene construction']:.3f} s, spatial distribution "
+              f"{ph['Light distribution']:.3f} s, render wall {ph['Rendering']:.3f} s "
+              f"(process CPU {st['render_cpu_s']:.3f} s), {int(st['rays_traced'])} "
+              f"rays, {mrays:.3f} Mrays/s, launches {launches}", flush=True)
+        if kind in runs:
+            check(np.array_equal(img, runs[kind]["img"]),
+                  f"render_file ({kind}): a second render differs")
+        runs[kind] = dict(img=img, launches=launches)
+    m4, m2 = float(runs["bvh4"]["img"].mean()), float(runs["bvh2"]["img"].mean())
+    check(abs(m4 - m2) <= 1e-3 * m4, f"bvh2 image mean {m2} vs bvh4 {m4}")
+    same = np.array_equal(runs["bvh4"]["img"], ref_img)
+    print(f"cli images: means {m4:.6f} (bvh4) {m2:.6f} (bvh2); bvh4 image equal "
+          f"to phase 5's SceneBuilder render: {same}; bvh2 image equal: "
+          f"{np.array_equal(runs['bvh2']['img'], runs['bvh4']['img'])}", flush=True)
+    check(same, "the .pbrt render differs from the SceneBuilder render")
+
+    # What the spatial pick costs per spp: one pick per bounce at the
+    # batch's width, on points inside the scene.
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    scene = lightdistrib.ensure_spatial_light_distribution(
+        parse_pbrt_file(str(scene_path)).build_scene(dev))
+    n = RES[0] * RES[1]
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = scene.spatial_b0 + torch.rand((n, 3), generator=g, device=dev) * scene.spatial_diag
+    u = torch.rand(n, generator=g, device=dev)
+    args = (scene.spatial_grid_res, scene.spatial_b0, scene.spatial_diag,
+            scene.spatial_cdf, scene.spatial_pmf, p, u)
+    dev_ms = time_cuda(lambda: lightdistrib.spatial_pick_light(*args), 20)
     torch.cuda.synchronize()
-    wall, cpu = time.perf_counter() - t0, time.process_time() - c0
-    launches = bvh.bvh4_traverse.launches
-    check(launches == spp * (1 + depth),
-          f"main path launched the kernel {launches} times, not {spp * (1 + depth)}")
-    check(tuple(img.shape) == (res[1], res[0], 3), f"image shape {tuple(img.shape)}")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lightdistrib.spatial_pick_light(*args)
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"spatial pick at {n} lanes: {dev_ms:.4f} ms by CUDA events, "
+          f"{host_ms:.4f} ms host wall with a sync per call; per spp "
+          f"({DEPTH} bounces): {DEPTH * dev_ms:.4f} / {DEPTH * host_ms:.4f} ms",
+          flush=True)
+    return runs["bvh2"]["launches"]["bvh2_traverse"]
+
+
+# ---------------------------------------------------------------------------
+# The run
+# ---------------------------------------------------------------------------
+
+def run(profile: Path | None = None) -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    if not (HERE / "pbrt_tpu_torch" / "csrc" / "bvh2_traverse.cu").exists():
+        raise SmokeFailure("pbrt_tpu_torch/ is not beside chip_smoke.py")
+    sys.path.insert(0, str(HERE))
+    from pbrt_tpu_torch import cameras, native, render
+    from pbrt_tpu_torch import scene as sc
+    from pbrt_tpu_torch.core import transform as tf
+    from pbrt_tpu_torch.film import FilmConfig
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.tools import bench_layout_probe as bp
+    from pbrt_tpu_torch.utils.imageio import read_pfm
+
+    counted = {"bvh4_traverse": bvh.bvh4_traverse,
+               "bvh2_traverse": bvh.bvh2_traverse,
+               "chain_fused": bp.chain_fused}
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    t_all = time.perf_counter()
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else name
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    # 2. build: every native library at once, then the Triton kernel
+    t0 = time.perf_counter()
+    native.build()
+    t1 = time.perf_counter()
+    x = torch.zeros((3, 8), device=dev)
+    bp.chain_fused(x, x, x, torch.zeros(8, device=dev))
+    torch.cuda.synchronize()
+    bp.chain_fused.launches = 0
+    print(f"build: bvh4_traverse.cu + bvh2_traverse.cu + bvh_builder.cpp in "
+          f"{t1 - t0:.2f} s, the Triton chain kernel in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    phase("build", t0)
+
+    # 3. BVH kernels against plain and against each other
+    t0 = time.perf_counter()
+    results, scene, camera, film_cfg, cfg = bvh_phase(
+        sc, tf, path, bvh, cameras, FilmConfig, SamplerConfig, dev)
+    per_spp = {}
+    for kind, res in results.items():
+        main = [r for label, r in res.items() if label.startswith("main-")]
+        per_spp[kind] = {k: sum(r[k] for r in main) for k in
+                         ("ms", "plain_ms", "bound_ms", "visit_bound_ms", "visit_mb")}
+        per_spp[kind]["node_visits"] = sum(r["node_visits_per_ray"] * r["rays"] for r in main)
+        print(f"{kind} per spp of the main path: {json.dumps(per_spp[kind])}",
+              flush=True)
+    phase("bvh kernels", t0)
+
+    # 4. layout probe
+    t0 = time.perf_counter()
+    probe = probe_phase(bp, dev, counted)
+    phase("layout probe", t0)
+
+    # 5. main path, through the entry point a user calls
+    t0 = time.perf_counter()
+    sampler = SamplerConfig("halton", SPP, RES)
+    reset_counts(counted)
+    torch.cuda.synchronize()
+    t1, c1 = time.perf_counter(), time.process_time()
+    img, rays = path.render(scene, camera, film_cfg, sampler, cfg, count_rays=True)
+    torch.cuda.synchronize()
+    wall, cpu = time.perf_counter() - t1, time.process_time() - c1
+    launches = read_counts(counted)
+    check(launches["bvh4_traverse"] == SPP * (1 + DEPTH),
+          f"main path launched bvh4 {launches['bvh4_traverse']} times, not "
+          f"{SPP * (1 + DEPTH)}")
+    check(launches["bvh2_traverse"] == 0, "main path launched bvh2")
+    check(tuple(img.shape) == (RES[1], RES[0], 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(float(img.mean()) > 0.0, "image is black")
-    t0, c0 = time.perf_counter(), time.process_time()
+    t1, c1 = time.perf_counter(), time.process_time()
     img2 = path.render(scene, camera, film_cfg, sampler, cfg)
     torch.cuda.synchronize()
-    wall2, cpu2 = time.perf_counter() - t0, time.process_time() - c0
+    wall2, cpu2 = time.perf_counter() - t1, time.process_time() - c1
     check(torch.equal(img, img2), "a second render differs")
-    print(f"main path: {res[0]}x{res[1]} @ {spp} spp, depth {depth}: "
+    print(f"main path: {RES[0]}x{RES[1]} @ {SPP} spp, depth {DEPTH}: "
           f"{wall:.3f} s wall ({wall2:.3f} s the repeat), {int(rays)} rays, "
-          f"{rays / wall / 1e6:.3f} Mrays/s, "
-          f"{launches} kernel launches, host build {host_build_s:.2f} s, "
+          f"{rays / wall / 1e6:.3f} Mrays/s, launches {launches}, "
           f"image mean {float(img.mean()):.6f}, repeat bit-identical", flush=True)
     # host CPU time of this process beside the wall: near the wall when the
     # render waits on the host issuing operations, not on the card
     print(f"main path host: process CPU {cpu:.3f} s ({cpu2:.3f} s the repeat), "
           f"{len(os.sched_getaffinity(0))} cores, load average "
           f"{os.getloadavg()[0]:.2f}", flush=True)
-    print(f"main path kernel time: {kernel_ms_per_spp:.4f} ms per spp "
-          f"(bound {bound_ms_per_spp:.4f} ms, visit bound "
-          f"{visit_bound_ms_per_spp:.4f} ms, plain {plain_ms_per_spp:.1f} ms), "
-          f"{kernel_ms_per_spp * spp / (wall * 1e3):.4%} of the render's wall",
-          flush=True)
+    k4 = per_spp["bvh4"]
+    print(f"main path kernel time: {k4['ms']:.4f} ms per spp (bound "
+          f"{k4['bound_ms']:.4f} ms, visit bound {k4['visit_bound_ms']:.4f} ms, "
+          f"plain {k4['plain_ms']:.1f} ms), {k4['ms'] * SPP / (wall * 1e3):.4%} "
+          f"of the render's wall", flush=True)
     if profile is not None:
-        profile_render(scene, camera, film_cfg, cfg, res, profile)
+        profile_render(scene, camera, film_cfg, cfg, RES, profile)
+    ref_img = img.cpu().numpy()
     del scene, img, img2
+    phase("main path", t0)
 
-    # 5. card against CPU on the small demo scene
+    # 6. card against CPU on the small demo scene
+    t0 = time.perf_counter()
     small = (32, 32)
     fields = demo_scene(sc.SceneBuilder, sc, tf).build_numpy()
     s_gpu = sc.SceneArrays.from_numpy(fields, dev)
@@ -446,31 +804,56 @@ def run(profile: Path | None = None) -> dict:
         else:
             check(mean_rel <= 1e-3, f"card vs cpu depth {depth_s}: {mean_rel}")
     del s_gpu
+    phase("card against cpu", t0)
 
-    # 6. the kernels line
-    nee = results["main-nee-merged-b0"]
-    worst = max(r["mismatch_frac"] for r in results.values())
-    print(json.dumps({"kernels": [{
-        "name": "bvh4_traverse",
-        "route": "cuda",
-        "source": "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
-        "replaces": "pbrt_tpu/ops/pallas_bvh.py:382 (_make_kernel4, "
-                    "pallas_call at :632)",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "mismatch_frac": worst,
-        "ms": nee["ms"],
-        "plain_ms": nee["plain_ms"],
-        "bound_ms": nee["bound_ms"],
-        "bound_by": nee["bound_by"],
+    # 7. parity ladder
+    t0 = time.perf_counter()
+    ladder_phase(render, read_pfm, dev)
+    phase("parity ladder", t0)
+
+    # 8. CLI at full width, both BVH kernels
+    t0 = time.perf_counter()
+    bvh2_launches = cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev)
+    phase("cli", t0)
+
+    # the kernels line
+    entries = []
+    for kind, src, replaces, n_launch in (
+            ("bvh4", "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
+             "pbrt_tpu/ops/pallas_bvh.py:382 (_make_kernel4, pallas_call at :632)",
+             launches["bvh4_traverse"]),
+            ("bvh2", "pbrt_tpu_torch/csrc/bvh2_traverse.cu",
+             "pbrt_tpu/ops/pallas_bvh.py:230 (_make_kernel, pallas_call at :666)",
+             bvh2_launches)):
+        res = results[kind]
+        nee = res["main-nee-merged-b0"]
+        entries.append({
+            "name": f"{kind}_traverse", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "mismatch_frac": max(r["mismatch_frac"] for r in res.values()),
+            "ms": nee["ms"], "plain_ms": nee["plain_ms"],
+            "bound_ms": nee["bound_ms"], "bound_by": nee["bound_by"],
+            "library_ms": None, "visit_bound_ms": nee["visit_bound_ms"],
+            "shape": f"{nee['rays']} rays (the main path's bounce-0 merged NEE "
+                     "batch, any-hit shadow lanes as launched)",
+            "ms_per_spp": per_spp[kind]["ms"],
+            "bound_ms_per_spp": per_spp[kind]["bound_ms"],
+            "visit_bound_ms_per_spp": per_spp[kind]["visit_bound_ms"],
+        })
+    entries.append({
+        "name": "chain_fused", "route": "triton",
+        "source": "pbrt_tpu_torch/tools/bench_layout_probe.py",
+        "replaces": "tools/bench_layout_probe.py:67 (pallas_fused, pallas_call at :79)",
+        "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+        "exact_frac": probe["exact_frac"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"], "rows_ms": probe["rows_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "library_ms": None,
-        "visit_bound_ms": nee["visit_bound_ms"],
-        "shape": f"{nee['rays']} rays (the main path's bounce-0 merged NEE "
-                 "batch, any-hit shadow lanes as launched)",
-        "ms_per_spp": kernel_ms_per_spp,
-        "bound_ms_per_spp": bound_ms_per_spp,
-        "visit_bound_ms_per_spp": visit_bound_ms_per_spp,
-    }]}), flush=True)
+        "shape": f"p, d, ns f32 [3, {probe['n']}], t f32 [{probe['n']}]",
+    })
+    print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all", flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
 

@@ -2,9 +2,10 @@
 
 Port of pbrt_tpu/accel/traverse.py for triangles and spheres:
 
-* ``intersect_closest`` / ``intersect_any`` dispatch to the 4-wide BVH
-  kernel path (ops/bvh.py: the CUDA kernel on the card, its plain version on
-  the CPU) behind the ``kernel_supported`` gate;
+* ``intersect_closest`` / ``intersect_any`` dispatch to the BVH kernel path
+  (ops/bvh.py: the 4-wide kernel, or the binary one under PBRT_TPU_BVH4=0;
+  the CUDA kernel on the card, its plain version on the CPU) behind the
+  ``kernel_supported`` gate;
 * ``_traverse`` is the watertight oracle over the binary BVH, the JAX
   package's lockstep "if-if" walk (one node visit or one primitive test per
   ray per step), kept for the tests;
@@ -134,12 +135,13 @@ def _traverse(scene, o, d, t_max, any_hit: bool = False, any_mask=None):
 def intersect_closest(scene, o, d, t_max, any_mask=None):
     """Closest hit (t [n], prim [n], -1 = miss).  Lanes flagged in any_mask
     stop at their first hit; only prim >= 0 means anything for them.  The
-    scene goes through the 4-wide BVH kernel path; scenes outside its gate
+    scene goes through the BVH kernel path; scenes outside its gate
     are refused."""
     if not kb.kernel_supported(scene):
         raise NotImplementedError(
             f"scenes with more than {kb.MAX_BRUTE_QUADRICS} quadrics or a "
-            f"BVH deeper than {kb.STACK_SIZE // 3} levels")
+            f"BVH deeper than {kb.STACK_SIZE // 3} 4-wide levels (binary "
+            f"BVH: {kb.BVH2_STACK_SIZE} levels)")
     with torch.no_grad(), record_function("layer: traversal incl. kernel"):
         return kb.intersect_kernel_with_quadrics(scene, o, d, t_max,
                                                  any_mask=any_mask)

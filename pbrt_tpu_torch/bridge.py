@@ -3,8 +3,9 @@
 The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
-here, so both packages render the very same arrays.  The port itself never
-imports JAX or pbrt_tpu.
+here, so both packages render the very same arrays.  ``compare_setups``
+holds a RenderSetup parsed by the JAX package against one parsed by the port.
+The port itself never imports JAX or pbrt_tpu.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from .cameras import CameraParams
-from .scene import SceneArrays, resolve_device
+from .scene import (LIGHT_FIELDS, MATERIAL_FIELDS, SCENE_FIELDS, SceneArrays,
+                    resolve_device)
 
 
 def as_numpy_fields(obj) -> dict:
@@ -58,3 +60,67 @@ def camera_from_numpy(fields: dict, device) -> CameraParams:
         shutter_close=float(fields["shutter_close"]),
         full_resolution=tuple(fields["full_resolution"]),
     )
+
+
+def _diff(out: list, what: str, ref, got, rtol: float):
+    ref = np.asarray(ref)
+    got = np.asarray(got)
+    if ref.shape != got.shape:
+        out.append(f"{what}: shape {ref.shape} != {got.shape}")
+    elif ref.dtype.kind in "fc" or got.dtype.kind in "fc":
+        if not np.allclose(ref, got, rtol=rtol, atol=0.0, equal_nan=True):
+            out.append(f"{what}: max |diff| {np.max(np.abs(ref - got))}")
+    elif not np.array_equal(ref, got):
+        out.append(f"{what}: {np.count_nonzero(ref != got)} entries differ")
+
+
+def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
+    """Hold a RenderSetup of the JAX package against one of the port,
+    parsed from the same file: camera, film, sampler, integrator and the
+    built scene's fields, as numpy arrays (integer fields exactly, float
+    fields to `rtol`).  Returns the mismatches, empty when they agree.  The
+    JAX scene is built by the JAX package's own builder on the host."""
+    out: list[str] = []
+    jc = as_numpy_fields(jax_setup.make_camera())
+    tc = port_setup.make_camera()
+    for k in ("raster_to_camera", "camera_to_world"):
+        _diff(out, f"camera.{k}", jc[k], getattr(tc, k).cpu().numpy(), rtol)
+    for k in ("lens_radius", "focal_distance", "shutter_open", "shutter_close",
+              "full_resolution", "cam_type"):
+        _diff(out, f"camera.{k}", jc[k], getattr(tc, k), rtol)
+
+    (jf, jfilt), (tf, tfilt) = jax_setup.make_film_config(), port_setup.make_film_config()
+    for k in ("full_resolution", "crop_window", "scale", "max_sample_luminance"):
+        _diff(out, f"film.{k}", getattr(jf, k), getattr(tf, k), rtol)
+    if jf.filter_name != tf.filter_name:
+        out.append(f"film.filter_name: {jf.filter_name!r} != {tf.filter_name!r}")
+    _diff(out, "film.filter_radius", jfilt.radius, tfilt.radius, rtol)
+
+    js, ts = jax_setup.make_sampler_config(), port_setup.make_sampler_config()
+    if js.name != ts.name:
+        out.append(f"sampler.name: {js.name!r} != {ts.name!r}")
+    _diff(out, "sampler.spp", js.spp, ts.spp, rtol)
+    _diff(out, "sampler.resolution", js.resolution, ts.resolution, rtol)
+
+    ji, ti = jax_setup.make_integrator_config(), port_setup.make_integrator_config()
+    _diff(out, "integrator.max_depth", ji.max_depth, ti.max_depth, rtol)
+    _diff(out, "integrator.rr_threshold", ji.rr_threshold, ti.rr_threshold, rtol)
+    if ji.light_strategy != ti.light_strategy:
+        out.append(f"integrator.light_strategy: {ji.light_strategy!r} != "
+                   f"{ti.light_strategy!r}")
+    if jax_setup.integrator_name != port_setup.integrator_name:
+        out.append("integrator name differs")
+
+    ref = as_numpy_fields(jax_setup.build_scene())
+    got = port_setup.scene_builder.build_numpy()
+    for k in SCENE_FIELDS:
+        _diff(out, f"scene.{k}", ref[k], got[k], rtol)
+    for k in MATERIAL_FIELDS:
+        _diff(out, f"scene.materials.{k}", ref["materials"][k],
+              got["materials"][k], rtol)
+    for k in LIGHT_FIELDS:
+        _diff(out, f"scene.lights.{k}", ref["lights"][k], got["lights"][k], rtol)
+    for k in ("func", "cdf", "func_int"):
+        _diff(out, f"scene.light_distr.{k}", ref["light_distr"][k],
+              got["light_distr"][k], rtol)
+    return out

@@ -33,8 +33,8 @@
 //
 // Stack: STACK_SIZE entries per thread.  An interior visit pushes at most 3
 // entries, so a tree of depth D needs at most 3 * D; the host wrapper checks
-// that against bvh4_stack_size() and refuses deeper trees.  The kernel traps
-// rather than overflow silently.
+// that against bvh4_traverse_stack_size() and refuses deeper trees.  The
+// kernel traps rather than overflow silently.
 //
 // Built with -fmad=false so its float arithmetic rounds exactly as the plain
 // PyTorch version in ops/bvh.py does.
@@ -176,7 +176,7 @@ bvh4_traverse_kernel(const float4 *__restrict__ nodes,
 
 extern "C" {
 
-int bvh4_stack_size() { return kStackSize; }
+int bvh4_traverse_stack_size() { return kStackSize; }
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
 int bvh4_traverse(const void *nodes, const void *tris, const void *o,

@@ -138,11 +138,16 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
 
 
 def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
-                     u_scattering, mask, extra_ray):
+                     u_scattering, mask, extra_ray, pick=None):
     """UniformSampleOneLight (integrator.cpp:85-106): pick one light from the
-    scene's light distribution, estimate direct lighting, divide by its pmf.
-    Returns (Ld, (t, prim) of the extension rays)."""
-    light_idx, pmf = smp.sample_discrete_1d(scene.light_distr, u_select)
+    scene's light distribution, or take the per-lane (light_idx, pmf) of the
+    spatial distribution (lightdistrib.cpp:135) when `pick` is given,
+    estimate direct lighting, divide by its pmf.  Returns (Ld, (t, prim) of
+    the extension rays)."""
+    if pick is not None:
+        light_idx, pmf = pick
+    else:
+        light_idx, pmf = smp.sample_discrete_1d(scene.light_distr, u_select)
     ld, extra_hit = estimate_direct(
         scene, rec, frame, mat, wo_local, light_idx, u_light, u_scattering,
         mask & (pmf > 0.0), extra_ray, extra_live=mask)

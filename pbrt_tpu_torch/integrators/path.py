@@ -30,6 +30,7 @@ from ..cameras import generate_rays
 from ..core import spectrum
 from ..core.vecmath import absdot, offset_ray_origin
 from ..filters import make_filter
+from ..lights import lightdistrib as ldist
 from ..lights import lights as lt
 from ..materials import bsdf as bx
 from ..samplers import samplers as sa
@@ -38,13 +39,22 @@ from ..utils import stats as st
 from . import common
 
 
-RR_THRESHOLD = 1.0  # Russian roulette when max(beta * etaScale) is below it
-
-
 @dataclasses.dataclass(frozen=True)
 class PathConfig:
-    """The light distribution is the scene's own (SceneBuilder.light_strategy)."""
+    """pbrt's PathIntegrator parameters (path.cpp:190-208).  light_strategy
+    "spatial" picks each light from the spatial light distribution
+    (lights/lightdistrib.py); "uniform" and "power" use the scene's own
+    distribution (SceneBuilder.light_strategy), as in the JAX package.
+    Russian roulette applies when max(beta * etaScale) < rr_threshold."""
     max_depth: int = 5
+    rr_threshold: float = 1.0
+    light_strategy: str = "uniform"  # "uniform" | "power" | "spatial"
+
+    def __post_init__(self):
+        if self.light_strategy not in ("uniform", "power", "spatial"):
+            raise NotImplementedError(
+                f"lightsamplestrategy {self.light_strategy!r}: the port has "
+                "uniform, power and spatial")
 
 
 def dims_per_bounce(bounce: int) -> int:
@@ -63,6 +73,8 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
     specular_bounce = torch.zeros(n, dtype=torch.bool, device=dev)
     eta_scale = torch.ones(n, dtype=torch.float32, device=dev)
 
+    st.bump(counters, "Integrator/Camera rays traced", float(n))
+    spatial = cfg.light_strategy == "spatial" and scene.spatial_cdf is not None
     t, prim = tv.intersect_closest(scene, o, d, 1e30)
     dim = start_dim
     for bounce in range(cfg.max_depth + 1):
@@ -70,6 +82,7 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
         with record_function("layer: hit record"):
             rec = tv.hit_record(scene, o, d, t, prim)
         found = rec["hit"] & alive
+        st.bump(counters, "Integrator/Path vertices", found)
 
         # Emitted radiance for camera rays and rays leaving a specular
         # bounce; the others were counted by MIS (path.cpp:91-101).
@@ -98,13 +111,20 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
         u_bsdf = sa.get_2d(sampler_cfg, sampler_state, dim + 5)
         st.bump(counters, "Intersections/Shadow ray intersection tests",
                 2.0 * has_bsdf.to(torch.float64).sum())
+        st.bump(counters, "Lights/Light samples taken", has_bsdf)
+        pick = None
+        if spatial:
+            with record_function("layer: spatial light pick"):
+                pick = ldist.spatial_pick_light(
+                    scene.spatial_grid_res, scene.spatial_b0, scene.spatial_diag,
+                    scene.spatial_cdf, scene.spatial_pmf, rec["p"], u_select)
         bs = bx.sample_material(mat, wo_local, u_bsdf, scene.mat_types)
         wi_world = bx.to_world(ss, ts, ns, bs["wi"])
         o_next = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], wi_world)
         with record_function("layer: NEE incl. its traversal"):
             ld, (t_next, prim_next) = common.sample_one_light(
                 scene, rec, frame, mat, wo_local, u_select, u_light, u_scatter,
-                has_bsdf, extra_ray=(o_next, wi_world))
+                has_bsdf, extra_ray=(o_next, wi_world), pick=pick)
         L = L + torch.where(has_bsdf[:, None], beta * ld, 0.0)
 
         valid = has_bsdf & bs["valid"]
@@ -128,8 +148,10 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
             u_rr = sa.get_1d(sampler_cfg, sampler_state, dim + 7)
             rr_beta_max = spectrum.max_component(beta * eta_scale[:, None])
             q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-            do_rr = rr_beta_max < RR_THRESHOLD
+            do_rr = rr_beta_max < cfg.rr_threshold
             die = do_rr & (u_rr < q)
+            st.bump(counters, "Integrator/Russian-roulette terminations",
+                    die & alive)
             alive = alive & ~die
             beta = torch.where((do_rr & ~die)[:, None],
                                beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
@@ -167,28 +189,39 @@ def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
     L = torch.where(bad[:, None], 0.0, L)
     with record_function("layer: film"):
         fm.add_samples(film_state, p_film, L, weight)
+    st.bump(counters, "Film/Samples added", float(n))
     return film_state
 
 
 def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
-           cfg: PathConfig = PathConfig(), count_rays: bool = False,
-           device="cuda"):
+           cfg: PathConfig = PathConfig(), filt=None, count_rays: bool = False,
+           stats_out: bool = False, progress=None, device="cuda"):
     """Full render: one batch per sample per pixel.  Runs on the card unless
     device="cpu"; the scene must already be on that device.  Returns the
-    image [H, W, 3], with the rays traced when count_rays."""
+    image [H, W, 3]; with count_rays also the rays traced, with stats_out
+    also the counter vector (utils/stats.py).  filt: the reconstruction
+    filter (the film's named one by default).  progress: a
+    ProgressReporter updated once per spp batch.  The spatial light
+    distribution is built here, once per scene, when cfg asks for it."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
+    if cfg.light_strategy == "spatial":
+        scene = ldist.ensure_spatial_light_distribution(scene)
     camera = camera.to(device)
-    film_state = fm.make_film_state(film_cfg, make_filter(film_cfg.filter_name),
-                                    device)
+    film_state = fm.make_film_state(
+        film_cfg, filt or make_filter(film_cfg.filter_name), device)
     pixels = torch.as_tensor(make_pixel_grid(film_cfg), device=device)
     counters = st.zeros(device)
     with torch.no_grad():
         for s in range(sampler_cfg.spp):
             render_sample_batch(scene, camera, film_state, pixels, s,
                                 sampler_cfg, cfg, counters)
+            if progress is not None:
+                progress.update(s + 1)
         img = fm.to_image(film_state, scale=film_cfg.scale)
+    if stats_out:
+        return img, counters
     if count_rays:
         return img, st.ray_total(counters)
     return img

@@ -1,17 +1,20 @@
 """Builds and loads the port's native libraries at first use.
 
 Takes the place of native/Makefile and the ctypes loading of
-pbrt_tpu/accel/build.py:46-114.  Two shared libraries with a plain C interface, loaded with ctypes:
+pbrt_tpu/accel/build.py:46-114.  Shared libraries with a plain C interface,
+loaded with ctypes, one per source:
 
-* ``csrc/bvh4_traverse.cu`` -> the Hopper BVH traversal kernel, compiled with
+* ``csrc/bvh4_traverse.cu`` and ``csrc/bvh2_traverse.cu`` -> the Hopper BVH
+  traversal kernels, each compiled with
   ``nvcc -gencode arch=compute_90a,code=sm_90a`` (needs the CUDA toolkit);
 * ``csrc/host/bvh_builder.cpp`` -> the host SAH BVH builder, compiled with
   ``g++ -O3 -fPIC -shared`` (no ``-march=native``).
 
-Both land in ``build/`` at the repository root (listed in .gitignore), named
+They land in ``build/`` at the repository root (listed in .gitignore), named
 by a hash of their source and flags, so an edited source is rebuilt and two
 processes that build at once each write a private file and rename it into
-place.  Nothing here runs when the module is imported.
+place.  ``build`` starts every compiler at once.  Nothing here runs when the
+module is imported.
 """
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 BUILD_DIR = PKG.parent / "build"
-CUDA_SRC = PKG / "csrc" / "bvh4_traverse.cu"
+CUDA_KERNELS = ("bvh4_traverse", "bvh2_traverse")
 HOST_SRC = PKG / "csrc" / "host" / "bvh_builder.cpp"
 
-# -fmad=false: the kernel's float arithmetic then rounds exactly as the
-# plain PyTorch version's separate multiplies and adds do.
+# -fmad=false: the kernels' float arithmetic then rounds exactly as the
+# plain PyTorch versions' separate multiplies and adds do.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -46,7 +49,7 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{CUDA_SRC.name}")
+                       f"{', '.join(k + '.cu' for k in CUDA_KERNELS)}")
 
 
 def _target(src: Path, flags: list[str], stem: str) -> Path:
@@ -54,26 +57,24 @@ def _target(src: Path, flags: list[str], stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{h[:12]}.so"
 
 
-def _compile_cmd(compiler: str, flags: list[str], src: Path, out: Path):
-    return [compiler, *flags, "-o", str(out), str(src)]
-
-
 def _start(kind: str):
-    """Start the compiler for `kind` ("cuda" | "host") unless its library is
-    already built.  Returns (target, process or None, tmp path or None)."""
-    if kind == "cuda":
-        src, flags, stem, cc = CUDA_SRC, NVCC_FLAGS, "bvh4_traverse", None
+    """Start the compiler for `kind` (a CUDA kernel's name, or "host")
+    unless its library is already built.  Returns (target, process or None,
+    tmp path or None)."""
+    if kind == "host":
+        src, flags, compiler = HOST_SRC, GXX_FLAGS, "g++"
+    elif kind in CUDA_KERNELS:
+        src, flags, compiler = PKG / "csrc" / f"{kind}.cu", NVCC_FLAGS, None
     else:
-        src, flags, stem, cc = HOST_SRC, GXX_FLAGS, "bvh_builder", "g++"
-    out = _target(src, flags, stem)
+        raise ValueError(f"unknown native library {kind!r}")
+    out = _target(src, flags, "bvh_builder" if kind == "host" else kind)
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cc = cc or _nvcc()
     proc = subprocess.Popen(
-        _compile_cmd(cc, flags, src, Path(tmp)),
+        [compiler or _nvcc(), *flags, "-o", tmp, str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return out, proc, tmp
@@ -90,7 +91,7 @@ def _finish(out: Path, proc, tmp) -> Path:
     return out
 
 
-def build(kinds=("cuda", "host")) -> dict:
+def build(kinds=(*CUDA_KERNELS, "host")) -> dict:
     """Build the named libraries, all compilers started together.
     Returns {kind: path}."""
     started = {k: _start(k) for k in kinds}
@@ -98,15 +99,19 @@ def build(kinds=("cuda", "host")) -> dict:
 
 
 @functools.cache
-def cuda_lib() -> ctypes.CDLL:
-    """The traversal kernel's library, built on first call."""
-    lib = ctypes.CDLL(str(build(("cuda",))["cuda"]))
+def cuda_lib(kernel: str) -> ctypes.CDLL:
+    """The library of one traversal kernel ("bvh4_traverse" or
+    "bvh2_traverse"), built on first call.  It exports
+    ``<kernel>(nodes, tris, o, d, t_max, mode, t_out, prim_out, n, stream)``
+    and ``<kernel>_stack_size()``."""
+    lib = ctypes.CDLL(str(build((kernel,))[kernel]))
     vp = ctypes.c_void_p
-    lib.bvh4_traverse.restype = ctypes.c_int
-    lib.bvh4_traverse.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                  ctypes.c_int, vp]
-    lib.bvh4_stack_size.restype = ctypes.c_int
-    lib.bvh4_stack_size.argtypes = []
+    fn = getattr(lib, kernel)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp]
+    size = getattr(lib, f"{kernel}_stack_size")
+    size.restype = ctypes.c_int
+    size.argtypes = []
     return lib
 
 

@@ -12,8 +12,10 @@ Anything else raises NotImplementedError.  The builder computes its numpy
 arrays exactly as the JAX builder does (``build_numpy``), and
 ``SceneArrays.from_numpy`` turns them, or the JAX package's own arrays
 (bridge.py), into tensors plus the GPU traversal tables of ops/bvh.py:
-``bvh4_nodes`` (128-byte 4-wide node rows) and ``prim_tris`` (triangle
-records in BVH order), which replace the TPU kernel tables.
+``bvh4_nodes`` (128-byte 4-wide node rows), ``bvh2_nodes`` (32-byte binary
+node rows) and ``prim_tris`` (triangle records in BVH order, shared by both),
+which replace the TPU kernel tables.  Both node tables are always built, as
+the JAX builder builds both of its own (pbrt_tpu/scene.py:965-966).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from .accel.build import build_bvh
 from .core import sampling as smp
 from .core import transform as tf
-from .ops.bvh import build_bvh4_table, build_prim_records
+from .ops.bvh import build_bvh2_table, build_bvh4_table, build_prim_records
 
 SHAPE_TRIANGLE = 0
 SHAPE_SPHERE = 1
@@ -119,16 +121,25 @@ class SceneArrays:
     q_prim_id: torch.Tensor  # [Q] BVH-ordered prim row per quadric
     # GPU traversal tables (ops/bvh.py)
     bvh4_nodes: torch.Tensor  # [M4, 32] f32
+    bvh2_nodes: torch.Tensor  # [M, 8] f32
     prim_tris: torch.Tensor  # [P, 12] f32
     materials: MaterialTable
     lights: LightTable
     light_distr: smp.Distribution1D
     # host-side facts fixed at build time
     bvh4_depth: int
+    bvh2_depth: int
     mat_types: tuple
     light_types: tuple
     quadric_types: tuple
     quadric_rows: tuple  # ((quadric index, prim row), ...) for the quadric pass
+    # the spatial light distribution (lights/lightdistrib.py), filled by
+    # ensure_spatial_light_distribution when a render uses "spatial"
+    spatial_grid_res: Optional[torch.Tensor] = None  # [3] i64
+    spatial_b0: Optional[torch.Tensor] = None  # [3]
+    spatial_diag: Optional[torch.Tensor] = None  # [3]
+    spatial_cdf: Optional[torch.Tensor] = None  # [V, L+1]
+    spatial_pmf: Optional[torch.Tensor] = None  # [V, L]
 
     @property
     def device(self) -> torch.device:
@@ -162,6 +173,9 @@ class SceneArrays:
         rows, depth = build_bvh4_table(fields["bvh_min"], fields["bvh_max"],
                                        fields["bvh_offset"],
                                        fields["bvh_nprims"])
+        rows2, depth2 = build_bvh2_table(fields["bvh_min"], fields["bvh_max"],
+                                         fields["bvh_offset"],
+                                         fields["bvh_nprims"], fields["bvh_axis"])
         recs = build_prim_records(prim_meta[:, 0], prim_meta[:, 1],
                                   fields["tri_verts"])
         q_prim = np.asarray(fields["q_prim_id"])
@@ -170,12 +184,14 @@ class SceneArrays:
         return SceneArrays(
             **out,
             bvh4_nodes=torch.as_tensor(rows, device=device),
+            bvh2_nodes=torch.as_tensor(rows2, device=device),
             prim_tris=torch.as_tensor(recs, device=device),
             materials=_tensors(MaterialTable, mats, device),
             lights=_tensors(LightTable, lights, device),
             light_distr=smp.distribution_from_numpy(fields["light_distr"],
                                                     device),
             bvh4_depth=depth,
+            bvh2_depth=depth2,
             mat_types=mat_types,
             light_types=light_types,
             quadric_types=tuple(t for t in prim_types if t != SHAPE_TRIANGLE),

@@ -1,0 +1,375 @@
+"""Graphics-state machine: .pbrt directives -> SceneBuilder + render config.
+
+Port of pbrt_tpu/sceneio/api.py (pbrt-v3 core/api.cpp) for what the path
+integrator's main path renders:
+
+* the options/world phases, the CTM and its stacks, named coordinate
+  systems (api.cpp:899-1186);
+* ``Camera "perspective"`` (with ``lensradius``/``focaldistance``), the image
+  film, the box filter, the halton and sobol samplers, ``Integrator "path"``;
+* matte, plastic and mirror materials, named materials and the default
+  matte material;
+* point lights and diffuse area lights on triangle meshes and spheres;
+* ``trianglemesh``, ``sphere`` and ``plymesh`` shapes.
+
+Everything else raises NotImplementedError naming what is missing: textures,
+instancing, media, other shapes, lights, materials and kd-trees.  Unlike the
+JAX package, nothing degrades to a stand-in.
+
+Output: ``RenderSetup``, everything render.py needs.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+
+import numpy as np
+
+from .. import scene as sc
+from ..core import transform as tf
+from .paramset import ParamSet
+
+
+@dataclasses.dataclass
+class RenderSetup:
+    scene_builder: sc.SceneBuilder
+    camera_name: str = "perspective"
+    camera_params: ParamSet = None
+    camera_to_world: tf.Transform = None
+    film_name: str = "image"
+    film_params: ParamSet = None
+    sampler_name: str = "halton"
+    sampler_params: ParamSet = None
+    integrator_name: str = "path"
+    integrator_params: ParamSet = None
+    filter_name: str = "box"
+    filter_params: ParamSet = None
+
+    _scene_cache: object = None
+
+    def build_scene(self, device="cuda"):
+        """SceneArrays on `device` (the card unless the caller asks for the
+        CPU), built once."""
+        device = sc.resolve_device(device)
+        if self._scene_cache is None or self._scene_cache.device != device:
+            self._scene_cache = self.scene_builder.build(device=device)
+        return self._scene_cache
+
+    @property
+    def resolution(self):
+        p = self.film_params or ParamSet()
+        return (p.find_one_int("xresolution", 1280),
+                p.find_one_int("yresolution", 720))
+
+    def make_camera(self):
+        from ..cameras import make_perspective_camera
+
+        if self.camera_name != "perspective":
+            raise NotImplementedError(
+                f"camera {self.camera_name!r}: the port has 'perspective' only")
+        p = self.camera_params or ParamSet()
+        return make_perspective_camera(
+            self.camera_to_world or tf.identity(), self.resolution,
+            fov_deg=p.find_one_float("fov", 90.0),
+            lens_radius=p.find_one_float("lensradius", 0.0),
+            focal_distance=p.find_one_float("focaldistance", 1e6),
+            shutter_open=p.find_one_float("shutteropen", 0.0),
+            shutter_close=p.find_one_float("shutterclose", 1.0),
+        )
+
+    def make_film_config(self):
+        from ..film import FilmConfig
+        from ..filters import make_filter
+
+        p = self.film_params or ParamSet()
+        fp = self.filter_params or ParamSet()
+        filt = make_filter(self.filter_name,
+                           {k: fp.find_one_float(k, 0.0) for k in fp.keys()})
+        crop = p.find_floats("cropwindow")
+        cfg = FilmConfig(
+            full_resolution=self.resolution,
+            crop_window=tuple(crop) if crop is not None else (0.0, 1.0, 0.0, 1.0),
+            filter_name=self.filter_name,
+            scale=p.find_one_float("scale", 1.0),
+            max_sample_luminance=p.find_one_float("maxsampleluminance",
+                                                  float("inf")),
+        )
+        return cfg, filt
+
+    def make_sampler_config(self):
+        from ..samplers.samplers import SamplerConfig
+
+        if os.environ.get("PBRT_TPU_EXACT_SAMPLER", "0") == "1":
+            raise NotImplementedError(
+                "PBRT_TPU_EXACT_SAMPLER=1: the exact host sample tables are "
+                "not ported")
+        p = self.sampler_params or ParamSet()
+        name = {"lowdiscrepancy": "zerotwosequence"}.get(self.sampler_name,
+                                                         self.sampler_name)
+        return SamplerConfig(name, p.find_one_int("pixelsamples", 16),
+                             self.resolution)
+
+    def make_integrator_config(self):
+        from ..integrators.path import PathConfig
+
+        p = self.integrator_params or ParamSet()
+        return PathConfig(
+            max_depth=p.find_one_int("maxdepth", 5),
+            rr_threshold=p.find_one_float("rrthreshold", 1.0),
+            light_strategy=p.find_one_string("lightsamplestrategy", "spatial"),
+        )
+
+
+@dataclasses.dataclass
+class _GraphicsState:
+    material: int = -1  # index into builder.materials
+    area_light: ParamSet | None = None
+    reverse_orientation: bool = False
+    named_materials: dict = dataclasses.field(default_factory=dict)
+
+
+class PbrtApi:
+    """The state of one parse.  Method names are snake_cased directives."""
+
+    def __init__(self):
+        self.setup = RenderSetup(scene_builder=sc.SceneBuilder())
+        self.ctm = tf.identity()
+        self.named_coordinate_systems: dict = {}
+        self.ctm_stack: list = []
+        self.gs = _GraphicsState()
+        self.gs_stack: list = []
+        self.cwd = "."
+        # Default material: matte (api.cpp GraphicsState constructor).
+        self.gs.material = self.setup.scene_builder.add_material(
+            sc.MAT_MATTE, kd=(0.5, 0.5, 0.5))
+
+    # ---- transforms (api.cpp:899-1019) ----
+    def identity(self):
+        self.ctm = tf.identity()
+
+    def translate(self, x, y, z):
+        self.ctm = self.ctm @ tf.translate(x, y, z)
+
+    def scale(self, x, y, z):
+        self.ctm = self.ctm @ tf.scale(x, y, z)
+
+    def rotate(self, a, x, y, z):
+        self.ctm = self.ctm @ tf.rotate(a, x, y, z)
+
+    def look_at(self, *v):
+        la = tf.look_at(v[0:3], v[3:6], v[6:9])
+        self.ctm = self.ctm @ la.inverse
+
+    def transform(self, *m):
+        self.ctm = tf.from_matrix(np.asarray(m).reshape(4, 4).T)
+
+    def concat_transform(self, *m):
+        self.ctm = self.ctm @ tf.from_matrix(np.asarray(m).reshape(4, 4).T)
+
+    def transform_times(self, start, end):
+        pass  # shutter times of animated transforms; nothing is animated
+
+    def active_transform(self, which):
+        if which != "All":
+            raise NotImplementedError(
+                f"ActiveTransform {which}: animated transforms are not ported")
+
+    def coordinate_system(self, name, params=None):
+        self.named_coordinate_systems[name] = self.ctm
+
+    def coord_sys_transform(self, name, params=None):
+        if name in self.named_coordinate_systems:
+            self.ctm = self.named_coordinate_systems[name]
+
+    # ---- options directives ----
+    def camera(self, name, params):
+        self.setup.camera_name = name
+        self.setup.camera_params = ParamSet.from_decls(params)
+        self.setup.camera_to_world = self.ctm.inverse
+        self.named_coordinate_systems["camera"] = self.ctm.inverse
+
+    def film(self, name, params):
+        self.setup.film_name = name
+        self.setup.film_params = ParamSet.from_decls(params)
+
+    def sampler(self, name, params):
+        self.setup.sampler_name = name
+        self.setup.sampler_params = ParamSet.from_decls(params)
+
+    def integrator(self, name, params):
+        self.setup.integrator_name = name
+        self.setup.integrator_params = ParamSet.from_decls(params)
+
+    def filter(self, name, params):
+        self.setup.filter_name = name
+        self.setup.filter_params = ParamSet.from_decls(params)
+
+    pixel_filter = filter
+
+    def accelerator(self, name, params):
+        if name == "kdtree":
+            raise NotImplementedError('Accelerator "kdtree": the port has the BVH')
+
+    # ---- world block ----
+    def world_begin(self):
+        self.ctm = tf.identity()
+        self.named_coordinate_systems["world"] = self.ctm
+
+    def world_end(self):
+        pass
+
+    def attribute_begin(self):
+        self.gs_stack.append(copy.deepcopy(self.gs))
+        self.ctm_stack.append(self.ctm)
+
+    def attribute_end(self):
+        self.gs = self.gs_stack.pop()
+        self.ctm = self.ctm_stack.pop()
+
+    def transform_begin(self):
+        self.ctm_stack.append(self.ctm)
+
+    def transform_end(self):
+        self.ctm = self.ctm_stack.pop()
+
+    def reverse_orientation(self):
+        self.gs.reverse_orientation = not self.gs.reverse_orientation
+
+    # ---- not ported ----
+    def texture(self, name, ttype, tclass, params):
+        raise NotImplementedError(f'Texture "{name}" ({tclass}): textures are '
+                                  "not ported")
+
+    def object_begin(self, name, params=None):
+        raise NotImplementedError("ObjectBegin/ObjectInstance: instancing is "
+                                  "not ported")
+
+    object_end = object_instance = object_begin
+
+    def medium_interface(self, inside, outside):
+        raise NotImplementedError("MediumInterface: media are not ported")
+
+    def make_named_medium(self, name, params):
+        raise NotImplementedError("MakeNamedMedium: media are not ported")
+
+    # ---- materials (api.cpp:560-640) ----
+    def _path(self, fname):
+        return fname if os.path.isabs(fname) else os.path.join(self.cwd, fname)
+
+    def material(self, name, params):
+        self.gs.material = self._make_material(name, ParamSet.from_decls(params))
+
+    def make_named_material(self, name, params):
+        ps = ParamSet.from_decls(params)
+        mtype = ps.find_one_string("type", "matte")
+        self.gs.named_materials[name] = self._make_material(mtype, ps)
+
+    def named_material(self, name, params=None):
+        if name not in self.gs.named_materials:
+            raise ValueError(f"NamedMaterial {name!r} was never made")
+        self.gs.material = self.gs.named_materials[name]
+
+    @staticmethod
+    def _constant(ps, pname, default, spectrum=True):
+        if ps.find_texture(pname) is not None:
+            raise NotImplementedError(f'textures: "texture {pname}" is not ported')
+        if spectrum:
+            return ps.find_one_spectrum(pname, default)
+        return ps.find_one_float(pname, default)
+
+    def _make_material(self, name, ps: ParamSet) -> int:
+        if name in ("", "none"):
+            return -1
+        kw = {}
+        if name == "matte":
+            mt = sc.MAT_MATTE
+            kw["kd"] = self._constant(ps, "Kd", 0.5)
+            kw["sigma"] = self._constant(ps, "sigma", 0.0, spectrum=False)
+        elif name == "plastic":
+            mt = sc.MAT_PLASTIC
+            kw["kd"] = self._constant(ps, "Kd", 0.25)
+            kw["ks"] = self._constant(ps, "Ks", 0.25)
+            kw["roughness"] = self._constant(ps, "roughness", 0.1, spectrum=False)
+            kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
+        elif name == "mirror":
+            mt = sc.MAT_MIRROR
+            kw["kr"] = self._constant(ps, "Kr", 0.9)
+        else:
+            raise NotImplementedError(
+                f"material {name!r}: the port has matte, plastic and mirror")
+        return self.setup.scene_builder.add_material(mt, **kw)
+
+    # ---- lights ----
+    def light_source(self, name, params):
+        if name != "point":
+            raise NotImplementedError(
+                f"light {name!r}: the port has point and diffuse area lights")
+        ps = ParamSet.from_decls(params)
+        i = (np.asarray(ps.find_one_spectrum("I", 1.0))
+             * np.asarray(ps.find_one_spectrum("scale", 1.0)))
+        from_p = ps.find_one_point("from", (0, 0, 0))
+        self.setup.scene_builder.add_point_light(
+            self.ctm @ tf.translate(*from_p), i)
+        ps.report_unused(f"LightSource {name}")
+
+    def area_light_source(self, name, params):
+        if name not in ("area", "diffuse"):
+            raise NotImplementedError(f"area light {name!r}: the port has "
+                                      "'diffuse' ('area')")
+        self.gs.area_light = ParamSet.from_decls(params)
+
+    # ---- shapes (api.cpp:426-520) ----
+    def shape(self, name, params):
+        ps = ParamSet.from_decls(params)
+        b = self.setup.scene_builder
+        mat = self.gs.material
+        o2w = self.ctm
+        area = self.gs.area_light
+        if area is not None:
+            L = (np.asarray(area.find_one_spectrum("L", 1.0))
+                 * np.asarray(area.find_one_spectrum("scale", 1.0)))
+            two_sided = area.find_one_bool("twosided", False)
+            n_samples = area.find_one_int("samples", area.find_one_int("nsamples", 1))
+        if name == "trianglemesh":
+            idx = ps.find_ints("indices")
+            p = ps.find_points("P")
+            n = ps.find_points("N")
+            uv = ps.find_point2s("uv")
+            if uv is None:
+                uv = ps.find_point2s("st")
+            if area is not None:
+                b.add_emissive_triangle_mesh(
+                    idx, p, L, material=mat, object_to_world=o2w,
+                    two_sided=two_sided, n_samples=n_samples, n=n, uv=uv)
+            else:
+                b.add_triangle_mesh(idx, p, n=n, uv=uv, object_to_world=o2w,
+                                    material=mat)
+        elif name == "sphere":
+            r = ps.find_one_float("radius", 1.0)
+            zmin = ps.find_one_float("zmin", -r)
+            zmax = ps.find_one_float("zmax", r)
+            phimax = ps.find_one_float("phimax", 360.0)
+            if area is not None:
+                b.add_emissive_sphere(o2w, r, L, material=mat,
+                                      two_sided=two_sided, n_samples=n_samples)
+            else:
+                b.add_sphere(o2w, r, material=mat, zmin=zmin, zmax=zmax,
+                             phimax_deg=phimax,
+                             reverse_orientation=self.gs.reverse_orientation)
+        elif name == "plymesh":
+            if area is not None:
+                raise NotImplementedError(
+                    "an emissive plymesh (the JAX package drops its "
+                    "AreaLightSource; the port refuses it)")
+            from .plyload import load_ply
+
+            idx, p, n, uv = load_ply(self._path(ps.find_one_string("filename", "")))
+            b.add_triangle_mesh(idx, p, n=n, uv=uv, object_to_world=o2w,
+                                material=mat)
+        else:
+            raise NotImplementedError(
+                f"shape {name!r}: the port has trianglemesh, sphere and plymesh")
+
+    def finalize(self) -> RenderSetup:
+        return self.setup
