@@ -7,22 +7,29 @@ Phases, each printing its result on a line of its own and its seconds:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: csrc/bvh4_traverse.cu and csrc/bvh2_traverse.cu (one nvcc each,
      sm_90a) and the host BVH builder (g++), all compilers started together,
-     into build/; then the layout probe's Triton kernel, compiled once;
+     into build/, with ptxas's registers, shared memory and spills of each
+     kernel; then the layout probe's Triton kernel, compiled once;
   3. BVH kernels: bvh4_traverse and bvh2_traverse each held against its
-     plain PyTorch version on the card, and bvh2 against bvh4, on a
-     200-triangle soup, on a ~1M-triangle mesh with 64k rays, and on every
-     launch of one sample of the main path (its camera rays and each
-     bounce's merged NEE batch, timed with its any-hit shadow lanes as the
-     render launches it), once as the default path launches them and once
-     under PBRT_TPU_BVH4=0; each with two floors, the bytes of one read of
-     the tables and rays, and the bytes of every node and triangle visit;
+     plain PyTorch version on the card, bit for bit, and bvh2 against bvh4,
+     on a 200-triangle soup, on a ~1M-triangle mesh with 64k rays, and on
+     every launch of one sample of the main path (its camera rays and each
+     bounce's merged NEE batch, replayed with the work list `order` and the
+     any-hit shadow lanes as the render launched it, with its live-lane
+     count), once as the default path launches them and once under
+     PBRT_TPU_BVH4=0; each with two floors, the bytes of one read of the
+     tables and rays, and the bytes of every node and triangle visit; on
+     the main batches bvh4 is also timed without its work list, on the rays
+     gathered into sorted order beforehand (ms_gathered), beside the
+     gathers and scatters that launch needs around it (glue_ms);
   4. layout probe: the Triton chain (form C) against form B at N = 163840,
      forms A, B and C timed, then the probe's entry point driven once;
   5. main path: pbrt_tpu_torch.integrators.path.render on a 400x400, 8 spp,
      depth-5 scene of ~262k triangles (halton sampler, box filter): finite,
      non-zero, 8 x (1 + 5) kernel launches, and a bit-identical repeat;
      with --profile FILE, one more sample under torch.profiler, its table
-     of device operations written to FILE;
+     of device operations written to FILE, the traversal's device time
+     split into the kernel, the key and argsort, the sphere pass and the
+     rest;
   6. card against CPU: a small scene rendered on the card and on the CPU
      (the plain versions) at depth 1 (per pixel) and depth 3 (image mean);
   7. parity ladder: the in-repo ladder scenes through render.render_file on
@@ -273,11 +280,18 @@ def time_cuda(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
+def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
+                order=None):
     """Hold one kernel against its plain version on one ray batch (with and
-    without the any-hit mask); returns its measurements.  timed = "mask"
-    times and counts the launch with the any-hit mask (as the main path
-    launches its merged batches), "closest" without it."""
+    without the any-hit mask), bit for bit; returns its measurements.
+    timed = "mask" times and counts the launch with the any-hit mask (as
+    the main path launches its merged batches), "closest" without it.
+    order: the work list the batch was launched with (None = the
+    identity).  Where there is one, the kernel is also timed on the rays
+    gathered into that order beforehand with no work list (ms_gathered),
+    and the four gathers and two scatters such a launch needs around it are
+    timed alone (glue_ms): what the work list read inside the kernel costs
+    and saves."""
     import torch
 
     n = o.shape[0]
@@ -289,16 +303,40 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
     args = (nodes, scene.prim_tris, o, d, t_max)
     wrapper, plain = k["wrapper"], k["plain"]
     saved = wrapper.launches
-    t_k, p_k = wrapper(*args, zeros, depth)
-    tm_k, pm_k = wrapper(*args, mode, depth)
-    t_p, p_p = plain(*args, zeros)
-    tm_p, pm_p = plain(*args, mode)
+    t_k, p_k = wrapper(*args, zeros, depth, order)
+    tm_k, pm_k = wrapper(*args, mode, depth, order)
+    t_p, p_p = plain(*args, zeros, order=order)
+    tm_p, pm_p = plain(*args, mode, order=order)
     torch.cuda.synchronize()
+    check(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+          f"{name}: kernel and plain version differ (closest hit)")
+    check(torch.equal(tm_k, tm_p) and torch.equal(pm_k, pm_p),
+          f"{name}: kernel and plain version differ (any-hit mask)")
     t0 = time.perf_counter()
-    _, _, visits, tests = plain(*args, timed_mode, return_counts=True)
+    _, _, visits, tests = plain(*args, timed_mode, return_counts=True, order=order)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ms = time_cuda(lambda: wrapper(*args, timed_mode, depth), 10)
+    ms = time_cuda(lambda: wrapper(*args, timed_mode, depth, order), 10)
+    extra = {}
+    if order is not None:
+        idx = order.to(torch.int64)
+        rays = [x[idx].contiguous() for x in (o, d, t_max, timed_mode)]
+        t_g, p_g = wrapper(nodes, scene.prim_tris, *rays, depth)
+        t_s, p_s = torch.empty_like(t_g), torch.empty_like(p_g)
+        t_s[idx], p_s[idx] = t_g, p_g
+        t_w, p_w = wrapper(*args, timed_mode, depth, order)
+        torch.cuda.synchronize()
+        check(torch.equal(t_s, t_w) and torch.equal(p_s, p_w),
+              f"{name}: the gathered launch differs from the work list's")
+
+        def glue():
+            for x in (o, d, t_max, timed_mode):
+                x[idx]
+            t_s[idx], p_s[idx] = t_g, p_g
+
+        extra = dict(ms_gathered=time_cuda(
+                         lambda: wrapper(nodes, scene.prim_tris, *rays, depth), 10),
+                     glue_ms=time_cuda(glue, 10))
     wrapper.launches = saved  # comparison launches do not count
 
     hk, hp = p_k >= 0, p_p >= 0
@@ -312,9 +350,6 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
     mk = any_mask
     occ_ok = torch.equal((pm_k >= 0)[mk], hk[mk]) and torch.equal((pm_p >= 0)[mk], hp[mk])
     free_ok = torch.equal(pm_k[~mk], p_k[~mk]) and torch.equal(tm_k[~mk], t_k[~mk])
-    check(hit_agree >= 0.999, f"{name}: hit agreement {hit_agree}")
-    check(prim_agree >= 0.999, f"{name}: prim agreement {prim_agree}")
-    check(t_rel <= 1e-5, f"{name}: t rel err {t_rel}")
     check(occ_ok, f"{name}: any-hit occlusion differs from the closest hit")
     check(free_ok, f"{name}: unflagged lanes changed under the any-hit mask")
     node_v = int(visits.sum())
@@ -327,7 +362,8 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
     t_bytes = (table_bytes + n * bvh.RAY_BYTES) / H100_BYTES_PER_S * 1e3
     t_ops = (node_v * k["node_flops"] + prim_t * TRI_FLOPS) / H100_F32_FLOPS * 1e3
     visit_bytes = node_v * k["node_bytes"] + prim_t * bvh.PRIM_BYTES + n * bvh.RAY_BYTES
-    out = dict(case=name, rays=n, timed=timed, hit_agree=hit_agree,
+    out = dict(case=name, rays=n, live_rays=int((t_max > 0).sum()), timed=timed,
+               hit_agree=hit_agree,
                prim_agree=prim_agree, t_rel_err=t_rel, max_abs_err=max_abs,
                mismatch_frac=1.0 - (hk == hp).float().mean().item()
                + (both & ~same).float().mean().item(),
@@ -336,12 +372,12 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str):
                visit_mb=visit_bytes / 1e6,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3)
+               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3, **extra)
     print(f"kernel-check {json.dumps(out)}", flush=True)
     return out
 
 
-def cross_check(name, kernels, scene, o, d, t_max, any_mask):
+def cross_check(name, kernels, scene, o, d, t_max, any_mask, order=None):
     """bvh2 against bvh4 on one batch: hit flags equal, t equal where the
     prims agree, prims agree on >= 99.9% of the hits, and the any-hit
     occlusion equal."""
@@ -354,7 +390,8 @@ def cross_check(name, kernels, scene, o, d, t_max, any_mask):
     for kind, k in kernels.items():
         saved = k["wrapper"].launches
         nodes, depth = getattr(scene, k["nodes"]), getattr(scene, k["depth"])
-        out[kind] = [k["wrapper"](nodes, scene.prim_tris, o, d, t_max, m, depth)
+        out[kind] = [k["wrapper"](nodes, scene.prim_tris, o, d, t_max, m, depth,
+                                  order)
                      for m in (zeros, mode)]
         k["wrapper"].launches = saved
     (t2, p2), (_, pm2) = out["bvh2"]
@@ -422,12 +459,25 @@ def profile_render(scene, camera, film_cfg, cfg, res, table_path: Path):
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in on_card)} device operations", flush=True)
     kern = [e for e in on_card if "bvh4_traverse" in e.key]
+    kern_ms = sum(getattr(e, key) for e in kern) / 1e3
     print(f"profile kernel in the render: {sum(e.count for e in kern)} launches, "
-          f"device {sum(getattr(e, key) for e in kern) / 1e3:.4f} ms", flush=True)
+          f"device {kern_ms:.4f} ms", flush=True)
+    device_ms = {}
     for e in spans:
         if e.device_type == DeviceType.CPU:
+            device_ms[e.key] = getattr(e, total_key) / 1e3
             print(f"profile {e.key}: {e.count} calls, host {e.cpu_time_total / 1e3:.1f} ms, "
-                  f"device busy {getattr(e, total_key) / 1e3:.2f} ms", flush=True)
+                  f"device busy {device_ms[e.key]:.2f} ms", flush=True)
+    # The traversal's device time: the kernel by name (launched through
+    # ctypes, it falls in no range) and the glue by its own ranges
+    # (ops/bvh.py:intersect_kernel_with_quadrics); the rest of the glue's
+    # range is the lane set-up (t_max, mode, the launch counter).
+    glue = device_ms.get("layer: traversal incl. kernel", 0.0)
+    key_ms = device_ms.get("layer: traversal / key and argsort", 0.0)
+    sphere_ms = device_ms.get("layer: traversal / sphere pass", 0.0)
+    print(f"profile traversal split (device ms, 1 spp): kernel {kern_ms:.3f}, key "
+          f"and argsort {key_ms:.3f}, sphere pass {sphere_ms:.3f}, rest "
+          f"{glue - key_ms - sphere_ms:.3f}; in all {kern_ms + glue:.3f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -507,10 +557,15 @@ def bvh_phase(sc, tf, path, bvh, cameras, film_cls, sampler_cls, dev):
             path.render(scene, camera, film_cfg, sampler_cls("halton", 1, RES), cfg)
         check(len(captured) == 1 + DEPTH,
               f"one sample launched {kind} {len(captured)} times, not {1 + DEPTH}")
-        for label, (oc, dc, tc, mc) in zip(labels, captured):
+        for label, (oc, dc, tc, mc, order) in zip(labels, captured):
+            check(order is not None, f"{kind}-{label}: launched without a work list")
+            live = int((tc > 0).sum())
+            print(f"batch {kind}-{label}: {tc.shape[0]} lanes, {live} live "
+                  f"({live / tc.shape[0]:.4f})", flush=True)
             results[kind][label] = kernel_case(f"{kind}-{label}", kernels[kind], bvh,
-                                               scene, oc, dc, tc, mc > 0, "mask")
-            cross_check(f"{kind}-{label}", kernels, scene, oc, dc, tc, mc > 0)
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order)
+            cross_check(f"{kind}-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
         del captured
     return results, scene, camera, film_cfg, cfg
 
@@ -718,6 +773,10 @@ def run(profile: Path | None = None) -> dict:
     print(f"build: bvh4_traverse.cu + bvh2_traverse.cu + bvh_builder.cpp in "
           f"{t1 - t0:.2f} s, the Triton chain kernel in "
           f"{time.perf_counter() - t1:.2f} s", flush=True)
+    for kernel in native.CUDA_KERNELS:
+        for line in native.build_log(kernel).splitlines():
+            if "ptxas" in line or "spill" in line:
+                print(f"build {kernel}: {line.strip()}", flush=True)
     phase("build", t0)
 
     # 3. BVH kernels against plain and against each other
@@ -728,7 +787,8 @@ def run(profile: Path | None = None) -> dict:
     for kind, res in results.items():
         main = [r for label, r in res.items() if label.startswith("main-")]
         per_spp[kind] = {k: sum(r[k] for r in main) for k in
-                         ("ms", "plain_ms", "bound_ms", "visit_bound_ms", "visit_mb")}
+                         ("ms", "plain_ms", "bound_ms", "visit_bound_ms", "visit_mb",
+                          "ms_gathered", "glue_ms")}
         per_spp[kind]["node_visits"] = sum(r["node_visits_per_ray"] * r["rays"] for r in main)
         print(f"{kind} per spp of the main path: {json.dumps(per_spp[kind])}",
               flush=True)
@@ -840,6 +900,9 @@ def run(profile: Path | None = None) -> dict:
             "ms_per_spp": per_spp[kind]["ms"],
             "bound_ms_per_spp": per_spp[kind]["bound_ms"],
             "visit_bound_ms_per_spp": per_spp[kind]["visit_bound_ms"],
+            "mesh1M_ms": res["mesh1M-64k"]["ms"],
+            "ms_gathered_per_spp": per_spp[kind]["ms_gathered"],
+            "glue_ms_per_spp": per_spp[kind]["glue_ms"],
         })
     entries.append({
         "name": "chain_fused", "route": "triton",

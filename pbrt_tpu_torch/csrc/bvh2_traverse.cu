@@ -13,6 +13,9 @@
 //     return t = -1e30.  Lanes with t_max <= 0 exit at the root.
 //   * Leaf records whose type is not 0 (quadrics) are skipped; the caller
 //     tests quadrics in a separate pass.
+//   * Thread j traces ray order[j] (order may be null: the identity) and
+//     writes its result at order[j], so the caller's ray sort needs no
+//     gather or scatter pass around the launch.
 //
 // Layout (built by pbrt_tpu_torch/ops/bvh.py:build_bvh2_table): one 32-byte
 // row per node, pbrt-v3's LinearBVHNode: min xyz, max xyz (f32), then the
@@ -55,10 +58,12 @@ bvh2_traverse_kernel(const float4 *__restrict__ nodes,
                      const float4 *__restrict__ tris,
                      const float *__restrict__ o, const float *__restrict__ d,
                      const float *__restrict__ t_max,
-                     const float *__restrict__ mode, float *__restrict__ t_out,
+                     const float *__restrict__ mode,
+                     const int *__restrict__ order, float *__restrict__ t_out,
                      int *__restrict__ prim_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int i = order ? order[j] : j;
   const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
   const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
   float t_best = t_max[i];
@@ -150,15 +155,17 @@ extern "C" {
 int bvh2_traverse_stack_size() { return kStackSize; }
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
+// `order` (may be null: the identity) lists the rays to trace.
 int bvh2_traverse(const void *nodes, const void *tris, const void *o,
                   const void *d, const void *t_max, const void *mode,
-                  void *t_out, void *prim_out, int n, void *stream) {
+                  const void *order, void *t_out, void *prim_out, int n,
+                  void *stream) {
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
   bvh2_traverse_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       (const float4 *)nodes, (const float4 *)tris, (const float *)o,
       (const float *)d, (const float *)t_max, (const float *)mode,
-      (float *)t_out, (int *)prim_out, n);
+      (const int *)order, (float *)t_out, (int *)prim_out, n);
   return (int)cudaGetLastError();
 }
 

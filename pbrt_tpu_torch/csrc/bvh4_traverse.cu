@@ -10,9 +10,14 @@
 //   * Slab test: the far bound is scaled by 1.0000004; a child is entered
 //     iff t_near <= t_far, t_far > 0 and t_near < t_best.
 //   * Lanes with mode > 0 are any-hit: they stop at their first hit and
-//     return t = -1e30.  Lanes with t_max <= 0 exit at the root.
+//     return t = -1e30.  Lanes with t_max <= 0 are dead: t = t_max,
+//     prim = -1, no visit.
 //   * Leaf records whose type is not 0 (quadrics) are skipped; the caller
 //     tests quadrics in a separate pass.
+//   * Thread j traces ray order[j] (order may be null: the identity) and
+//     writes its result at order[j].  order must be a permutation of
+//     0..n-1; a ray's result depends on nothing but its own inputs, so the
+//     order changes the speed, never a bit of the results.
 //
 // Layout (built by pbrt_tpu_torch/ops/bvh.py:build_bvh4_table):
 //   nodes: one 128-byte row per 4-wide node: 4 child boxes (6 f32 each),
@@ -28,8 +33,15 @@
 // to one 128-byte line (8 float4 loads through the read-only path), visits
 // children nearest first by the ray's own t_near so closest-hit rays cull
 // early, and stops any-hit rays at their first hit.  The caller sorts rays by
-// (direction octant, origin Morton code) so neighbouring threads walk similar
-// paths through the tree.
+// (dead, direction octant, origin Morton code) and passes the permutation as
+// `order`: neighbouring threads walk similar paths through the tree, dead
+// rays fill whole warps at the end of the grid, and no gather or scatter
+// pass runs around the launch.  Persistent warps fetching from a counter,
+// the stack in shared memory and the top rows of the tree in shared memory
+// were each measured slower on an H100 with the main scene's tables in L2
+// (PERF.md); the likely reason is that shared memory is carved out of the
+// L1 that, through the read-only path, already keeps the top of the tree
+// and the touched part of each local stack.
 //
 // Stack: STACK_SIZE entries per thread.  An interior visit pushes at most 3
 // entries, so a tree of depth D needs at most 3 * D; the host wrapper checks
@@ -55,20 +67,24 @@ bvh4_traverse_kernel(const float4 *__restrict__ nodes,
                      const float4 *__restrict__ tris,
                      const float *__restrict__ o, const float *__restrict__ d,
                      const float *__restrict__ t_max,
-                     const float *__restrict__ mode, float *__restrict__ t_out,
+                     const float *__restrict__ mode,
+                     const int *__restrict__ order, float *__restrict__ t_out,
                      int *__restrict__ prim_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int i = order ? order[j] : j;
   float t_best = t_max[i];
-  const bool any_hit = mode[i] > 0.f;
-  int prim = -1;
-  if (!(t_best > 0.f)) {  // dead lane: nothing can satisfy 1e-4 < t < t_max
+  // A dead lane (nothing can satisfy 1e-4 < t < t_max) reads nothing else:
+  // through `order` each of its reads would be a scattered sector.
+  if (!(t_best > 0.f)) {
     t_out[i] = t_best;
     prim_out[i] = -1;
     return;
   }
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const bool any_hit = mode[i] > 0.f;
+  int prim = -1;
   const float inv_dx = 1.f / (dx == 0.f ? 1e-30f : dx);
   const float inv_dy = 1.f / (dy == 0.f ? 1e-30f : dy);
   const float inv_dz = 1.f / (dz == 0.f ? 1e-30f : dz);
@@ -179,15 +195,17 @@ extern "C" {
 int bvh4_traverse_stack_size() { return kStackSize; }
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
+// `order` (may be null: the identity) lists the rays to trace.
 int bvh4_traverse(const void *nodes, const void *tris, const void *o,
                   const void *d, const void *t_max, const void *mode,
-                  void *t_out, void *prim_out, int n, void *stream) {
+                  const void *order, void *t_out, void *prim_out, int n,
+                  void *stream) {
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
   bvh4_traverse_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       (const float4 *)nodes, (const float4 *)tris, (const float *)o,
       (const float *)d, (const float *)t_max, (const float *)mode,
-      (float *)t_out, (int *)prim_out, n);
+      (const int *)order, (float *)t_out, (int *)prim_out, n);
   return (int)cudaGetLastError();
 }
 

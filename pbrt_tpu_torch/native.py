@@ -13,8 +13,10 @@ loaded with ctypes, one per source:
 They land in ``build/`` at the repository root (listed in .gitignore), named
 by a hash of their source and flags, so an edited source is rebuilt and two
 processes that build at once each write a private file and rename it into
-place.  ``build`` starts every compiler at once.  Nothing here runs when the
-module is imported.
+place.  ``build`` starts every compiler at once.  Each compiler's output is
+kept beside its library (``<library>.log``): for the kernels, ptxas's
+registers, shared memory and spills (``-Xptxas -v``), which ``build_log``
+returns.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -33,10 +35,11 @@ CUDA_KERNELS = ("bvh4_traverse", "bvh2_traverse")
 HOST_SRC = PKG / "csrc" / "host" / "bvh_builder.cpp"
 
 # -fmad=false: the kernels' float arithmetic then rounds exactly as the
-# plain PyTorch versions' separate multiplies and adds do.
+# plain PyTorch versions' separate multiplies and adds do.  -Xptxas -v:
+# each kernel's registers, shared memory and spills, kept in the build log.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
@@ -87,6 +90,7 @@ def _finish(out: Path, proc, tmp) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"building {out.name} failed:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
@@ -98,19 +102,27 @@ def build(kinds=(*CUDA_KERNELS, "host")) -> dict:
     return {k: _finish(*v) for k, v in started.items()}
 
 
+def build_log(kind: str) -> str:
+    """The compiler's output of one library's build (building it first if
+    needed); for a kernel, ptxas's lines on its registers, shared memory and
+    spills."""
+    log = build((kind,))[kind].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 @functools.cache
 def cuda_lib(kernel: str) -> ctypes.CDLL:
     """The library of one traversal kernel ("bvh4_traverse" or
     "bvh2_traverse"), built on first call.  It exports
-    ``<kernel>(nodes, tris, o, d, t_max, mode, t_out, prim_out, n, stream)``
-    and ``<kernel>_stack_size()``."""
+    ``<kernel>(nodes, tris, o, d, t_max, mode, order, t_out, prim_out, n,
+    stream)`` and ``<kernel>_stack_size()``."""
     lib = ctypes.CDLL(str(build((kernel,))[kernel]))
-    vp = ctypes.c_void_p
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, kernel)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp]
+    fn.restype = i32
+    fn.argtypes = [vp] * 9 + [i32, vp]
     size = getattr(lib, f"{kernel}_stack_size")
-    size.restype = ctypes.c_int
+    size.restype = i32
     size.argtypes = []
     return lib
 

@@ -17,15 +17,18 @@ does about it.  Here:
   32-byte rows (pbrt's LinearBVHNode), and ``build_prim_records`` lays the
   triangles out contiguously in BVH order for both;
 * ``bvh4_traverse`` / ``bvh2_traverse`` check their inputs and launch their
-  kernel for CUDA tensors, or run the plain version for CPU tensors;
+  kernel for CUDA tensors, or run the plain version for CPU tensors; both
+  take the rays in the order of a permutation ``order`` and return each
+  ray's result in its own place;
 * ``bvh4_traverse_plain`` / ``bvh2_traverse_plain`` are the same functions in
   plain PyTorch (same tree, same visit order, same Moller-Trumbore
   arithmetic), vectorised over rays; they also count node visits and
   triangle tests per ray;
 * ``record_calls`` keeps the ray batches of every traversal in a block;
-* ``intersect_kernel_with_quadrics`` sorts the rays by (direction octant,
-  origin Morton code), traverses, scatters the results back, and tests the
-  scene's few quadrics by brute force (pallas_bvh.py:760-852);
+* ``intersect_kernel_with_quadrics`` sorts the rays by (dead, direction
+  octant, origin Morton code), hands the unsorted rays and the permutation
+  to the kernel, and tests the scene's few quadrics by brute force
+  (pallas_bvh.py:760-852);
 * ``kernel_supported`` is the gate of pallas_bvh.py:861-885.
 """
 from __future__ import annotations
@@ -36,6 +39,7 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 STACK_SIZE = 128  # bvh4 per-thread stack entries; the kernel's kStackSize
 BVH2_STACK_SIZE = 64  # bvh2 per-thread stack entries (pbrt's todo[64])
@@ -265,10 +269,28 @@ def _result(st, return_counts):
     return st["t_best"], st["prim"]
 
 
-def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False):
+def _in_order(plain, order, nodes, tris, o, d, t_max, mode, return_counts):
+    """`plain` on the rays taken in `order` (a permutation), each output
+    scattered back to its ray's place, as the kernels read and write."""
+    idx = order.to(torch.int64)
+    res = plain(nodes, tris, o[idx], d[idx], t_max[idx], mode[idx], return_counts)
+    out = []
+    for r in res:
+        back = torch.empty_like(r)
+        back[idx] = r
+        out.append(back)
+    return tuple(out)
+
+
+def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
+                        order=None):
     """The bvh4 kernel's function in plain PyTorch: one loop step advances
-    every unfinished ray by one node or leaf visit.  Returns (t, prim) or,
-    with return_counts, (t, prim, node_visits, prim_tests)."""
+    every unfinished ray by one node or leaf visit.  order (int32 [n], None =
+    the identity) is the kernel's work list.  Returns (t, prim) or, with
+    return_counts, (t, prim, node_visits, prim_tests)."""
+    if order is not None:
+        return _in_order(bvh4_traverse_plain, order, nodes, tris, o, d, t_max,
+                         mode, return_counts)
     rows_f = nodes.view(-1, 32)
     rows_i = nodes.view(torch.int32).view(-1, 32)
     recs = tris.view(-1, 12)
@@ -313,13 +335,17 @@ def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False):
     return _result(st, return_counts)
 
 
-def bvh2_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False):
+def bvh2_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
+                        order=None):
     """The bvh2 kernel's function in plain PyTorch (pbrt-v3's
     BVHAccel::Intersect): one loop step visits one node per unfinished ray,
     slab-tests its box and, on a hit, tests a leaf's primitives or descends
     to the child nearer along the split axis by the ray's own direction
-    sign, pushing the other.  Returns (t, prim) or, with return_counts,
-    (t, prim, node_visits, prim_tests)."""
+    sign, pushing the other.  order as for bvh4_traverse_plain.  Returns
+    (t, prim) or, with return_counts, (t, prim, node_visits, prim_tests)."""
+    if order is not None:
+        return _in_order(bvh2_traverse_plain, order, nodes, tris, o, d, t_max,
+                         mode, return_counts)
     rows_f = nodes.view(-1, 8)
     rows_i = nodes.view(torch.int32).view(-1, 8)
     recs = tris.view(-1, 12)
@@ -377,8 +403,9 @@ _recorders: list[list] = []
 @contextlib.contextmanager
 def record_calls():
     """Within the block, every call of bvh4_traverse or bvh2_traverse
-    appends copies of its ray inputs (o, d, t_max, mode) to the yielded
-    list, so a caller can replay the batches a render traversed."""
+    appends copies of its inputs (o, d, t_max, mode, order; order may be
+    None) to the yielded list, so a caller can replay the batches a render
+    traversed exactly as they were launched."""
     calls: list = []
     _recorders.append(calls)
     try:
@@ -388,11 +415,12 @@ def record_calls():
 
 
 def _traverse(kernel, width, stack_need, stack_size, plain,
-              nodes, tris, o, d, t_max, mode):
+              nodes, tris, o, d, t_max, mode, order):
     """Shared body of the two wrappers: record, check, then the plain
     version for CPU tensors or one launch of `kernel` for CUDA tensors."""
     for calls in _recorders:
-        calls.append((o.clone(), d.clone(), t_max.clone(), mode.clone()))
+        calls.append(tuple(None if x is None else x.clone()
+                           for x in (o, d, t_max, mode, order)))
     n = o.shape[0]
     _check("nodes", nodes, torch.float32, (nodes.shape[0], width))
     _check("tris", tris, torch.float32, (tris.shape[0], 12))
@@ -400,7 +428,10 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
     _check("d", d, torch.float32, (n, 3))
     _check("t_max", t_max, torch.float32, (n,))
     _check("mode", mode, torch.float32, (n,))
-    devs = {x.device for x in (nodes, tris, o, d, t_max, mode)}
+    if order is not None:
+        _check("order", order, torch.int32, (n,))
+    devs = {x.device for x in (nodes, tris, o, d, t_max, mode, order)
+            if x is not None}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     if stack_need > stack_size:
@@ -408,7 +439,7 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
                          f"entries; the kernel has {stack_size}")
     dev = o.device
     if dev.type == "cpu":
-        return plain(nodes, tris, o, d, t_max, mode)
+        return plain(nodes, tris, o, d, t_max, mode, order=order)
     if dev.type != "cuda":
         raise NotImplementedError(f"{kernel} on {dev.type} tensors")
     from ..native import cuda_lib
@@ -424,7 +455,8 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, kernel)(
             nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), mode.data_ptr(), t_out.data_ptr(),
+            t_max.data_ptr(), mode.data_ptr(),
+            None if order is None else order.data_ptr(), t_out.data_ptr(),
             prim_out.data_ptr(), n, stream,
         )
     if err != 0:
@@ -432,16 +464,20 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
     return t_out, prim_out
 
 
-def bvh4_traverse(nodes, tris, o, d, t_max, mode, depth: int):
+def bvh4_traverse(nodes, tris, o, d, t_max, mode, depth: int, order=None):
     """Closest/any-hit traversal of the 4-wide BVH: (t f32 [n], prim i32 [n]).
 
     nodes [M4, 32] f32 and tris [P, 12] f32 from build_bvh4_table /
     build_prim_records; o, d [n, 3] f32; t_max, mode [n] f32 (mode > 0 =
     any-hit).  depth: the tree's 4-wide levels, checked against the stack.
-    CUDA tensors launch the kernel (one launch, counted in
+    order: int32 [n], the kernel's work list (None = the identity); it must
+    be a permutation of range(n), which is not checked (on the card a
+    repeated or out-of-range entry races or writes out of bounds); the
+    results come back in the rays' own places whatever the order.  CUDA
+    tensors launch the kernel (one launch, counted in
     bvh4_traverse.launches); CPU tensors run bvh4_traverse_plain."""
     out = _traverse("bvh4_traverse", 32, 3 * depth, STACK_SIZE,
-                    bvh4_traverse_plain, nodes, tris, o, d, t_max, mode)
+                    bvh4_traverse_plain, nodes, tris, o, d, t_max, mode, order)
     if o.is_cuda and o.shape[0]:
         bvh4_traverse.launches += 1
     return out
@@ -450,14 +486,14 @@ def bvh4_traverse(nodes, tris, o, d, t_max, mode, depth: int):
 bvh4_traverse.launches = 0
 
 
-def bvh2_traverse(nodes, tris, o, d, t_max, mode, depth: int):
+def bvh2_traverse(nodes, tris, o, d, t_max, mode, depth: int, order=None):
     """Closest/any-hit traversal of the binary BVH, the same contract as
     bvh4_traverse.  nodes [M, 8] f32 from build_bvh2_table; depth: its
-    deepest node's level, checked against the stack.  CUDA tensors launch
-    the kernel (counted in bvh2_traverse.launches); CPU tensors run
-    bvh2_traverse_plain."""
+    deepest node's level, checked against the stack; order as for
+    bvh4_traverse.  CUDA tensors launch the kernel (counted in
+    bvh2_traverse.launches); CPU tensors run bvh2_traverse_plain."""
     out = _traverse("bvh2_traverse", 8, depth, BVH2_STACK_SIZE,
-                    bvh2_traverse_plain, nodes, tris, o, d, t_max, mode)
+                    bvh2_traverse_plain, nodes, tris, o, d, t_max, mode, order)
     if o.is_cuda and o.shape[0]:
         bvh2_traverse.launches += 1
     return out
@@ -479,9 +515,12 @@ def _morton_part(x):
     return x
 
 
-def sort_rays_key(root_min, root_max, o, d):
-    """Coherence key: direction octant (3 bits) | origin Morton code (27
-    bits) quantised to the scene bounds (pallas_bvh.py:760-779)."""
+def sort_rays_key(root_min, root_max, o, d, t_max):
+    """Coherence key: dead (1 bit, where t_max <= 0 as the kernels read it)
+    | direction octant (3 bits) | origin Morton code (27 bits) quantised to
+    the scene bounds (pallas_bvh.py:760-779 plus the dead bit).  A stable
+    argsort of it lists every live ray first, in octant/Morton order, and
+    every dead ray last."""
     q = torch.clamp((o - root_min) / torch.clamp(root_max - root_min, min=1e-6)
                     * 511.0, 0.0, 511.0).to(torch.int64)
     morton = ((_morton_part(q[:, 0]) << 2) | (_morton_part(q[:, 1]) << 1)
@@ -489,7 +528,8 @@ def sort_rays_key(root_min, root_max, o, d):
     octant = (((d[:, 0] < 0).to(torch.int64) << 2)
               | ((d[:, 1] < 0).to(torch.int64) << 1)
               | (d[:, 2] < 0).to(torch.int64))
-    return (octant << 27) | morton
+    dead = (~(t_max > 0.0)).to(torch.int64)
+    return (dead << 30) | (octant << 27) | morton
 
 
 def kernel_supported(scene) -> bool:
@@ -507,8 +547,9 @@ def intersect_kernel_with_quadrics(scene, o, d, t_max, any_mask=None):
     """Closest hit through bvh4_traverse (or bvh2_traverse under
     PBRT_TPU_BVH4=0) plus the brute-force quadric pass.  Returns (t [n],
     prim [n]); any-mask lanes stop at their first hit and only prim >= 0
-    means anything for them.  The rays are sorted for coherence and the
-    results scattered back; the order changes speed, never results."""
+    means anything for them.  The kernel takes the rays in sorted order
+    (live first, then by coherence) through `order` and writes each result
+    in its ray's place; the order changes speed, never results."""
     from ..shapes.quadrics import intersect_sphere_object
     from ..core.vecmath import xform_point, xform_vector
 
@@ -520,28 +561,24 @@ def intersect_kernel_with_quadrics(scene, o, d, t_max, any_mask=None):
             else any_mask.expand(n).to(torch.float32).contiguous())
     o = o.contiguous()
     d = d.contiguous()
-    key = sort_rays_key(scene.bvh_min[0], scene.bvh_max[0], o, d)
-    order = torch.argsort(key, stable=True)
+    with record_function("layer: traversal / key and argsort"):
+        key = sort_rays_key(scene.bvh_min[0], scene.bvh_max[0], o, d, tm)
+        order = torch.argsort(key, stable=True).to(torch.int32)
     if use_bvh2():
-        t_s, p_s = bvh2_traverse(scene.bvh2_nodes, scene.prim_tris, o[order],
-                                 d[order], tm[order], mode[order],
-                                 scene.bvh2_depth)
+        t, prim = bvh2_traverse(scene.bvh2_nodes, scene.prim_tris, o, d, tm,
+                                mode, scene.bvh2_depth, order)
     else:
-        t_s, p_s = bvh4_traverse(scene.bvh4_nodes, scene.prim_tris, o[order],
-                                 d[order], tm[order], mode[order],
-                                 scene.bvh4_depth)
-    t = torch.empty_like(t_s)
-    prim = torch.empty_like(p_s)
-    t[order] = t_s
-    prim[order] = p_s
-    for qi, prim_row in scene.quadric_rows:
-        row = scene.q_packed[qi]
-        w2o = row[:12].view(3, 4)
-        par = row[12:16]
-        oo = xform_point(w2o, o)
-        od = xform_vector(w2o, d)
-        s = intersect_sphere_object(oo, od, t, par[0], par[1], par[2], par[3])
-        take = s["hit"] & (s["t"] < t)
-        t = torch.where(take, s["t"], t)
-        prim = torch.where(take, prim_row, prim)
+        t, prim = bvh4_traverse(scene.bvh4_nodes, scene.prim_tris, o, d, tm,
+                                mode, scene.bvh4_depth, order)
+    with record_function("layer: traversal / sphere pass"):
+        for qi, prim_row in scene.quadric_rows:
+            row = scene.q_packed[qi]
+            w2o = row[:12].view(3, 4)
+            par = row[12:16]
+            oo = xform_point(w2o, o)
+            od = xform_vector(w2o, d)
+            s = intersect_sphere_object(oo, od, t, par[0], par[1], par[2], par[3])
+            take = s["hit"] & (s["t"] < t)
+            t = torch.where(take, s["t"], t)
+            prim = torch.where(take, prim_row, prim)
     return t, prim

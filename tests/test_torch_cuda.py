@@ -1,7 +1,8 @@
 """The kernels on the card: bvh4_traverse and bvh2_traverse against their
-plain PyTorch versions and against each other, the layout probe's Triton
-chain against its plain form B, the launch counts, a render on the card
-against one on the CPU, and the CLI on the card against a pbrt-v3 golden.
+plain PyTorch versions (bit for bit, under a random work list, all-dead
+batches, and a tree at the stack's cap) and against each other, the layout probe's Triton chain
+against its plain form B, the launch counts, a render on the card against
+one on the CPU, and the CLI on the card against a pbrt-v3 golden.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -61,20 +62,103 @@ def rays(n, seed, device):
     return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 8193])
-def test_kernel_equals_plain(n):
-    s = soup(2000, 3).build(device="cuda")
-    o, d = rays(n, n, "cuda")
-    t_max = torch.full((n,), 1e30, device="cuda")
-    t_max[::5] = 0.0
-    mode = (torch.arange(n, device="cuda") % 3 == 0).float()
-    args = (s.bvh4_nodes, s.prim_tris, o, d, t_max, mode)
+def random_order(n, seed):
+    rs = np.random.RandomState(seed)
+    return torch.as_tensor(rs.permutation(n).astype(np.int32), device="cuda")
+
+
+def assert_bvh4_equals_plain(nodes, tris, o, d, t_max, mode, depth, order):
+    args = (nodes, tris, o, d, t_max, mode)
     before = kb.bvh4_traverse.launches
-    t_k, p_k = kb.bvh4_traverse(*args, s.bvh4_depth)
+    t_k, p_k = kb.bvh4_traverse(*args, depth, order)
+    torch.cuda.synchronize()
     assert kb.bvh4_traverse.launches == before + 1
     t_p, p_p = kb.bvh4_traverse_plain(*args)
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
+    return p_k
+
+
+# (work list, dead lanes)
+BVH4_CASES = {
+    "identity": (None, "every 5th"),
+    "random-order": ("random", "every 5th"),
+    "all-dead": ("random", "all"),
+}
+
+
+@pytest.mark.parametrize("case", list(BVH4_CASES))
+@pytest.mark.parametrize("n", [1, 127, 128, 8193])
+def test_kernel_equals_plain(n, case):
+    work, dead = BVH4_CASES[case]
+    s = soup(2000, 3).build(device="cuda")
+    o, d = rays(n, n, "cuda")
+    t_max = torch.full((n,), 1e30, device="cuda")
+    if dead == "all":
+        t_max[:] = 0.0
+        t_max[::7] = -1.0
+    else:
+        t_max[::5] = 0.0
+    mode = (torch.arange(n, device="cuda") % 3 == 0).float()
+    order = random_order(n, n) if work == "random" else None
+    p = assert_bvh4_equals_plain(s.bvh4_nodes, s.prim_tris, o, d, t_max, mode,
+                                 s.bvh4_depth, order)
+    if dead == "all":
+        assert bool((p == -1).all())
+
+
+def caterpillar(m):
+    """A binary BVH whose interior node k has a one-triangle leaf (triangle
+    k, a unit triangle in the plane x = k) as its first child and interior
+    node k + 1 as its second, the last one two leaves: m interior levels, so
+    build_bvh4_table makes a 4-wide tree of (m - 1) // 2 + 1 levels.
+    Returns (nodes, tris) for bvh4_traverse."""
+    n = m + 1  # triangles
+    x = np.arange(n, dtype=np.float32)
+    verts = np.zeros((n, 9), np.float32)
+    verts[:, 0::3] = x[:, None]
+    verts[:, 4] = 1.0  # v1 = (x, 1, 0)
+    verts[:, 8] = 1.0  # v2 = (x, 0, 1)
+    n_nodes = 2 * m + 1
+    nmin = np.zeros((n_nodes, 3), np.float32)
+    nmax = np.zeros((n_nodes, 3), np.float32)
+    offset = np.zeros(n_nodes, np.int64)
+    n_prims = np.zeros(n_nodes, np.int64)
+    for k in range(m):
+        inner, leaf = 2 * k, 2 * k + 1
+        nmin[inner], nmax[inner] = (x[k], 0, 0), (x[-1], 1, 1)
+        offset[inner] = 2 * k + 2
+        nmin[leaf], nmax[leaf] = (x[k], 0, 0), (x[k], 1, 1)
+        offset[leaf], n_prims[leaf] = k, 1
+    nmin[-1], nmax[-1] = (x[-1], 0, 0), (x[-1], 1, 1)
+    offset[-1], n_prims[-1] = m, 1
+    rows, depth = kb.build_bvh4_table(nmin, nmax, offset, n_prims)
+    recs = kb.build_prim_records(np.zeros(n), np.arange(n), verts)
+    return (torch.as_tensor(rows, device="cuda"),
+            torch.as_tensor(recs, device="cuda"), depth)
+
+
+@pytest.mark.parametrize("work", ["identity", "random-order"])
+def test_kernel_equals_plain_at_the_stack_cap(work):
+    """A tree whose 3 * depth is within 3 of the stack's 128 entries; rays
+    down the chain push two entries a level."""
+    nodes, tris, depth = caterpillar(84)
+    assert kb.STACK_SIZE - 3 < 3 * depth <= kb.STACK_SIZE
+    n = 4099
+    rs = np.random.RandomState(7)
+    far = np.stack([np.full(n, 200.0), rs.rand(n) * 0.5, rs.rand(n) * 0.5], 1)
+    o = far.astype(np.float32)
+    o[1::2, 0] = -100.0  # half from the other end: a shallow walk
+    d = np.zeros((n, 3), np.float32)
+    d[:, 0] = np.where(o[:, 0] > 0, -1.0, 1.0)
+    d[::3] += rs.randn((n + 2) // 3, 3).astype(np.float32) * 0.01
+    o, d = torch.as_tensor(o, device="cuda"), torch.as_tensor(d, device="cuda")
+    t_max = torch.full((n,), 1e30, device="cuda")
+    t_max[::11] = 0.0
+    mode = (torch.arange(n, device="cuda") % 4 == 0).float()
+    order = random_order(n, 8) if work == "random-order" else None
+    p = assert_bvh4_equals_plain(nodes, tris, o, d, t_max, mode, depth, order)
+    assert float((p >= 0).float().mean()) > 0.5
 
 
 def test_wrapper_refuses_mixed_devices():
@@ -101,16 +185,18 @@ def test_render_on_card_matches_cpu():
     assert (rel <= 1e-3).all(-1).float().mean() >= 0.995
 
 
+@pytest.mark.parametrize("work", ["identity", "random-order"])
 @pytest.mark.parametrize("n", [1, 127, 128, 8193])
-def test_bvh2_kernel_equals_plain_and_agrees_with_bvh4(n):
+def test_bvh2_kernel_equals_plain_and_agrees_with_bvh4(n, work):
     s = soup(2000, 4).build(device="cuda")
     o, d = rays(n, n + 1, "cuda")
     t_max = torch.full((n,), 1e30, device="cuda")
     t_max[::5] = 0.0
     mode = (torch.arange(n, device="cuda") % 3 == 0).float()
     args = (s.bvh2_nodes, s.prim_tris, o, d, t_max, mode)
+    order = random_order(n, n + 1) if work == "random-order" else None
     before = kb.bvh2_traverse.launches
-    t_k, p_k = kb.bvh2_traverse(*args, s.bvh2_depth)
+    t_k, p_k = kb.bvh2_traverse(*args, s.bvh2_depth, order)
     assert kb.bvh2_traverse.launches == before + 1
     t_p, p_p = kb.bvh2_traverse_plain(*args)
     assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)

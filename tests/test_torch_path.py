@@ -90,7 +90,7 @@ def test_launches_per_sample_and_repeat():
             TSampler("sobol", 3, (8, 8)), tpath.PathConfig(max_depth=4))
     with tpath.tv.kb.record_calls() as calls:
         a = tpath.render(*args, device="cpu")
-    sizes = [o.shape[0] for o, _, _, _ in calls]
+    sizes = [o.shape[0] for o, *_ in calls]
     assert len(sizes) == 3 * (1 + 4)
     assert sizes[:5] == [64, 192, 192, 192, 192]
     assert torch.equal(a, tpath.render(*args, device="cpu"))

@@ -222,7 +222,8 @@ def test_sort_changes_no_result():
     _, ts = both(tri_scene)
     o, d = (torch.as_tensor(x) for x in camera_rays(2000, 7))
     n = o.shape[0]
-    key = kb.sort_rays_key(ts.bvh_min[0], ts.bvh_max[0], o, d)
+    key = kb.sort_rays_key(ts.bvh_min[0], ts.bvh_max[0], o, d,
+                           torch.full((n,), 1e30))
     assert not bool((key[1:] >= key[:-1]).all())  # the sort reorders
     t, p = kb.intersect_kernel_with_quadrics(ts, o, d, 1e30)
     t_u, p_u = kb.bvh4_traverse_plain(ts.bvh4_nodes, ts.prim_tris, o, d,
