@@ -22,7 +22,9 @@ Phases, each printing its result on a line of its own and its seconds:
      gathered into sorted order beforehand (ms_gathered), beside the
      gathers and scatters that launch needs around it (glue_ms);
   4. layout probe: the Triton chain (form C) against form B at N = 163840,
-     forms A, B and C timed, then the probe's entry point driven once;
+     forms A, B and C timed eagerly (the host's launch path included), B
+     and C on the device alone (a CUDA graph of 50 calls, inputs cycled
+     past the L2), then the probe's entry point driven once;
   5. main path: pbrt_tpu_torch.integrators.path.render on a 400x400, 8 spp,
      depth-5 scene of ~262k triangles (halton sampler, box filter): finite,
      non-zero, 8 x (1 + 5) kernel launches, and a bit-identical repeat;
@@ -259,9 +261,10 @@ def bvh_kernels(bvh) -> dict:
         "bvh4": dict(wrapper=bvh.bvh4_traverse, plain=bvh.bvh4_traverse_plain,
                      nodes="bvh4_nodes", depth="bvh4_depth",
                      node_bytes=bvh.NODE_BYTES, node_flops=4 * SLAB_FLOPS),
+        # one bvh2 row fetch tests both children's boxes
         "bvh2": dict(wrapper=bvh.bvh2_traverse, plain=bvh.bvh2_traverse_plain,
                      nodes="bvh2_nodes", depth="bvh2_depth",
-                     node_bytes=bvh.NODE2_BYTES, node_flops=SLAB_FLOPS),
+                     node_bytes=bvh.NODE2_BYTES, node_flops=2 * SLAB_FLOPS),
     }
 
 
@@ -531,7 +534,7 @@ def bvh_phase(sc, tf, path, bvh, cameras, film_cls, sampler_cls, dev):
     big = big.build(device=dev)
     print(f"mesh-1M: {idx.shape[0]} triangles, {big.bvh4_nodes.shape[0]} "
           f"4-wide nodes (depth {big.bvh4_depth}), {big.bvh2_nodes.shape[0]} "
-          f"binary nodes (depth {big.bvh2_depth}), host build "
+          f"binary rows (depth {big.bvh2_depth}), host build "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     o_b, d_b = mesh_rays(rs, 65536, (0.0, 0.0, 0.0), 3.0, dev)
     both("mesh1M-64k", big, o_b, d_b, torch.full((65536,), 1e30, device=dev),
@@ -595,19 +598,28 @@ def probe_phase(bp, dev, counted):
     ms_a = bp.time_ms(bp.chain_rows, p, d, ns, t)
     ms_b = bp.time_ms(bp.chain_planar, pT, dT, nsT, t)
     ms_c = bp.time_ms(bp.chain_fused, pT, dT, nsT, t)
+    # the device alone: one replay of a CUDA graph of 50 calls, inputs
+    # cycled past the L2
+    cold = bp.cold_copies(pT, dT, nsT, t)
+    dev_b = bp.device_ms(bp.chain_planar, cold)
+    dev_c = bp.device_ms(bp.chain_fused, cold)
+    del cold
     bp.chain_fused.launches = saved
     t_bytes = n * bp.BYTES_PER_ELEMENT / H100_BYTES_PER_S * 1e3
     t_ops = n * bp.FLOPS_PER_ELEMENT / H100_F32_FLOPS * 1e3
-    print(f"probe times: A {ms_a:.4f} ms, B {ms_b:.4f} ms, C {ms_c:.4f} ms per call; "
+    print(f"probe times: A {ms_a:.4f} ms, B {ms_b:.4f} ms, C {ms_c:.4f} ms per eager "
+          f"call; on the device B {dev_b:.5f} ms, C {dev_c:.5f} ms per call; "
           f"C's floor {max(t_bytes, t_ops):.5f} ms ("
           f"{'bytes' if t_bytes >= t_ops else 'operations'}: {t_bytes:.5f} ms of "
-          f"bytes, {t_ops:.5f} ms of operations)", flush=True)
+          f"bytes, {t_ops:.5f} ms of operations); C's host launch cost "
+          f"{ms_c - dev_c:.5f} ms a call (eager less device)", flush=True)
     reset_counts(counted)
     bp.main(["--reps", "20"])
     launches = read_counts(counted)
     check(launches["chain_fused"] > 0, "the probe's entry point launched no kernel")
     print(f"probe entry point: launches {launches}", flush=True)
-    return dict(ms=ms_c, plain_ms=ms_b, rows_ms=ms_a, bound_ms=max(t_bytes, t_ops),
+    return dict(ms=ms_c, device_ms=dev_c, plain_ms=ms_b, plain_device_ms=dev_b,
+                rows_ms=ms_a, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=max(out["p"]["max_abs"], out["t"]["max_abs"]),
                 exact_frac=min(out["p"]["exact"], out["t"]["exact"]),
@@ -910,7 +922,9 @@ def run(profile: Path | None = None) -> dict:
         "replaces": "tools/bench_layout_probe.py:67 (pallas_fused, pallas_call at :79)",
         "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
         "exact_frac": probe["exact_frac"],
-        "ms": probe["ms"], "plain_ms": probe["plain_ms"], "rows_ms": probe["rows_ms"],
+        "ms": probe["ms"], "device_ms": probe["device_ms"],
+        "plain_ms": probe["plain_ms"], "plain_device_ms": probe["plain_device_ms"],
+        "rows_ms": probe["rows_ms"],
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "library_ms": None,
         "shape": f"p, d, ns f32 [3, {probe['n']}], t f32 [{probe['n']}]",

@@ -14,7 +14,8 @@ does about it.  Here:
 
 * ``build_bvh4_table`` collapses the binary BVH two levels at a time into
   128-byte 4-wide node rows, ``build_bvh2_table`` lays the binary BVH out as
-  32-byte rows (pbrt's LinearBVHNode), and ``build_prim_records`` lays the
+  64-byte rows, one per interior node, that hold both children's boxes (a
+  virtual row 0 holds the root), and ``build_prim_records`` lays the
   triangles out contiguously in BVH order for both;
 * ``bvh4_traverse`` / ``bvh2_traverse`` check their inputs and launch their
   kernel for CUDA tensors, or run the plain version for CPU tensors; both
@@ -22,7 +23,7 @@ does about it.  Here:
   ray's result in its own place;
 * ``bvh4_traverse_plain`` / ``bvh2_traverse_plain`` are the same functions in
   plain PyTorch (same tree, same visit order, same Moller-Trumbore
-  arithmetic), vectorised over rays; they also count node visits and
+  arithmetic), vectorised over rays; they also count node-row fetches and
   triangle tests per ray;
 * ``record_calls`` keeps the ray batches of every traversal in a block;
 * ``intersect_kernel_with_quadrics`` sorts the rays by (dead, direction
@@ -48,7 +49,7 @@ MAX_LEAF_PRIMS = 127  # 7 bits of a leaf stack entry
 MAX_PRIMS = 1 << 24  # 24 bits of a leaf stack entry
 MAX_BRUTE_QUADRICS = 64
 NODE_BYTES = 128  # one 4-wide row
-NODE2_BYTES = 32  # one binary row
+NODE2_BYTES = 64  # one binary row: both children of an interior node
 PRIM_BYTES = 48
 RAY_BYTES = 40  # o, d, t_max, mode in; t, prim out
 _INF = math.inf
@@ -133,22 +134,48 @@ def build_bvh4_table(nodes_min, nodes_max, offset, n_prims):
 
 
 def build_bvh2_table(nodes_min, nodes_max, offset, n_prims, axis):
-    """The binary BVH as [M, 8] float32 rows, one 32-byte line per node
-    (pbrt's LinearBVHNode): min xyz, max xyz, then two int32 stored bit for
-    bit: offset (the second child of an interior node, the first primitive
-    of a leaf) and n_prims | axis << 16.  Returns (rows, depth), depth = the
-    deepest node's level, the most stack entries a traversal holds."""
+    """The binary BVH as [M2, 16] float32 rows, one 64-byte row per interior
+    node holding both of its children: child k's box at [6k:6k+6] (min xyz,
+    max xyz), then four int32 stored bit for bit: the children's refs at 12
+    and 13 and their counts at 14 and 15 (as in the 4-wide table: -1 empty,
+    0 interior with the ref a row id, > 0 a leaf with the ref its first
+    primitive); the node's split axis sits in bits 16-17 of word 14, child
+    0's count in its low 16 bits.  Child 0 is the node's first child in the
+    flattened tree, child 1 its second (pbrt's secondChildOffset).  Row 0 is
+    a virtual parent: child 0 the root, child 1 empty; the interior nodes
+    follow in the flattened tree's depth-first order, and leaves have no
+    row.  Returns (rows, depth), depth = the deepest node's level, the most
+    stack entries a traversal holds."""
     offset = np.asarray(offset, np.int64)
     n_prims = np.asarray(n_prims, np.int64)
     if n_prims.max(initial=0) > 0xFFFF:
         raise ValueError("leaves above 65535 primitives")
-    rows = np.empty((offset.shape[0], 8), np.float32)
-    rows[:, 0:3] = np.asarray(nodes_min, np.float32)
-    rows[:, 3:6] = np.asarray(nodes_max, np.float32)
-    rows[:, 6] = offset.astype(np.int32).view(np.float32)
-    meta = n_prims | (np.asarray(axis, np.int64) << 16)
-    rows[:, 7] = meta.astype(np.int32).view(np.float32)
-    return rows, int(node_levels(offset, n_prims).max())
+    is_leaf = n_prims > 0
+    inner = np.nonzero(~is_leaf)[0]
+    row_of = np.full(offset.shape[0], -1, np.int64)
+    row_of[inner] = np.arange(1, inner.size + 1)
+    kids = np.stack([np.concatenate([[0], inner + 1]),
+                     np.concatenate([[-1], offset[inner]])], 1)
+    k = kids.shape[0]
+    boxes = np.empty((k, 2, 6), np.float32)
+    boxes[..., :3] = 1e30
+    boxes[..., 3:] = -1e30
+    refs = np.zeros((k, 2), np.int64)
+    counts = np.full((k, 2), -1, np.int64)
+    used = kids >= 0
+    c = kids[used]
+    boxes[used, :3] = np.asarray(nodes_min, np.float32)[c]
+    boxes[used, 3:] = np.asarray(nodes_max, np.float32)[c]
+    refs[used] = np.where(is_leaf[c], offset[c], row_of[c])
+    counts[used] = np.where(is_leaf[c], n_prims[c], 0)
+    if (refs[used] < 0).any():
+        raise AssertionError("a binary child points at no row")
+    axis = np.concatenate([[0], np.asarray(axis, np.int64)[inner]])
+    counts[:, 0] |= axis << 16
+    rows = np.concatenate([boxes.reshape(k, 12),
+                           refs.astype(np.int32).view(np.float32),
+                           counts.astype(np.int32).view(np.float32)], 1)
+    return np.ascontiguousarray(rows), int(node_levels(offset, n_prims).max())
 
 
 def build_prim_records(prim_type, prim_idx, tri_verts):
@@ -335,51 +362,86 @@ def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
     return _result(st, return_counts)
 
 
+def _pop_entered(st, stack_tn, idx, pop, finished):
+    """Rays idx[pop] take the next stack entry whose stored t_near is still
+    below their t_best (the others are dropped with no fetch), or finish."""
+    sp, entry, stack, active = st["sp"], st["entry"], st["stack"], st["active"]
+    active[idx[finished]] = False
+    pi = idx[pop]
+    while pi.numel():
+        can = sp[pi] > 0
+        active[pi[~can]] = False
+        pc = pi[can]
+        sp[pc] -= 1
+        top = sp[pc]
+        take = stack_tn[pc, top] < st["t_best"][pc]
+        entry[pc[take]] = stack[pc[take], top[take]]
+        pi = pc[~take]
+
+
 def bvh2_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
                         order=None):
     """The bvh2 kernel's function in plain PyTorch (pbrt-v3's
-    BVHAccel::Intersect): one loop step visits one node per unfinished ray,
-    slab-tests its box and, on a hit, tests a leaf's primitives or descends
-    to the child nearer along the split axis by the ray's own direction
-    sign, pushing the other.  order as for bvh4_traverse_plain.  Returns
-    (t, prim) or, with return_counts, (t, prim, node_visits, prim_tests)."""
+    BVHAccel::Intersect over rows that hold both children): one loop step
+    takes one item per unfinished ray.  A row is fetched (one node visit)
+    and both child boxes are slab-tested; the ray enters the child nearer
+    along the node's split axis by its own direction sign, pushing the other
+    with its t_near, or enters the one child hit, or pops.  A leaf's
+    primitives are tested with no fetch of a row.  A popped child is entered
+    only if its stored t_near is below t_best then, which is what testing
+    its box at that moment decided in a design of one row per node:
+    the same leaves are tested in the same order.  order as for
+    bvh4_traverse_plain.  Returns (t, prim) or, with return_counts, (t,
+    prim, node_visits, prim_tests)."""
     if order is not None:
         return _in_order(bvh2_traverse_plain, order, nodes, tris, o, d, t_max,
                          mode, return_counts)
-    rows_f = nodes.view(-1, 8)
-    rows_i = nodes.view(torch.int32).view(-1, 8)
+    rows_f = nodes.view(-1, 16)
+    rows_i = nodes.view(torch.int32).view(-1, 16)
     recs = tris.view(-1, 12)
     any_hit = mode > 0.0
     st = _start(o, d, t_max, BVH2_STACK_SIZE)
+    stack_tn = torch.zeros(st["stack"].shape, dtype=torch.float32, device=o.device)
     t_best, prim, inv, entry = st["t_best"], st["prim"], st["inv"], st["entry"]
     dir_is_neg = inv < 0.0
+    # An entry is ref | count << 32: a row id (count 0) or a leaf's first
+    # primitive and its count; the rays start at the virtual row 0.
     while bool(st["active"].any()):
         idx = torch.nonzero(st["active"])[:, 0]
-        node = entry[idx]
-        st["node_visits"][idx] += 1
-        rf = rows_f[node]
-        ri = rows_i[node].to(torch.int64)
-        hit, _ = _slab(rf[:, None, 0:6], o[idx], inv[idx], t_best[idx])
-        hit = hit[:, 0]
-        off = ri[:, 6]
-        cnt = ri[:, 7] & 0xFFFF
-        axis = (ri[:, 7] >> 16) & 3
-        leaf = hit & (cnt > 0)
-        inner = hit & (cnt == 0)
-        finished = torch.zeros_like(hit)
+        e = entry[idx]
+        cnt = e >> 32
+        leaf = cnt > 0
+        pop = torch.ones_like(leaf)
+        finished = torch.zeros_like(leaf)
 
-        found = _leaf_tests(idx[leaf], off[leaf], cnt[leaf], recs, o, d,
-                            any_hit, t_best, prim, st["prim_tests"])
+        found = _leaf_tests(idx[leaf], e[leaf] & 0xFFFFFFFF, cnt[leaf], recs,
+                            o, d, any_hit, t_best, prim, st["prim_tests"])
         finished[leaf] = found
+        pop[leaf] = ~found
 
-        ii = idx[inner]
-        neg = dir_is_neg[ii, axis[inner]]
-        first_child = node[inner] + 1
-        second_child = off[inner]
-        _push(st["stack"], st["sp"], ii,
-              torch.where(neg, first_child, second_child), BVH2_STACK_SIZE)
-        entry[ii] = torch.where(neg, second_child, first_child)
-        _pop(st, idx, ~inner & ~finished, finished)
+        ni = idx[~leaf]
+        if ni.numel():
+            st["node_visits"][ni] += 1
+            row = e[~leaf]
+            rf = rows_f[row]
+            ri = rows_i[row].to(torch.int64)
+            hit, tn = _slab(rf[:, :12].view(-1, 2, 6), o[ni], inv[ni], t_best[ni])
+            counts = torch.stack([ri[:, 14] & 0xFFFF, ri[:, 15]], 1)
+            hit = hit & (counts >= 0)
+            kid = (ri[:, 12:14] & 0xFFFFFFFF) | (counts.clamp(min=0) << 32)
+            near = dir_is_neg[ni, (ri[:, 14] >> 16) & 3].to(torch.int64)[:, None]
+            far = 1 - near
+            hn, hf = hit.gather(1, near)[:, 0], hit.gather(1, far)[:, 0]
+            both_hit = hn & hf
+            _push(st["stack"], st["sp"], ni[both_hit],
+                  kid.gather(1, far)[both_hit, 0], BVH2_STACK_SIZE)
+            sp_top = st["sp"][ni[both_hit]] - 1
+            stack_tn[ni[both_hit], sp_top] = tn.gather(1, far)[both_hit, 0]
+            go = hn | hf
+            entry[ni[go]] = torch.where(hn, kid.gather(1, near)[:, 0],
+                                        kid.gather(1, far)[:, 0])[go]
+            pop[~leaf] = ~go
+        _pop_entered(st, stack_tn, idx, pop, finished)
     return _result(st, return_counts)
 
 
@@ -488,11 +550,11 @@ bvh4_traverse.launches = 0
 
 def bvh2_traverse(nodes, tris, o, d, t_max, mode, depth: int, order=None):
     """Closest/any-hit traversal of the binary BVH, the same contract as
-    bvh4_traverse.  nodes [M, 8] f32 from build_bvh2_table; depth: its
+    bvh4_traverse.  nodes [M2, 16] f32 from build_bvh2_table; depth: its
     deepest node's level, checked against the stack; order as for
     bvh4_traverse.  CUDA tensors launch the kernel (counted in
     bvh2_traverse.launches); CPU tensors run bvh2_traverse_plain."""
-    out = _traverse("bvh2_traverse", 8, depth, BVH2_STACK_SIZE,
+    out = _traverse("bvh2_traverse", 16, depth, BVH2_STACK_SIZE,
                     bvh2_traverse_plain, nodes, tris, o, d, t_max, mode, order)
     if o.is_cuda and o.shape[0]:
         bvh2_traverse.launches += 1

@@ -12,9 +12,10 @@ Anything else raises NotImplementedError.  The builder computes its numpy
 arrays exactly as the JAX builder does (``build_numpy``), and
 ``SceneArrays.from_numpy`` turns them, or the JAX package's own arrays
 (bridge.py), into tensors plus the GPU traversal tables of ops/bvh.py:
-``bvh4_nodes`` (128-byte 4-wide node rows), ``bvh2_nodes`` (32-byte binary
-node rows) and ``prim_tris`` (triangle records in BVH order, shared by both),
-which replace the TPU kernel tables.  Both node tables are always built, as
+``bvh4_nodes`` (128-byte 4-wide node rows), ``bvh2_nodes`` (64-byte binary
+rows, both children of an interior node in one) and ``prim_tris``
+(triangle records in BVH order, shared by both), which replace the TPU
+kernel tables.  Both node tables are always built, as
 the JAX builder builds both of its own (pbrt_tpu/scene.py:965-966).
 """
 from __future__ import annotations
@@ -121,7 +122,7 @@ class SceneArrays:
     q_prim_id: torch.Tensor  # [Q] BVH-ordered prim row per quadric
     # GPU traversal tables (ops/bvh.py)
     bvh4_nodes: torch.Tensor  # [M4, 32] f32
-    bvh2_nodes: torch.Tensor  # [M, 8] f32
+    bvh2_nodes: torch.Tensor  # [M2, 16] f32, one row per interior node + 1
     prim_tris: torch.Tensor  # [P, 12] f32
     materials: MaterialTable
     lights: LightTable

@@ -19,12 +19,22 @@ keeps every intermediate in registers and touches device memory once per
 input and output, with neighbouring threads on neighbouring addresses.  It
 rounds as form B does: IEEE square root and division (``sqrt_rn``,
 ``div_rn``) and no multiply-add contraction (``enable_fp_fusion=False``).
+The 24 IEEE divisions and square roots of a lane are each a sequence of
+instructions with a long dependent latency, so at N = 163840 the launch
+needs many warps in flight more than wide accesses: one element a thread
+(BLOCK, WARPS below) measured fastest on an H100.
 
     python -m pbrt_tpu_torch.tools.bench_layout_probe [--n N] [--reps R]
 
 runs on the card: it computes each form once and prints A's and C's
-largest difference from B, then each form's ms per call (CUDA events, one
-warm-up call and R timed calls each).
+largest difference from B, then each form's ms per call twice: eager
+(``time_ms``: CUDA events around R calls after a warm-up, the host's launch
+path included) and on the device alone (``device_ms``: CUDA events around
+one replay of a CUDA graph of R calls that cycle through copies of the
+inputs larger than the L2).  Last it prints C's device time at each launch
+geometry of ``GEOMETRIES`` (each held bit-equal to the shipped one), the
+table BLOCK and WARPS were chosen from, beside a device-to-device copy of
+the same 56 bytes a lane: what memory and the launch alone cost.
 """
 from __future__ import annotations
 
@@ -36,7 +46,13 @@ import torch
 
 N = 160 * 1024
 ROUNDS = 6
-BLOCK = 1024  # elements per Triton program
+# The launch geometry, the fastest of GEOMETRIES on an H100 (PERF.md): one
+# element a thread, so 40 warps an SM at N hide the chain's IEEE division
+# and square root latency better than 16-byte accesses with a quarter of
+# the warps.
+BLOCK = 128  # elements per Triton program
+WARPS = 4  # warps per Triton program
+L2_BYTES = 50 * 2**20  # an H100's L2; device_ms rotates inputs past it
 FLOPS_PER_ELEMENT = 56 * ROUNDS  # the operations of one round, counted below
 BYTES_PER_ELEMENT = (3 + 3 + 3 + 1 + 3 + 1) * 4  # p, d, ns, t in; p, t out
 
@@ -148,15 +164,27 @@ def chain_fused(p, d, ns, t):
     p_out = torch.empty_like(p)
     t_out = torch.empty_like(t)
     if n:
-        with torch.cuda.device(t.device):
-            _kernel()[(n + BLOCK - 1) // BLOCK,](
-                p, d, ns, t, p_out, t_out, n, ROUNDS=ROUNDS, BLOCK=BLOCK,
-                num_warps=4, enable_fp_fusion=False)
-        chain_fused.launches += 1
+        if t.device.index == torch.cuda.current_device():
+            _launch(p, d, ns, t, p_out, t_out)
+        else:
+            with torch.cuda.device(t.device):
+                _launch(p, d, ns, t, p_out, t_out)
     return p_out, t_out
 
 
-chain_fused.launches = 0
+chain_fused.launches = 0  # chain kernels run on the card, graph replays included
+chain_fused.captured = 0  # chain kernels recorded into a CUDA graph
+
+
+def _launch(p, d, ns, t, p_out, t_out, block=BLOCK, warps=WARPS):
+    n = t.shape[0]
+    _kernel()[(n + block - 1) // block,](
+        p, d, ns, t, p_out, t_out, n, ROUNDS=ROUNDS, BLOCK=block,
+        num_warps=warps, enable_fp_fusion=False)
+    if torch.cuda.is_current_stream_capturing():
+        chain_fused.captured += 1  # runs at each replay, counted by device_ms
+    else:
+        chain_fused.launches += 1
 
 
 def inputs(n: int, device, seed: int = 0):
@@ -174,7 +202,8 @@ def inputs(n: int, device, seed: int = 0):
 
 
 def time_ms(fn, *args, reps: int = 50) -> float:
-    """ms per call by CUDA events over `reps` calls after one warm-up."""
+    """ms per eager call by CUDA events over `reps` calls after one warm-up:
+    the host's launch path and the kernel together."""
     fn(*args)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -185,6 +214,46 @@ def time_ms(fn, *args, reps: int = 50) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def cold_copies(*args) -> list:
+    """Enough copies of the argument tuple to exceed the L2, so that a call
+    that cycles through them reads its inputs from device memory."""
+    size = sum(x.nbytes for x in args)
+    return [args] + [tuple(x.clone() for x in args)
+                     for _ in range(L2_BYTES // max(size, 1))]
+
+
+def device_ms(fn, arg_sets, reps: int = 50) -> float:
+    """ms per call on the device alone: CUDA events around one replay of a
+    CUDA graph that captured `reps` calls of fn, cycling through arg_sets
+    (from cold_copies), after a warm-up call and a warm-up replay.  The
+    graph launches its kernels back to back, so the host's launch path is
+    not in the time.  The chain kernels a replay runs are added to
+    chain_fused.launches at each replay."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    captured = chain_fused.captured
+    with torch.cuda.graph(graph):
+        for k in range(reps):
+            fn(*arg_sets[k % len(arg_sets)])
+    per_replay = chain_fused.captured - captured
+    graph.replay()
+    chain_fused.launches += per_replay
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    chain_fused.launches += per_replay
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+# (BLOCK, num_warps) that main times C at: 1, 2, 4 and 8 elements a thread
+GEOMETRIES = ((32, 1), (128, 4), (256, 8), (256, 4), (512, 4), (1024, 4))
 
 
 def main(argv=None) -> int:
@@ -205,13 +274,31 @@ def main(argv=None) -> int:
     for name, (pp, tt) in (("A", (pa.t(), ta)), ("C", (pc, tc))):
         print(f"{name} against B: max |dp| {(pp - pb).abs().max().item():.3e}, "
               f"max |dt| {(tt - tb).abs().max().item():.3e}")
-    a = time_ms(chain_rows, p, d, ns, t, reps=args.reps)
-    b = time_ms(chain_planar, pT, dT, nsT, t, reps=args.reps)
-    c = time_ms(chain_fused, pT, dT, nsT, t, reps=args.reps)
-    for name, ms in (("A [N,3] rows", a), ("B [3,N] planar", b),
-                     ("C [3,N] triton-fused", c)):
-        print(f"{name:24s} {ms:8.4f} ms/call")
-    print(f"speedups vs A: planar {a / b:.1f}x, fused {a / c:.1f}x")
+    rows = cold_copies(p, d, ns, t)
+    planar = cold_copies(pT, dT, nsT, t)
+    for name, fn, sets in (("A [N,3] rows", chain_rows, rows),
+                           ("B [3,N] planar", chain_planar, planar),
+                           ("C [3,N] triton-fused", chain_fused, planar)):
+        ms = time_ms(fn, *sets[0], reps=args.reps)
+        dev_ms = device_ms(fn, sets, args.reps)
+        print(f"{name:24s} {ms:8.4f} ms/call eager, {dev_ms:8.4f} ms/call on "
+              "the device")
+    for block, warps in GEOMETRIES:
+        def run(p, d, ns, tt, block=block, warps=warps):
+            po, to = torch.empty_like(p), torch.empty_like(tt)
+            _launch(p, d, ns, tt, po, to, block, warps)
+            return po, to
+
+        if not all(map(torch.equal, run(pT, dT, nsT, t), (pc, tc))):
+            raise RuntimeError(f"BLOCK {block}, num_warps {warps}: C differs")
+        print(f"C at BLOCK {block:4d}, num_warps {warps} ({block // (32 * warps)} "
+              f"a thread): {device_ms(run, planar, args.reps):8.5f} ms/call on the "
+              "device")
+    src = torch.zeros(args.n * BYTES_PER_ELEMENT // 8, device=dev)
+    copy = device_ms(torch.Tensor.copy_, cold_copies(torch.empty_like(src), src),
+                     args.reps)
+    print(f"a device copy of the same {BYTES_PER_ELEMENT} B a lane: {copy:8.5f} "
+          "ms/call on the device")
     return 0
 
 

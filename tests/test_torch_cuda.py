@@ -1,8 +1,10 @@
 """The kernels on the card: bvh4_traverse and bvh2_traverse against their
 plain PyTorch versions (bit for bit, under a random work list, all-dead
-batches, and a tree at the stack's cap) and against each other, the layout probe's Triton chain
-against its plain form B, the launch counts, a render on the card against
-one on the CPU, and the CLI on the card against a pbrt-v3 golden.
+batches, and a tree at each kernel's stack cap; one deeper refused) and
+against each other, the layout probe's Triton chain against its plain form
+B (at its size and at a ragged one), the launch counts, a render on the
+card against one on the CPU, and the CLI on the card against a pbrt-v3
+golden.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -26,6 +28,7 @@ from pbrt_tpu_torch.ops import bvh as kb
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
+from test_torch_trees import caterpillar_rays, caterpillar_tree
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -108,57 +111,62 @@ def test_kernel_equals_plain(n, case):
 
 
 def caterpillar(m):
-    """A binary BVH whose interior node k has a one-triangle leaf (triangle
-    k, a unit triangle in the plane x = k) as its first child and interior
-    node k + 1 as its second, the last one two leaves: m interior levels, so
-    build_bvh4_table makes a 4-wide tree of (m - 1) // 2 + 1 levels.
-    Returns (nodes, tris) for bvh4_traverse."""
-    n = m + 1  # triangles
-    x = np.arange(n, dtype=np.float32)
-    verts = np.zeros((n, 9), np.float32)
-    verts[:, 0::3] = x[:, None]
-    verts[:, 4] = 1.0  # v1 = (x, 1, 0)
-    verts[:, 8] = 1.0  # v2 = (x, 0, 1)
-    n_nodes = 2 * m + 1
-    nmin = np.zeros((n_nodes, 3), np.float32)
-    nmax = np.zeros((n_nodes, 3), np.float32)
-    offset = np.zeros(n_nodes, np.int64)
-    n_prims = np.zeros(n_nodes, np.int64)
-    for k in range(m):
-        inner, leaf = 2 * k, 2 * k + 1
-        nmin[inner], nmax[inner] = (x[k], 0, 0), (x[-1], 1, 1)
-        offset[inner] = 2 * k + 2
-        nmin[leaf], nmax[leaf] = (x[k], 0, 0), (x[k], 1, 1)
-        offset[leaf], n_prims[leaf] = k, 1
-    nmin[-1], nmax[-1] = (x[-1], 0, 0), (x[-1], 1, 1)
-    offset[-1], n_prims[-1] = m, 1
-    rows, depth = kb.build_bvh4_table(nmin, nmax, offset, n_prims)
-    recs = kb.build_prim_records(np.zeros(n), np.arange(n), verts)
-    return (torch.as_tensor(rows, device="cuda"),
-            torch.as_tensor(recs, device="cuda"), depth)
+    """caterpillar_tree(m) on the card: {kind: (nodes, depth)} and the
+    triangle records; build_bvh4_table makes a 4-wide tree of (m - 1) // 2
+    + 1 levels, build_bvh2_table a binary one of depth m."""
+    tree, recs = caterpillar_tree(m)
+    rows4, depth4 = kb.build_bvh4_table(*tree[:4])
+    rows2, depth2 = kb.build_bvh2_table(*tree)
+    tables = {"bvh4": (torch.as_tensor(rows4, device="cuda"), depth4),
+              "bvh2": (torch.as_tensor(rows2, device="cuda"), depth2)}
+    return tables, torch.as_tensor(recs, device="cuda")
+
+
+# kind: (caterpillar length, the stack entries its deepest walk needs)
+STACK_CAP = {"bvh4": (84, lambda depth: 3 * depth), "bvh2": (64, lambda depth: depth)}
 
 
 @pytest.mark.parametrize("work", ["identity", "random-order"])
-def test_kernel_equals_plain_at_the_stack_cap(work):
-    """A tree whose 3 * depth is within 3 of the stack's 128 entries; rays
-    down the chain push two entries a level."""
-    nodes, tris, depth = caterpillar(84)
-    assert kb.STACK_SIZE - 3 < 3 * depth <= kb.STACK_SIZE
+@pytest.mark.parametrize("kind", list(STACK_CAP))
+def test_kernel_equals_plain_at_the_stack_cap(kind, work):
+    """A tree at the kernel's stack cap: bvh4 within 3 of its 128 entries,
+    bvh2 at its 64 (binary depth 64); the kernel equals its plain version
+    bit for bit."""
+    m, need = STACK_CAP[kind]
+    tables, tris = caterpillar(m)
+    nodes, depth = tables[kind]
+    cap = {"bvh4": kb.STACK_SIZE, "bvh2": kb.BVH2_STACK_SIZE}[kind]
+    assert cap - 3 < need(depth) <= cap
     n = 4099
-    rs = np.random.RandomState(7)
-    far = np.stack([np.full(n, 200.0), rs.rand(n) * 0.5, rs.rand(n) * 0.5], 1)
-    o = far.astype(np.float32)
-    o[1::2, 0] = -100.0  # half from the other end: a shallow walk
-    d = np.zeros((n, 3), np.float32)
-    d[:, 0] = np.where(o[:, 0] > 0, -1.0, 1.0)
-    d[::3] += rs.randn((n + 2) // 3, 3).astype(np.float32) * 0.01
-    o, d = torch.as_tensor(o, device="cuda"), torch.as_tensor(d, device="cuda")
+    o, d = caterpillar_rays(n, 7)
     t_max = torch.full((n,), 1e30, device="cuda")
     t_max[::11] = 0.0
     mode = (torch.arange(n, device="cuda") % 4 == 0).float()
     order = random_order(n, 8) if work == "random-order" else None
-    p = assert_bvh4_equals_plain(nodes, tris, o, d, t_max, mode, depth, order)
+    if kind == "bvh4":
+        p = assert_bvh4_equals_plain(nodes, tris, o, d, t_max, mode, depth, order)
+    else:
+        before = kb.bvh2_traverse.launches
+        t_k, p = kb.bvh2_traverse(nodes, tris, o, d, t_max, mode, depth, order)
+        torch.cuda.synchronize()
+        assert kb.bvh2_traverse.launches == before + 1
+        t_p, p_p = kb.bvh2_traverse_plain(nodes, tris, o, d, t_max, mode)
+        assert torch.equal(p, p_p) and torch.equal(t_k, t_p)
     assert float((p >= 0).float().mean()) > 0.5
+
+
+def test_bvh2_refuses_a_tree_deeper_than_its_stack():
+    """Binary depth 65 needs 65 entries of the kernel's 64: refused before
+    any launch."""
+    tables, tris = caterpillar(kb.BVH2_STACK_SIZE + 1)
+    nodes, depth = tables["bvh2"]
+    assert depth == kb.BVH2_STACK_SIZE + 1
+    o, d = caterpillar_rays(64, 3)
+    before = kb.bvh2_traverse.launches
+    with pytest.raises(ValueError, match="stack"):
+        kb.bvh2_traverse(nodes, tris, o, d, torch.full((64,), 1e30, device="cuda"),
+                         torch.zeros(64, device="cuda"), depth)
+    assert kb.bvh2_traverse.launches == before
 
 
 def test_wrapper_refuses_mixed_devices():
@@ -211,10 +219,13 @@ def test_bvh2_kernel_equals_plain_and_agrees_with_bvh4(n, work):
     assert torch.equal((p_k >= 0)[any_lane], (p4 >= 0)[any_lane])
 
 
-def test_chain_fused_matches_form_b():
-    """The Triton chain against form B at the probe's size: 1e-5 relative
-    (plus 1e-6 absolute) on >= 99.9% of elements."""
-    p, d, ns, t = bp.inputs(bp.N, "cuda")
+@pytest.mark.parametrize("n", [bp.N, bp.N + 3 * bp.BLOCK // 2 + 7])
+def test_chain_fused_matches_form_b(n):
+    """The Triton chain against form B at the probe's size and at a ragged
+    size (not a multiple of BLOCK): 1e-5 relative (plus 1e-6 absolute) on
+    >= 99.9% of elements."""
+    assert (n % bp.BLOCK == 0) == (n == bp.N)
+    p, d, ns, t = bp.inputs(n, "cuda")
     pT, dT, nsT = (x.t().contiguous() for x in (p, d, ns))
     before = bp.chain_fused.launches
     got = bp.chain_fused(pT, dT, nsT, t)
@@ -223,6 +234,17 @@ def test_chain_fused_matches_form_b():
     for g, r in zip(got, ref):
         ok = (g - r).abs() <= 1e-5 * r.abs() + 1e-6
         assert ok.float().mean() >= 0.999
+
+
+def test_chain_fused_counts_graph_replays_not_captures():
+    """chain_fused.launches counts the chain kernels the card ran: one an
+    eager call, none for a call captured into a CUDA graph, and one for each
+    captured call at each replay (device_ms: a warm-up call, two replays)."""
+    p, d, ns, t = bp.inputs(4096, "cuda")
+    args = tuple(x.t().contiguous() for x in (p, d, ns)) + (t,)
+    before = bp.chain_fused.launches
+    bp.device_ms(bp.chain_fused, [args], reps=5)
+    assert bp.chain_fused.launches == before + 1 + 2 * 5
 
 
 def test_cli_on_card_matches_golden(tmp_path):
