@@ -42,6 +42,18 @@ Phases, each printing its result on a line of its own and its seconds:
      each BVH kernel in turns, twice each (spatial light distribution), 48
      launches of that kernel and none of the other, images equal to phase
      5's;
+  9. grad: parallel.diff.render_grad_step on phase 5's scene, one halton
+     batch at 400x400, depth 5, every DEFAULT_PARAMS leaf, weights of ones:
+     a warm step at sample 0, then at samples 1 and 2 a step with remat on
+     (1 + 5 + 5 = 11 launches), one with remat off (6), and the forward
+     alone under no_grad; L bit-equal to that forward, the remat and
+     no-remat gradients within 1e-4 of each leaf's largest entry, every
+     leaf finite, kd and camera gradients non-zero; the walls, Mrays/s and
+     peak memories printed; then one remat step under PBRT_TPU_BVH4=0 (11
+     bvh2 launches), and the backward of a material gather at the batch's
+     width by indexing (what the step runs) and by index_select, timed and
+     held against each other; with --profile FILE, one more remat step under
+     torch.profiler, its table written to FILE's name plus "_grad";
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -737,6 +749,178 @@ def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
     return runs["bvh2"]["launches"]["bvh2_traverse"]
 
 
+def profile_grad(run_step, table_path: Path):
+    """One grad step under torch.profiler: the device's busy time against
+    the wall and the device operations that take the most of it, the
+    profiler's table written to table_path."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("layer: ")]
+    busy_ms = sum(getattr(e, key) for e in on_card) / 1e3
+    table_path.parent.mkdir(parents=True, exist_ok=True)
+    table_path.write_text(events.table(sort_by=key, row_limit=40))
+    print(f"profile grad step (remat, profiler on): wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in on_card)} device operations", flush=True)
+    top = sorted(on_card, key=lambda e: -getattr(e, key))[:8]
+    print("profile grad step, top device operations: " + "; ".join(
+        f"{e.key[:70]} {getattr(e, key) / 1e3:.2f} ms "
+        f"({getattr(e, key) / 1e3 / busy_ms:.1%}, {e.count} calls)" for e in top),
+        flush=True)
+
+
+def gather_backward(scene, n: int, dev) -> dict:
+    """The backward of one per-lane gather of the material table's kd [M, 3]
+    and roughness [M] at n lanes, as the grad step's material and light
+    gathers run it (`table[idx]`: index_put_ with accumulation, a sort and
+    a pass over each run of equal indices), beside `index_select` (whose
+    backward is index_add_, atomics) on the same inputs: ms per backward by
+    CUDA events, each pair checked to agree within 1e-4 of its largest
+    entry."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = scene.materials.kd.shape[0]
+    idx = torch.randint(0, rows, (n,), generator=g, device=dev)
+    out = {}
+    for name, table in (("kd", scene.materials.kd), ("roughness",
+                                                      scene.materials.roughness)):
+        leaf = table.detach().clone().requires_grad_(True)
+        cot = torch.rand((n,) + tuple(table.shape[1:]), generator=g, device=dev)
+        ref, got = (torch.autograd.grad(fn(leaf), leaf, cot)[0] for fn in
+                    (lambda t: t[idx], lambda t: torch.index_select(t, 0, idx)))
+        check(float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()),
+              f"gather backward {name}: index_select differs from indexing")
+        for label, fn in (("index", lambda t: t[idx]),
+                          ("index_select", lambda t: torch.index_select(t, 0, idx))):
+            y = fn(leaf)
+            out[f"{name} {label}"] = time_cuda(
+                lambda: torch.autograd.grad(y, leaf, cot, retain_graph=True), 10)
+    return out
+
+
+def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
+               counted, card, dev, profile: Path | None = None) -> dict:
+    """Phase 9: render_grad_step on the main scene (one halton batch at
+    RES, depth DEPTH, every DEFAULT_PARAMS leaf, weights of ones): a warm
+    step at sample 0, then at samples 1 and 2 a step with remat on, one
+    with remat off, and the forward alone under no_grad; then one remat
+    step under PBRT_TPU_BVH4=0; with profile, one more remat step under
+    torch.profiler, its table written to profile.  Returns the launches of
+    each BVH kernel in one remat step."""
+    import torch
+
+    pixels = torch.as_tensor(path.make_pixel_grid(film_cfg), device=dev)
+    w = torch.ones((pixels.shape[0], 3), dtype=torch.float32, device=dev)
+    sampler = sampler_cls("halton", 1, RES)
+
+    def step(sample, remat):
+        counters = stats.zeros(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        L, g = diff.render_grad_step(scene, camera, pixels, sample, w, sampler,
+                                     cfg, remat=remat, device=dev,
+                                     counters=counters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counted)
+        peak = torch.cuda.max_memory_allocated(dev)
+        leaves = {k: v for k, v in g.items() if k != "camera"}
+        leaves.update({f"camera.{k}": v for k, v in g["camera"].items()})
+        for k, v in leaves.items():
+            check(bool(torch.isfinite(v).all()), f"grad step: leaf {k} is not finite")
+        check(float(leaves["kd"].abs().sum()) > 0.0, "grad step: kd gradient is zero")
+        check(float(leaves["camera.camera_to_world"].abs().sum()) > 0.0,
+              "grad step: camera gradient is zero")
+        return dict(L=L, leaves=leaves, wall=wall, launches=launches,
+                    rays=stats.ray_total(counters), peak=peak, base=base)
+
+    def forward(sample):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            L = diff.render_batch_radiance(scene, camera, pixels, sample,
+                                           sampler, cfg)
+        torch.cuda.synchronize()
+        return L, time.perf_counter() - t0
+
+    def leaf_diff(a, b) -> float:
+        """The largest |a - b| of any leaf over that leaf's largest |b|."""
+        return max(float((a[k] - b[k]).abs().max())
+                   / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+    warm = step(0, True)
+    print(f"grad warm step (sample 0, remat): {warm['wall']:.3f} s, launches "
+          f"{warm['launches']}", flush=True)
+    remat_steps = {}
+    for sample in (1, 2):
+        on, off = step(sample, True), step(sample, False)
+        remat_steps[sample] = on
+        L_fwd, fwd_s = forward(sample)
+        check(on["launches"]["bvh4_traverse"] == 1 + 2 * DEPTH
+              and on["launches"]["bvh2_traverse"] == 0,
+              f"remat step launched {on['launches']}, not {1 + 2 * DEPTH} bvh4")
+        check(off["launches"]["bvh4_traverse"] == 1 + DEPTH
+              and off["launches"]["bvh2_traverse"] == 0,
+              f"no-remat step launched {off['launches']}, not {1 + DEPTH} bvh4")
+        check(torch.equal(on["L"], L_fwd) and torch.equal(off["L"], L_fwd),
+              f"sample {sample}: the step's L differs from the no_grad forward")
+        check(on["rays"] == off["rays"], "remat changed the counted rays")
+        rel = leaf_diff(on["leaves"], off["leaves"])
+        check(rel <= 1e-4, f"sample {sample}: remat and no-remat gradients differ "
+                           f"by {rel:.3e} of a leaf's largest entry")
+        for label, r in (("remat on", on), ("remat off", off)):
+            print(f"grad step sample {sample} {label}: fwd+bwd {r['wall']:.3f} s, "
+                  f"{int(r['rays'])} forward rays, "
+                  f"{r['rays'] / r['wall'] / 1e6:.4f} Mrays/s, "
+                  f"max_memory_allocated {r['peak'] / 2**20:.1f} MiB "
+                  f"({(r['peak'] - r['base']) / 2**20:.1f} above the step's "
+                  f"start), launches "
+                  f"{r['launches']} [{card}]", flush=True)
+        print(f"grad forward only sample {sample} (no_grad): {fwd_s:.3f} s; step "
+              f"over forward {on['wall'] / fwd_s:.2f}x (remat on), "
+              f"{off['wall'] / fwd_s:.2f}x (off); peak above the start, "
+              f"remat off / on {(off['peak'] - off['base']) / max(on['peak'] - on['base'], 1):.2f}; "
+              f"L bit-equal to the "
+              f"forward; remat gradients within {rel:.3e} of each leaf's largest "
+              f"entry", flush=True)
+    leaf_max = {k: float(v.abs().max()) for k, v in on["leaves"].items()}
+    print(f"grad leaves (largest |g|): {json.dumps(leaf_max)}", flush=True)
+    with bvh_switch("0"):
+        b2 = step(1, True)
+    check(b2["launches"]["bvh2_traverse"] == 1 + 2 * DEPTH
+          and b2["launches"]["bvh4_traverse"] == 0,
+          f"bvh2 remat step launched {b2['launches']}")
+    ref = remat_steps[1]
+    print(f"grad step sample 1 under PBRT_TPU_BVH4=0: fwd+bwd {b2['wall']:.3f} s, "
+          f"launches {b2['launches']}; gradients within "
+          f"{leaf_diff(b2['leaves'], ref['leaves']):.3e} of bvh4's, L max diff "
+          f"{float((b2['L'] - ref['L']).abs().max()):.3e} [{card}]", flush=True)
+    ms = gather_backward(scene, pixels.shape[0], dev)
+    print(f"grad gather backward at {pixels.shape[0]} lanes, ms by CUDA events: "
+          f"{json.dumps(ms)} [{card}]", flush=True)
+    if profile is not None:
+        profile_grad(lambda: diff.render_grad_step(
+            scene, camera, pixels, 3, w, sampler, cfg, device=dev), profile)
+    return {"bvh4": ref["launches"]["bvh4_traverse"],
+            "bvh2": b2["launches"]["bvh2_traverse"]}
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -756,8 +940,10 @@ def run(profile: Path | None = None) -> dict:
     from pbrt_tpu_torch.integrators import path
     from pbrt_tpu_torch.lights import lightdistrib
     from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.parallel import diff
     from pbrt_tpu_torch.samplers.samplers import SamplerConfig
     from pbrt_tpu_torch.tools import bench_layout_probe as bp
+    from pbrt_tpu_torch.utils import stats
     from pbrt_tpu_torch.utils.imageio import read_pfm
 
     counted = {"bvh4_traverse": bvh.bvh4_traverse,
@@ -850,7 +1036,7 @@ def run(profile: Path | None = None) -> dict:
     if profile is not None:
         profile_render(scene, camera, film_cfg, cfg, RES, profile)
     ref_img = img.cpu().numpy()
-    del scene, img, img2
+    del img, img2
     phase("main path", t0)
 
     # 6. card against CPU on the small demo scene
@@ -888,6 +1074,15 @@ def run(profile: Path | None = None) -> dict:
     bvh2_launches = cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev)
     phase("cli", t0)
 
+    # 9. differentiable rendering on the main scene
+    t0 = time.perf_counter()
+    grad_launches = grad_phase(
+        diff, path, stats, SamplerConfig, scene, camera, film_cfg, cfg, counted,
+        card, dev, None if profile is None
+        else profile.with_name(f"{profile.stem}_grad{profile.suffix}"))
+    del scene
+    phase("grad", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -902,6 +1097,7 @@ def run(profile: Path | None = None) -> dict:
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch,
+            "grad_launches": grad_launches[kind],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "mismatch_frac": max(r["mismatch_frac"] for r in res.values()),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],

@@ -3,7 +3,8 @@
 The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
-here, so both packages render the very same arrays.  ``compare_setups``
+here, so both packages render the very same arrays; ``params_from_numpy``
+carries the differentiable parameters over the same way.  ``compare_setups``
 holds a RenderSetup parsed by the JAX package against one parsed by the port.
 The port itself never imports JAX or pbrt_tpu.
 """
@@ -60,6 +61,24 @@ def camera_from_numpy(fields: dict, device) -> CameraParams:
         shutter_close=float(fields["shutter_close"]),
         full_resolution=tuple(fields["full_resolution"]),
     )
+
+
+def params_from_numpy(fields: dict, device) -> dict:
+    """The JAX package's extract_params output, as numpy, as the port's
+    parameter dict for parallel/diff.py apply_params: float32 tensors on
+    `device`, the camera's lens_radius and focal_distance as floats (the
+    camera keeps its lens radius on the host)."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in fields.items():
+        if k == "camera":
+            out[k] = {ck: (float(np.asarray(cv)) if np.ndim(cv) == 0 else
+                           torch.as_tensor(np.array(cv, np.float32),
+                                           device=device))
+                      for ck, cv in v.items()}
+        else:
+            out[k] = torch.as_tensor(np.array(v, np.float32), device=device)
+    return out
 
 
 def _diff(out: list, what: str, ref, got, rtol: float):

@@ -54,7 +54,13 @@ def cosine_sample_hemisphere(u):
 
 
 def uniform_cone_pdf(cos_theta_max):
-    return 1.0 / (2.0 * PI * (1.0 - cos_theta_max))
+    """1 / (2 pi (1 - cos_theta_max)): inf where cos_theta_max is 1 (a point
+    4096 radii or more from the sphere), with a zero gradient there; the
+    single division gave 0 * inf = NaN in the backward pass."""
+    full = cos_theta_max >= 1.0
+    return torch.where(full, math.inf,
+                       1.0 / (2.0 * PI * (1.0 - torch.where(full, 0.0,
+                                                            cos_theta_max))))
 
 
 def uniform_sample_triangle(u):

@@ -148,7 +148,10 @@ def sin2_theta(w):
 
 
 def safe_sqrt(x):
-    return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=0.0)), 0.0)
+    """sqrt with a zero gradient at x <= 0: the double where keeps sqrt'(0)
+    = inf out of the backward pass (vecmath.py:188-192)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def sin_theta(w):
@@ -191,13 +194,26 @@ def reflect(wo, n):
     return -wo + 2.0 * dot(wo, n)[..., None] * n
 
 
+class _NudgeAway(torch.autograd.Function):
+    """Round po one ulp away from the surface (geometry.h:1450-1457), with
+    an identity derivative, as the JAX package's custom_jvp (vecmath.py:
+    248-264): nextafter has no derivative in PyTorch before 2.13."""
+
+    @staticmethod
+    def forward(ctx, po, offset):
+        up = torch.nextafter(po, torch.full_like(po, math.inf))
+        down = torch.nextafter(po, torch.full_like(po, -math.inf))
+        return torch.where(offset > 0.0, up, torch.where(offset < 0.0, down, po))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def offset_ray_origin(p, p_error, n, w):
     """Robust ray-origin offset (geometry.h:1440 OffsetRayOrigin), with the
     final one-ulp nudge away from the surface."""
     dd = dot(torch.abs(n), p_error)
     offset = dd[..., None] * n
     offset = torch.where(dot(w, n)[..., None] < 0.0, -offset, offset)
-    po = p + offset
-    up = torch.nextafter(po, torch.full_like(po, math.inf))
-    down = torch.nextafter(po, torch.full_like(po, -math.inf))
-    return torch.where(offset > 0.0, up, torch.where(offset < 0.0, down, po))
+    return _NudgeAway.apply(p + offset, offset)

@@ -11,7 +11,8 @@ bounce 3.
 
 Traversal launches: the camera rays' closest hit is one launch; each later
 bounce's closest hit rides the previous bounce's NEE launch
-(integrators/common.py), so a sample costs 1 + max_depth launches.
+(integrators/common.py), so a sample costs 1 + max_depth launches; a grad
+step with remat (parallel/diff.py) replays max_depth of them in backward.
 
 Profiler ranges named "layer: ..." mark the calls into each layer; without
 the profiler each costs a few microseconds on the host.
@@ -23,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from .. import film as fm
 from ..accel import traverse as tv
@@ -63,8 +65,16 @@ def dims_per_bounce(bounce: int) -> int:
 
 
 def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
-            cfg: PathConfig, counters, start_dim: int = 5):
-    """Radiance along a batch of camera rays: L [n, 3]."""
+            cfg: PathConfig, counters, start_dim: int = 5,
+            remat: bool = False):
+    """Radiance along a batch of camera rays: L [n, 3].
+
+    remat=True wraps each bounce but the last in a non-reentrant
+    torch.utils.checkpoint: the backward pass replays each bounce from its
+    carry instead of holding every bounce's activations, so backward memory
+    does not grow with depth (path replay, the JAX package's per-bounce
+    jax.checkpoint).  A replayed bounce launches its traversal kernel again;
+    its counter increments are added once, outside the checkpoint."""
     n = o.shape[0]
     dev = o.device
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -74,10 +84,33 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
     eta_scale = torch.ones(n, dtype=torch.float32, device=dev)
 
     st.bump(counters, "Integrator/Camera rays traced", float(n))
-    spatial = cfg.light_strategy == "spatial" and scene.spatial_cdf is not None
     t, prim = tv.intersect_closest(scene, o, d, 1e30)
+    carry = (L, beta, alive, specular_bounce, eta_scale, o, d, t, prim)
     dim = start_dim
     for bounce in range(cfg.max_depth + 1):
+        body = _make_bounce_body(scene, bounce, dim, sampler_cfg,
+                                 sampler_state, cfg)
+        if remat and bounce < cfg.max_depth:
+            carry, inc = checkpoint(body, *carry, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            carry, inc = body(*carry)
+        counters += inc
+        dim += dims_per_bounce(bounce)
+    return carry[0]
+
+
+def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
+                      sampler_state, cfg: PathConfig):
+    """One bounce of the path walk as a function of the carry (L, beta,
+    alive, specular_bounce, eta_scale, o, d, t, prim) to (the next carry,
+    its counter increments), the counterpart of the JAX package's
+    _make_bounce_body (path.py:198).  The last bounce only adds emission."""
+    last = bounce == cfg.max_depth
+    spatial = cfg.light_strategy == "spatial" and scene.spatial_cdf is not None
+
+    def body(L, beta, alive, specular_bounce, eta_scale, o, d, t, prim):
+        counters = st.zeros(o.device)
         st.bump(counters, "Intersections/Regular ray intersection tests", alive)
         with record_function("layer: hit record"):
             rec = tv.hit_record(scene, o, d, t, prim)
@@ -94,8 +127,9 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
         L = L + torch.where((alive & ~rec["hit"] & count_le)[:, None],
                             beta * le_inf, 0.0)
         alive = found
-        if bounce == cfg.max_depth:
-            break
+        if last:
+            return (L, beta, alive, specular_bounce, eta_scale, o, d, t,
+                    prim), counters
 
         mat = bx.gather_material(scene.materials, rec["material"])
         frame = bx.frame_from_rec(rec)
@@ -156,9 +190,10 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
             beta = torch.where((do_rr & ~die)[:, None],
                                beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
                                beta)
-        dim += dims_per_bounce(bounce)
-        t, prim = t_next, prim_next
-    return L
+        return (L, beta, alive, specular_bounce, eta_scale, o, d, t_next,
+                prim_next), counters
+
+    return body
 
 
 def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:
@@ -168,18 +203,26 @@ def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
 
 
-def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
-                        sampler_cfg, cfg: PathConfig, counters):
-    """One sample per pixel, accumulated into film_state (in place)."""
+def batch_sampler_state(sampler_cfg, pixels, sample_num: int,
+                        cfg: PathConfig):
+    """The sampler state of one sample per pixel; for halton, with all of
+    the batch's dims at once, one table row per dimension."""
     n = pixels.shape[0]
     state = sa.init_state(sampler_cfg, pixels,
                           torch.full((n,), sample_num, dtype=torch.int64,
                                      device=pixels.device))
     if sampler_cfg.name == "halton":
-        # All of the batch's halton dims at once, one row per dimension.
         n_dims = 5 + sum(dims_per_bounce(b) for b in range(cfg.max_depth)) + 1
         with record_function("layer: sampler table"):
             state["table"] = sa.halton_table(sampler_cfg, state, n_dims)
+    return state
+
+
+def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
+                        sampler_cfg, cfg: PathConfig, counters):
+    """One sample per pixel, accumulated into film_state (in place)."""
+    n = pixels.shape[0]
+    state = batch_sampler_state(sampler_cfg, pixels, sample_num, cfg)
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
     with record_function("layer: camera rays"):
         o, d, _, weight = generate_rays(camera, p_film, p_lens, time_u)

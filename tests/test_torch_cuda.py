@@ -3,8 +3,9 @@ plain PyTorch versions (bit for bit, under a random work list, all-dead
 batches, and a tree at each kernel's stack cap; one deeper refused) and
 against each other, the layout probe's Triton chain against its plain form
 B (at its size and at a ragged one), the launch counts, a render on the
-card against one on the CPU, and the CLI on the card against a pbrt-v3
-golden.
+card against one on the CPU, the CLI on the card against a pbrt-v3
+golden, and a differentiable render step on the card against one on the
+CPU and under each BVH kernel.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -25,6 +26,7 @@ from pbrt_tpu_torch.core import transform as tf
 from pbrt_tpu_torch.film import FilmConfig
 from pbrt_tpu_torch.integrators import path
 from pbrt_tpu_torch.ops import bvh as kb
+from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
@@ -261,3 +263,84 @@ def test_cli_on_card_matches_golden(tmp_path):
     rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-2)
     assert np.all(rel <= 1e-3, -1).mean() >= 0.995
     assert abs(got.mean() - ref.mean()) / ref.mean() <= 5e-3
+
+
+def demo():
+    """__graft_entry__._demo_scene, call for call."""
+    b = sc.SceneBuilder()
+    matte = b.add_material(sc.MAT_MATTE, kd=(0.5, 0.5, 0.8))
+    plastic = b.add_material(sc.MAT_PLASTIC, kd=(0.4, 0.2, 0.2),
+                             ks=(0.5, 0.5, 0.5), roughness=0.025)
+    b.add_triangle_mesh([[0, 1, 2], [2, 3, 0]],
+                        [[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]],
+                        material=matte)
+    rs = np.random.RandomState(0)
+    c = rs.randn(64, 1, 3) * 1.5 + np.array([0, 0, 3.0])
+    v = c + rs.randn(64, 3, 3) * 0.4
+    b.add_triangle_mesh(np.arange(192).reshape(-1, 3), v.reshape(-1, 3),
+                        material=plastic)
+    b.add_sphere(tf.translate(2, 0, 2), 0.8, material=plastic)
+    b.add_emissive_sphere(tf.translate(0, 5, 8), 0.5, L=(40.0, 40.0, 40.0),
+                          material=matte)
+    return b
+
+
+def grad_step(device, remat=True, res=(24, 24), depth=3):
+    """A grad step on the demo scene (halton, seeded weights) on `device`:
+    (L, the gradient leaves as a flat dict of CPU tensors)."""
+    scene = sc.SceneArrays.from_numpy(demo().build_numpy(), device)
+    cam = cameras.make_perspective_camera(
+        tf.look_at([0, -8, 4], [0, 0, 2], [0, 0, 1]), res, fov_deg=45.0)
+    pixels = torch.as_tensor(path.make_pixel_grid(FilmConfig(full_resolution=res)),
+                             device=device)
+    w = torch.as_tensor(np.random.RandomState(7).uniform(
+        0.5, 1.5, (pixels.shape[0], 3)).astype(np.float32), device=device)
+    L, g = diff.render_grad_step(scene, cam, pixels, 0, w,
+                                 SamplerConfig("halton", 1, res),
+                                 path.PathConfig(max_depth=depth), remat=remat,
+                                 device=device)
+    cam_g = g.pop("camera")
+    g.update({f"camera.{k}": v for k, v in cam_g.items()})
+    return L.cpu(), {k: v.cpu() for k, v in g.items()}
+
+
+def assert_leaves_close(got, ref, rtol):
+    """Each leaf within rtol of the reference leaf's largest entry."""
+    for k, r in ref.items():
+        assert torch.isfinite(got[k]).all(), k
+        bar = rtol * float(r.abs().max()) + 1e-6
+        assert float((got[k] - r).abs().max()) <= bar, k
+
+
+def test_grad_step_on_card_matches_cpu():
+    L_c, g_c = grad_step("cuda")
+    L_h, g_h = grad_step("cpu")
+    rel = (L_c - L_h).abs() / L_h.abs().clamp(min=1e-2)
+    assert (rel <= 1e-3).all(-1).float().mean() >= 0.995
+    assert_leaves_close(g_c, g_h, 1e-3)
+    assert float(g_c["kd"].abs().sum()) > 0
+
+
+def launched_step(monkeypatch, switch, remat):
+    """grad_step at depth 5 under PBRT_TPU_BVH4=switch, with the launches
+    of each kernel it made."""
+    monkeypatch.setenv("PBRT_TPU_BVH4", switch)
+    kb.bvh4_traverse.launches = kb.bvh2_traverse.launches = 0
+    _, g = grad_step("cuda", remat=remat, depth=5)
+    return g, (kb.bvh4_traverse.launches, kb.bvh2_traverse.launches)
+
+
+def test_grad_step_launches(monkeypatch):
+    """A remat step launches the kernel 1 + depth times forward and depth
+    times more in the replayed bounces; without remat 1 + depth."""
+    g_on, n_on = launched_step(monkeypatch, "1", True)
+    g_off, n_off = launched_step(monkeypatch, "1", False)
+    assert n_on == (11, 0) and n_off == (6, 0)
+    assert launched_step(monkeypatch, "0", True)[1] == (0, 11)
+    assert_leaves_close(g_off, g_on, 1e-4)
+
+
+def test_grad_step_bvh2_matches_bvh4(monkeypatch):
+    g4, _ = launched_step(monkeypatch, "1", True)
+    g2, _ = launched_step(monkeypatch, "0", True)
+    assert_leaves_close(g2, g4, 1e-4)
