@@ -39,9 +39,8 @@ Phases, each printing its result on a line of its own and its seconds:
      thresholds;
   8. CLI: the main scene written as a .pbrt file and a binary PLY, rendered
      by `python -m pbrt_tpu_torch` in a subprocess and by render_file with
-     each BVH kernel in turns, twice each (spatial light distribution), 48
-     launches of that kernel and none of the other, images equal to phase
-     5's;
+     each BVH kernel once (spatial light distribution), 48 launches of
+     that kernel and none of the other, images equal to phase 5's;
   9. grad: parallel.diff.render_grad_step on phase 5's scene, one halton
      batch at 400x400, depth 5, every DEFAULT_PARAMS leaf, weights of ones:
      a warm step at sample 0, then at samples 1 and 2 a step with remat on
@@ -54,6 +53,21 @@ Phases, each printing its result on a line of its own and its seconds:
      width by indexing (what the step runs) and by index_select, timed and
      held against each other; with --profile FILE, one more remat step under
      torch.profiler, its table written to FILE's name plus "_grad";
+ 10. config3: BASELINE config 3's features through render.render_file on
+     the main scene's blob (an EWA imagemap on the blob, a checkerboard
+     floor, a smooth and a rough glass sphere, an env map; 400x400 @ 64
+     spp, depth 5, spatial distribution): Mrays/s, wall, process CPU and
+     set-up by phase (the pyramid and the env CDF timed alone too), 384
+     bvh4 launches, a bit-identical repeat, PBRT_TPU_BVH4=0 with 384 bvh2
+     launches at tests/test_torch_path.py:58-59's bars against bvh4, and a
+     64x64 @ 2 spp copy on the card against the CPU at the same bars; with
+     --profile FILE, one spp under torch.profiler, its table written to
+     FILE's name plus "_config3";
+ 11. direct: Integrator "directlighting" through render_file:
+     b_arealight with strategy "one" at maxdepth 1 against its pbrt-v3
+     golden at tests/test_parity_images.py's bars, and the main scene at
+     400x400 @ 8 spp, depth 5, strategies "one" and "all" (88 bvh4
+     launches each);
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -242,23 +256,108 @@ WorldEnd
 """
 
 
+def write_ply(path: Path, idx, v, uv=None):
+    """A binary little-endian PLY: float x y z (and u v) per vertex."""
+    props = "xyz" + ("uv" if uv is not None else "")
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+            + "".join(f"property float {c}\n" for c in props)
+            + f"element face {len(idx)}\nproperty list uchar int vertex_indices\n"
+            "end_header\n").encode()
+    verts = v if uv is None else np.concatenate([v, uv], -1)
+    faces = np.zeros(len(idx), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    faces["n"] = 3
+    faces["i"] = idx
+    with open(path, "wb") as f:
+        f.write(head + verts.astype("<f4").tobytes() + faces.tobytes())
+
+
 def write_main_pbrt(out_dir: Path) -> Path:
     """main_scene as a .pbrt file (the default light strategy, spatial) and
     its blob as a binary little-endian PLY, shape for shape."""
     out_dir.mkdir(parents=True, exist_ok=True)
     idx, v = blob_mesh(512, 256, seed=0, center=(0.0, 0.0, 2.2), radius=2.0)
-    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
-            "property float x\nproperty float y\nproperty float z\n"
-            f"element face {len(idx)}\nproperty list uchar int vertex_indices\n"
-            "end_header\n").encode()
-    faces = np.zeros(len(idx), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
-    faces["n"] = 3
-    faces["i"] = idx
-    with open(out_dir / "blob.ply", "wb") as f:
-        f.write(head + v.astype("<f4").tobytes() + faces.tobytes())
+    write_ply(out_dir / "blob.ply", idx, v)
     path = out_dir / "main.pbrt"
     path.write_text(MAIN_PBRT.format(xres=RES[0], yres=RES[1], spp=SPP,
                                      depth=DEPTH))
+    return path
+
+
+CONFIG3_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "config3.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]{extra}
+WorldBegin
+AttributeBegin
+  LightSource "infinite" "string mapname" "env.pfm" "rgb L" [1 1 1]
+AttributeEnd
+Texture "checks" "spectrum" "checkerboard" "float uscale" [8] "float vscale" [8]
+  "rgb tex1" [0.8 0.8 0.8] "rgb tex2" [0.2 0.3 0.4]
+Texture "skin" "spectrum" "imagemap" "string filename" "skin.pfm"
+  "bool trilinear" "false"
+Material "matte" "texture Kd" "checks"
+Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+  "integer indices" [0 1 2 2 3 0] "point2 uv" [0 0  1 0  1 1  0 1]
+AttributeBegin
+  Material "plastic" "texture Kd" "skin" "rgb Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  Shape "plymesh" "string filename" "blob.ply"
+AttributeEnd
+AttributeBegin
+  Material "glass" "float eta" [1.5]
+  Translate 3.7 -0.5 1.2
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Material "glass" "float eta" [1.5] "float uroughness" [0.1]
+  Translate -3.4 -1.5 1.0
+  Shape "sphere" "float radius" [1.0]
+AttributeEnd
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [40 40 40]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_config3_pbrt(out_dir: Path, res=RES, spp=64, blob=(512, 256),
+                       skin=(512, 512), env=(512, 256), extra="") -> Path:
+    """BASELINE config 3's features on the main scene's blob: the blob in
+    plastic with an imagemap Kd (EWA: "trilinear" false) on a seeded image,
+    the floor matte with a checkerboard Kd, a smooth and a rough glass
+    sphere (the JAX package's glass reads "uroughness"), and an infinite
+    light with a seeded equirect map beside the emissive sphere.  The blob
+    (blob = (nu, nv), 2 nu nv triangles) is a PLY with spherical uv; the
+    images are PFM, skin (w, h) and env (w, h).  extra: more parameters of
+    the Integrator line."""
+    from pbrt_tpu_torch.utils.imageio import write_pfm
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(blob[0], blob[1], seed=0, center=(0.0, 0.0, 2.2),
+                       radius=2.0)
+    th, ph = np.meshgrid(np.linspace(0.0, 1.0, blob[1] + 1),
+                         np.arange(blob[0]) / blob[0], indexing="ij")
+    write_ply(out_dir / "blob.ply", idx, v,
+              np.stack([ph, th], -1).reshape(-1, 2).astype(np.float32))
+    rs = np.random.RandomState(3)
+    tex = 0.15 + 0.7 * rs.rand(skin[1], skin[0], 3)
+    tex[:, ::16] = (0.9, 0.8, 0.1)  # stripes that the pyramid blurs away
+    write_pfm(str(out_dir / "skin.pfm"), tex.astype(np.float32))
+    # sky: brighter toward the zenith (v = 0), one warm sun, seeded grain
+    h, w = env[1], env[0]
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    sky = (0.2 + 0.6 * np.clip(np.cos(theta), 0.0, 1.0))[:, None, None]
+    sky = sky * np.array([0.6, 0.8, 1.0]) * (0.9 + 0.2 * rs.rand(h, w, 1))
+    sky[h // 5: h // 5 + max(h // 32, 1), w // 3: w // 3 + max(w // 64, 1)] = (
+        60.0, 50.0, 30.0)
+    write_pfm(str(out_dir / "env.pfm"), sky.astype(np.float32))
+    path = out_dir / "config3_path.pbrt"
+    path.write_text(CONFIG3_PBRT.format(xres=res[0], yres=res[1], spp=spp,
+                                        depth=DEPTH, extra=extra))
     return path
 
 
@@ -441,22 +540,19 @@ def mesh_rays(rs, n, center, radius, device):
     return (torch.as_tensor(o, device=device), torch.as_tensor(d, device=device))
 
 
-def profile_render(scene, camera, film_cfg, cfg, res, table_path: Path):
-    """One spp of the main path under torch.profiler: the device's busy
+def profile_render(render_one, table_path: Path, label: str = "profile"):
+    """One spp (render_one()) under torch.profiler: the device's busy
     time against the wall, the port's "layer: ..." ranges (around the calls
     into each layer; inclusive of the layers they call), and the top device
-    operations, written to table_path."""
+    operations, written to table_path; each line starts with `label`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pbrt_tpu_torch.integrators import path
-    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        path.render(scene, camera, film_cfg, SamplerConfig("halton", 1, res), cfg)
+        render_one()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -470,18 +566,18 @@ def profile_render(scene, camera, film_cfg, cfg, res, table_path: Path):
     busy_ms = sum(getattr(e, key) for e in on_card) / 1e3
     table_path.parent.mkdir(parents=True, exist_ok=True)
     table_path.write_text(events.table(sort_by=key, row_limit=40))
-    print(f"profile (1 spp, profiler on): wall {wall_ms:.1f} ms, device busy "
+    print(f"{label} (1 spp, profiler on): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in on_card)} device operations", flush=True)
     kern = [e for e in on_card if "bvh4_traverse" in e.key]
     kern_ms = sum(getattr(e, key) for e in kern) / 1e3
-    print(f"profile kernel in the render: {sum(e.count for e in kern)} launches, "
+    print(f"{label} kernel in the render: {sum(e.count for e in kern)} launches, "
           f"device {kern_ms:.4f} ms", flush=True)
     device_ms = {}
     for e in spans:
         if e.device_type == DeviceType.CPU:
             device_ms[e.key] = getattr(e, total_key) / 1e3
-            print(f"profile {e.key}: {e.count} calls, host {e.cpu_time_total / 1e3:.1f} ms, "
+            print(f"{label} {e.key}: {e.count} calls, host {e.cpu_time_total / 1e3:.1f} ms, "
                   f"device busy {device_ms[e.key]:.2f} ms", flush=True)
     # The traversal's device time: the kernel by name (launched through
     # ctypes, it falls in no range) and the glue by its own ranges
@@ -490,7 +586,7 @@ def profile_render(scene, camera, film_cfg, cfg, res, table_path: Path):
     glue = device_ms.get("layer: traversal incl. kernel", 0.0)
     key_ms = device_ms.get("layer: traversal / key and argsort", 0.0)
     sphere_ms = device_ms.get("layer: traversal / sphere pass", 0.0)
-    print(f"profile traversal split (device ms, 1 spp): kernel {kern_ms:.3f}, key "
+    print(f"{label} traversal split (device ms, 1 spp): kernel {kern_ms:.3f}, key "
           f"and argsort {key_ms:.3f}, sphere pass {sphere_ms:.3f}, rest "
           f"{glue - key_ms - sphere_ms:.3f}; in all {kern_ms + glue:.3f}", flush=True)
 
@@ -687,11 +783,9 @@ def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
     print(f"cli subprocess: {sub_s:.2f} s for the process; it printed: "
           f"{r.stdout.strip().splitlines()[0]}", flush=True)
 
-    # Each kernel twice, in turns (bvh4, bvh2, bvh2, bvh4), so that the two
-    # render walls are compared within one call on one host.
+    # Each kernel once; phases 5 and 10 hold repeats bit-identical.
     runs = {}
-    for kind, switch in (("bvh4", "1"), ("bvh2", "0"), ("bvh2", "0"),
-                         ("bvh4", "1")):
+    for kind, switch in (("bvh4", "1"), ("bvh2", "0")):
         with bvh_switch(switch):
             reset_counts(counted)
             img, st = render.render_file(str(scene_path), out=str(out), device=dev)
@@ -711,9 +805,6 @@ def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
               f"{ph['Light distribution']:.3f} s, render wall {ph['Rendering']:.3f} s "
               f"(process CPU {st['render_cpu_s']:.3f} s), {int(st['rays_traced'])} "
               f"rays, {mrays:.3f} Mrays/s, launches {launches}", flush=True)
-        if kind in runs:
-            check(np.array_equal(img, runs[kind]["img"]),
-                  f"render_file ({kind}): a second render differs")
         runs[kind] = dict(img=img, launches=launches)
     m4, m2 = float(runs["bvh4"]["img"].mean()), float(runs["bvh2"]["img"].mean())
     check(abs(m4 - m2) <= 1e-3 * m4, f"bvh2 image mean {m2} vs bvh4 {m4}")
@@ -921,6 +1012,245 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
             "bvh2": b2["launches"]["bvh2_traverse"]}
 
 
+def image_bars(ref, got):
+    """(match_frac, mean rel) at tests/test_torch_path.py:58-59's bars:
+    at least 0.995 of pixels within rel 1e-3, means within 5e-3."""
+    rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-2)
+    frac = float(np.all(rel <= 1e-3, -1).mean())
+    mean_rel = abs(float(got.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-6)
+    return frac, mean_rel
+
+
+def timed_render_file(render, counted, path, out, dev, switch="1"):
+    """render_file under PBRT_TPU_BVH4=switch with the launch counts set to
+    0 just before and read just after: (img, stats, launches)."""
+    with bvh_switch(switch):
+        reset_counts(counted)
+        img, st = render.render_file(str(path), out=str(out), device=dev)
+        launches = read_counts(counted)
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"{path.name}: image not finite or black")
+    return img, st, launches
+
+
+def render_line(what, st, launches, card):
+    ph = st["phases"]
+    setup = ", ".join(f"{k.lower()} {v:.3f} s" for k, v in ph.items()
+                      if k != "Rendering")
+    return (f"{what}: set-up {setup}; render wall {ph['Rendering']:.3f} s "
+            f"(process CPU {st['render_cpu_s']:.3f} s), {int(st['rays_traced'])} "
+            f"rays, {st['rays_traced'] / ph['Rendering'] / 1e6:.3f} Mrays/s, "
+            f"launches {launches} [{card}]")
+
+
+def config3_cross(scene, captured):
+    """Both kernels on every batch that config3's bvh2 render launched:
+    hit flags and any-hit occlusion equal, and t equal on every closest-hit
+    lane, so that the prims may differ only at a tie (two triangles hit at
+    the same t).  The first differing lanes are printed with both plain
+    versions' answers on them."""
+    import torch
+
+    from pbrt_tpu_torch.ops import bvh
+
+    kernels = bvh_kernels(bvh)
+    tot = dict(lanes=0, closest_hits=0, hit_flag=0, t=0, ties=0, occlusion=0)
+    shown = []
+    for o, d, tm, mode, order in captured:
+        out = {}
+        for kind, k in kernels.items():
+            saved = k["wrapper"].launches
+            out[kind] = k["wrapper"](getattr(scene, k["nodes"]), scene.prim_tris,
+                                     o, d, tm, mode, getattr(scene, k["depth"]),
+                                     order)
+            k["wrapper"].launches = saved
+        (t2, p2), (t4, p4) = out["bvh2"], out["bvh4"]
+        closest, live = mode <= 0, tm > 0
+        hits = closest & (p4 >= 0)
+        bad = {"hit_flag": closest & ((p2 >= 0) != (p4 >= 0)),
+               "t": hits & (p2 >= 0) & (t2 != t4),
+               "ties": hits & (t2 == t4) & (p2 != p4),
+               "occlusion": ~closest & live & ((p2 >= 0) != (p4 >= 0))}
+        tot["lanes"] += int(live.sum())
+        tot["closest_hits"] += int(hits.sum())
+        for key, m in bad.items():
+            tot[key] += int(m.sum())
+        lanes = torch.nonzero(bad["hit_flag"] | bad["t"] | bad["ties"]
+                              | bad["occlusion"]).flatten()
+        for j in lanes[:max(0, 6 - len(shown))].tolist():
+            row = dict(o=o[j].tolist(), d=d[j].tolist(), t_max=tm[j].item(),
+                       any_hit=not bool(closest[j]),
+                       bvh4=(t4[j].item(), int(p4[j])), bvh2=(t2[j].item(), int(p2[j])))
+            for kind, k in kernels.items():
+                tp, pp = k["plain"](getattr(scene, k["nodes"]).cpu(),
+                                    scene.prim_tris.cpu(), o[j:j + 1].cpu(),
+                                    d[j:j + 1].cpu(), tm[j:j + 1].cpu(),
+                                    mode[j:j + 1].cpu())
+                row[f"{kind}_plain"] = (tp.item(), int(pp))
+            for q in sorted({row["bvh4"][1], row["bvh2"][1]}):
+                if q >= 0:
+                    row[f"tri {q}"] = scene.prim_tris[q].tolist()
+            shown.append(row)
+    print(f"config3 bvh2 against bvh4 on the {len(captured)} batches of the bvh2 "
+          f"render: {json.dumps(tot)}", flush=True)
+    for row in shown:
+        print(f"config3 differing lane: {json.dumps(row)}", flush=True)
+    check(tot["hit_flag"] == 0 and tot["t"] == 0 and tot["occlusion"] == 0,
+          f"config3: bvh2 and bvh4 differ other than at ties: {tot}")
+
+
+def config3_phase(render, counted, card, dev, profile):
+    """Phase 10: BASELINE config 3's features through render_file on the
+    card: the main scene's 262,144-triangle blob textured, the checkerboard
+    floor, smooth and rough glass, the env map; 400x400 @ 64 spp, depth 5,
+    halton, spatial light distribution.  A bit-identical repeat, the same
+    image under PBRT_TPU_BVH4=0 with bvh2 launches only, and a 64x64 @ 2
+    spp copy on the card against the CPU."""
+    import torch
+
+    from pbrt_tpu_torch import scene as sc
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.textures.textures import build_pyramid
+    from pbrt_tpu_torch.utils.imageio import read_pfm
+
+    out_dir = SMOKE_DIR / "config3"
+    spp = 64
+    path = write_config3_pbrt(out_dir, spp=spp)
+    # the set-up inside parse and build, timed alone on the same images
+    skin, env = read_pfm(str(out_dir / "skin.pfm")), read_pfm(str(out_dir / "env.pfm"))
+    t0 = time.perf_counter()
+    levels = build_pyramid(skin)
+    t1 = time.perf_counter()
+    payload = sc._env_payload([dict(light_type=sc.LIGHT_INFINITE, image=env)])
+    t2 = time.perf_counter()
+    print(f"config3 set-up parts: the {skin.shape[1]}x{skin.shape[0]} pyramid "
+          f"({len(levels)} levels) {t1 - t0:.3f} s, the {env.shape[1]}x"
+          f"{env.shape[0]} env CDF {t2 - t1:.3f} s", flush=True)
+    del payload
+    want = spp * (1 + DEPTH)
+    runs = []
+    for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
+        # the bvh2 render keeps its batches for config3_cross
+        rec = bvh.record_calls() if kind == "bvh2" else contextlib.nullcontext()
+        with rec as captured:
+            img, st, launches = timed_render_file(render, counted, path,
+                                                  out_dir / f"{kind}.pfm", dev,
+                                                  switch)
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == want
+              and launches[f"{other}_traverse"] == 0,
+              f"config3 ({kind}) launches {launches}, not {want} of {kind}")
+        print(render_line(f"config3 {RES[0]}x{RES[1]} @ {spp} spp, {kind}", st,
+                          launches, card) + f", {st['rays_traced'] / 1e6 / spp:.3f}"
+              f" Mrays a spp, wall {st['phases']['Rendering'] / spp:.4f} s a spp, "
+              f"image mean {float(img.mean()):.6f}", flush=True)
+        runs.append((img, launches))
+    check(np.array_equal(runs[0][0], runs[1][0]), "config3: a repeat differs")
+    frac, mean_rel = image_bars(runs[0][0], runs[2][0])
+    print(f"config3 bvh2 against bvh4: bit-equal "
+          f"{np.array_equal(runs[0][0], runs[2][0])}, match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}", flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"config3 bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
+
+    small = write_config3_pbrt(out_dir / "small", res=(64, 64), spp=2)
+    a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
+                              device=dev)
+    t0 = time.perf_counter()
+    b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
+                              device="cpu")
+    frac, mean_rel = image_bars(b, a)
+    print(f"config3 card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}; the CPU render {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"config3 card against cpu: match_frac {frac}, mean rel {mean_rel}")
+
+    from pbrt_tpu_torch import film as fm
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+    from pbrt_tpu_torch.utils import stats
+
+    setup = parse_pbrt_file(str(path))
+    scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+    lt, tx, d2 = scene.lights, scene.textures, scene.lights.env_distr
+    mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
+          "bvh2 nodes + triangles": scene.bvh2_nodes.nbytes + scene.prim_tris.nbytes,
+          "texture atlas (the skin pyramid)": tx.atlas.nbytes,
+          "env map": lt.env_map.nbytes,
+          "env Distribution2D": sum(getattr(d2, f).nbytes for f in (
+              "cond_func", "cond_cdf", "cond_int", "marg_func", "marg_cdf",
+              "marg_int", "cond_keys")),
+          "spatial distribution": scene.spatial_cdf.nbytes + scene.spatial_pmf.nbytes}
+    print("config3 bytes on the card, MB: " + json.dumps(
+        {k: round(v / 1e6, 3) for k, v in mb.items()}), flush=True)
+    if profile is not None:
+        film_cfg, filt = setup.make_film_config()
+        sampler = setup.make_sampler_config()
+        camera = setup.make_camera().to(dev)
+        state = fm.make_film_state(film_cfg, filt, dev)
+        pixels = torch.as_tensor(ip.make_pixel_grid(film_cfg), device=dev)
+        with torch.no_grad():
+            profile_render(lambda: ip.render_sample_batch(
+                scene, camera, state, pixels, 0, sampler,
+                setup.make_integrator_config(), stats.zeros(dev)),
+                profile.with_name(f"{profile.stem}_config3{profile.suffix}"),
+                "config3 profile")
+    config3_cross(scene, captured)
+    del captured
+    return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"]}
+
+
+def direct_phase(render, read_pfm, counted, card, dev):
+    """Phase 11: Integrator "directlighting" through render_file on the
+    card: b_arealight with strategy "one" at maxdepth 1 (the path
+    integrator's NEE dims 5-9) against its pbrt-v3 golden at
+    tests/test_parity_images.py's bars, then the main scene at 400x400 @
+    8 spp, depth 5, with "one" and "all"."""
+    out_dir = SMOKE_DIR / "direct"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    line = 'Integrator "path" "integer maxdepth" [1]'
+    src = (HERE / "refgold/parity/b_arealight.pbrt").read_text()
+    check(line in src, "b_arealight.pbrt has no path Integrator line")
+    b_path = out_dir / "b_direct_one.pbrt"
+    b_path.write_text(src.replace(line, 'Integrator "directlighting" '
+                                        '"integer maxdepth" [1] "string strategy" "one"'))
+    img, _, launches = timed_render_file(render, counted, b_path,
+                                         out_dir / "b.pfm", dev)
+    ref = read_pfm(str(HERE / "refgold/goldens/parity/b_arealight.pfm"))
+    frac, mean_rel = image_bars(ref, img)
+    print(f"direct b_arealight (\"one\", maxdepth 1): match_frac {frac:.4f} "
+          f"(>= 0.999), mean rel {mean_rel:.3e} (<= 1e-4), launches {launches}",
+          flush=True)
+    check(frac >= 0.999 and mean_rel <= 1e-4,
+          f"direct b_arealight: match_frac {frac}, mean rel {mean_rel}")
+
+    main = write_main_pbrt(out_dir)
+    text = main.read_text()
+    out = {}
+    for strategy in ("one", "all"):
+        p = out_dir / f"main_{strategy}.pbrt"
+        p.write_text(text.replace(
+            f'Integrator "path" "integer maxdepth" [{DEPTH}]',
+            f'Integrator "directlighting" "integer maxdepth" [{DEPTH}] '
+            f'"string strategy" "{strategy}"'))
+        img, st, launches = timed_render_file(render, counted, p,
+                                              out_dir / f"{strategy}.pfm", dev)
+        # one light of nsamples 1: a closest-hit launch a depth and one NEE
+        # launch a vertex, either strategy
+        want = SPP * (DEPTH + 1 + DEPTH)
+        check(launches["bvh4_traverse"] == want and launches["bvh2_traverse"] == 0,
+              f"direct {strategy}: launches {launches}, not {want}")
+        print(render_line(f"direct main {RES[0]}x{RES[1]} @ {SPP} spp, "
+                          f"\"{strategy}\"", st, launches, card)
+              + f", image mean {float(img.mean()):.6f}", flush=True)
+        out[strategy] = (float(img.mean()), launches["bvh4_traverse"])
+    m1, m2 = out["one"][0], out["all"][0]
+    check(abs(m1 - m2) <= 0.02 * m1, f"direct means: one {m1}, all {m2}")
+    return {k: v[1] for k, v in out.items()}
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -1034,7 +1364,9 @@ def run(profile: Path | None = None) -> dict:
           f"plain {k4['plain_ms']:.1f} ms), {k4['ms'] * SPP / (wall * 1e3):.4%} "
           f"of the render's wall", flush=True)
     if profile is not None:
-        profile_render(scene, camera, film_cfg, cfg, RES, profile)
+        profile_render(lambda: path.render(scene, camera, film_cfg,
+                                           SamplerConfig("halton", 1, RES), cfg),
+                       profile)
     ref_img = img.cpu().numpy()
     del img, img2
     phase("main path", t0)
@@ -1083,6 +1415,16 @@ def run(profile: Path | None = None) -> dict:
     del scene
     phase("grad", t0)
 
+    # 10. BASELINE config 3's features through the front end
+    t0 = time.perf_counter()
+    c3 = config3_phase(render, counted, card, dev, profile)
+    phase("config3", t0)
+
+    # 11. the direct-lighting integrator
+    t0 = time.perf_counter()
+    dl = direct_phase(render, read_pfm, counted, card, dev)
+    phase("direct", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -1098,6 +1440,7 @@ def run(profile: Path | None = None) -> dict:
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch,
             "grad_launches": grad_launches[kind],
+            "config3_launches": c3[kind],
             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "mismatch_frac": max(r["mismatch_frac"] for r in res.values()),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],
@@ -1112,6 +1455,8 @@ def run(profile: Path | None = None) -> dict:
             "ms_gathered_per_spp": per_spp[kind]["ms_gathered"],
             "glue_ms_per_spp": per_spp[kind]["glue_ms"],
         })
+    entries[0]["direct_one_launches"] = dl["one"]
+    entries[0]["direct_all_launches"] = dl["all"]
     entries.append({
         "name": "chain_fused", "route": "triton",
         "source": "pbrt_tpu_torch/tools/bench_layout_probe.py",

@@ -229,3 +229,43 @@ def hit_record(scene, o, d, t, prim_id):
         "material": torch.where(hit, meta[:, 2], -1),
         "arealight": torch.where(hit, meta[:, 3], -1),
     }
+
+
+def uv_differentials(rec, rx_o, rx_d, ry_o, ry_d):
+    """SurfaceInteraction::ComputeDifferentials (interaction.cpp:160-220):
+    the auxiliary rays meet the hit's tangent plane, and dpdx = dpdu dudx +
+    dpdv dvdx is solved on the two axes where |ng| is smallest.  Returns
+    (duvdx [N, 2], duvdy [N, 2]), zero on misses and degenerate frames."""
+    p, n = rec["p"], rec["ng"]
+    dpdu, dpdv = rec["dpdu"], rec["dpdv"]
+    d_plane = vm.dot(n, p)
+
+    def plane_dp(ro, rd):
+        denom = vm.dot(n, rd)
+        flat = torch.abs(denom) < 1e-12
+        tx = -(vm.dot(n, ro) - d_plane) / torch.where(flat, 1.0, denom)
+        return ro + tx[:, None] * rd - p, ~flat
+
+    dpdx, okx = plane_dp(rx_o, rx_d)
+    dpdy, oky = plane_dp(ry_o, ry_d)
+    an = torch.abs(n)
+    use_yz = (an[:, 0] > an[:, 1]) & (an[:, 0] > an[:, 2])
+    use_xz = ~use_yz & (an[:, 1] > an[:, 2])
+    d0 = torch.where(use_yz, 1, 0)
+    d1 = torch.where(use_yz | use_xz, 2, 1)
+    a00 = vm.component3(dpdu, d0)
+    a01 = vm.component3(dpdv, d0)
+    a10 = vm.component3(dpdu, d1)
+    a11 = vm.component3(dpdv, d1)
+    det = a00 * a11 - a01 * a10
+    ok = torch.abs(det) >= 1e-10
+    inv = 1.0 / torch.where(ok, det, 1.0)
+
+    def solve(dp, ok_ray):
+        b0 = vm.component3(dp, d0)
+        b1 = vm.component3(dp, d1)
+        duv = torch.stack([(a11 * b0 - a01 * b1) * inv,
+                           (a00 * b1 - a10 * b0) * inv], -1)
+        return torch.where((ok & ok_ray & rec["hit"])[:, None], duv, 0.0)
+
+    return solve(dpdx, okx), solve(dpdy, oky)

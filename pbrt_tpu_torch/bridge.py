@@ -3,7 +3,11 @@
 The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
-here, so both packages render the very same arrays; ``params_from_numpy``
+here, so both packages render the very same arrays: the geometry, the
+material table with its glass and texture columns, the light table with
+n_samples and the infinite light's map, world-to-light matrix and
+Distribution2D, and the texture table (rows, image atlas, pyramid offsets,
+level counts); ``params_from_numpy``
 carries the differentiable parameters over the same way.  ``compare_setups``
 holds a RenderSetup parsed by the JAX package against one parsed by the port.
 The port itself never imports JAX or pbrt_tpu.
@@ -16,8 +20,10 @@ import numpy as np
 import torch
 
 from .cameras import CameraParams
-from .scene import (LIGHT_FIELDS, MATERIAL_FIELDS, SCENE_FIELDS, SceneArrays,
-                    resolve_device)
+from .core.sampling import DISTRIBUTION_2D_FIELDS
+from .scene import (ENV_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS, SCENE_FIELDS,
+                    SceneArrays, resolve_device)
+from .textures.textures import TEXTURE_FIELDS
 
 
 def as_numpy_fields(obj) -> dict:
@@ -123,10 +129,12 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
 
     ji, ti = jax_setup.make_integrator_config(), port_setup.make_integrator_config()
     _diff(out, "integrator.max_depth", ji.max_depth, ti.max_depth, rtol)
-    _diff(out, "integrator.rr_threshold", ji.rr_threshold, ti.rr_threshold, rtol)
-    if ji.light_strategy != ti.light_strategy:
-        out.append(f"integrator.light_strategy: {ji.light_strategy!r} != "
-                   f"{ti.light_strategy!r}")
+    if hasattr(ti, "light_strategy"):  # the JAX package's PathConfig
+        _diff(out, "integrator.rr_threshold", ji.rr_threshold, ti.rr_threshold,
+              rtol)
+        if ji.light_strategy != ti.light_strategy:
+            out.append(f"integrator.light_strategy: {ji.light_strategy!r} != "
+                       f"{ti.light_strategy!r}")
     if jax_setup.integrator_name != port_setup.integrator_name:
         out.append("integrator name differs")
 
@@ -137,8 +145,14 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
     for k in MATERIAL_FIELDS:
         _diff(out, f"scene.materials.{k}", ref["materials"][k],
               got["materials"][k], rtol)
-    for k in LIGHT_FIELDS:
+    for k in LIGHT_FIELDS + ENV_FIELDS + ("env_light_idx",):
         _diff(out, f"scene.lights.{k}", ref["lights"][k], got["lights"][k], rtol)
+    for k in DISTRIBUTION_2D_FIELDS:
+        _diff(out, f"scene.lights.env_distr.{k}", ref["lights"]["env_distr"][k],
+              got["lights"]["env_distr"][k], rtol)
+    for k in TEXTURE_FIELDS:
+        _diff(out, f"scene.textures.{k}", ref["textures"][k],
+              got["textures"][k], rtol)
     for k in ("func", "cdf", "func_int"):
         _diff(out, f"scene.light_distr.{k}", ref["light_distr"][k],
               got["light_distr"][k], rtol)

@@ -1,4 +1,6 @@
 """Cameras (port of pbrt_tpu/cameras/, perspective only)."""
-from .cameras import CameraParams, generate_rays, make_perspective_camera
+from .cameras import (CameraParams, generate_ray_differentials, generate_rays,
+                      make_perspective_camera)
 
-__all__ = ["CameraParams", "generate_rays", "make_perspective_camera"]
+__all__ = ["CameraParams", "generate_ray_differentials", "generate_rays",
+           "make_perspective_camera"]

@@ -3,7 +3,8 @@
 Port of the perspective camera of pbrt_tpu/cameras/cameras.py
 (cameras/perspective.cpp:43-95).  The host builds RasterToCamera once from
 numpy transforms; ``generate_rays`` maps a flat batch of film / lens / time
-samples to world-space rays.
+samples to world-space rays, and ``generate_ray_differentials`` adds the
+rays one pixel over in x and in y.
 """
 from __future__ import annotations
 
@@ -152,3 +153,18 @@ def generate_rays(cam: CameraParams, p_film, p_lens, time_u):
     o = xform_point(cam.camera_to_world, o)
     d = xform_vector(cam.camera_to_world, d)
     return o, d, time, torch.ones(n, dtype=torch.float32, device=dev)
+
+
+def generate_ray_differentials(cam: CameraParams, p_film, p_lens, time_u,
+                               spp: int = 1):
+    """Camera::GenerateRayDifferential (camera.cpp:68-85): the rays at
+    pFilm + (1, 0) and pFilm + (0, 1) with the same lens and time samples,
+    then ScaleDifferentials(1 / sqrt(spp)) (integrator.cpp:290).
+    Returns (o, d, time, weight, rx_o, rx_d, ry_o, ry_d)."""
+    o, d, time, w = generate_rays(cam, p_film, p_lens, time_u)
+    dx = torch.tensor([1.0, 0.0], device=p_film.device)
+    rx_o, rx_d, _, _ = generate_rays(cam, p_film + dx, p_lens, time_u)
+    ry_o, ry_d, _, _ = generate_rays(cam, p_film + dx.flip(0), p_lens, time_u)
+    s = 1.0 / math.sqrt(max(int(spp), 1))
+    return (o, d, time, w, o + (rx_o - o) * s, d + (rx_d - d) * s,
+            o + (ry_o - o) * s, d + (ry_d - d) * s)

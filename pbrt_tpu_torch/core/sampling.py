@@ -1,8 +1,8 @@
 """Sampling warps, the power heuristic and Distribution1D.
 
-Port of pbrt_tpu/core/sampling.py (the parts the path integrator uses).
-Distribution1D is built host-side in float64 exactly as the JAX package
-does and stored as float32 tensors.
+Port of pbrt_tpu/core/sampling.py (the parts the path and direct-lighting
+integrators use).  Distribution1D and Distribution2D are built host-side in
+float64 exactly as the JAX package does and stored as float32 tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +20,10 @@ PI_OVER_4 = PI / 4.0
 
 def _vec(x, y, z):
     return torch.stack([x, y, z], dim=-1)
+
+
+def uniform_sphere_pdf() -> float:
+    return 1.0 / (4.0 * PI)
 
 
 def uniform_sample_sphere(u):
@@ -115,10 +119,11 @@ def distribution_from_numpy(d: dict, device) -> Distribution1D:
 
 
 def find_interval(cdf, u):
-    """Largest i with cdf[i] <= u, clamped to [0, n - 2] (FindInterval)."""
-    n = cdf.shape[-1]
-    idx = torch.sum((cdf <= u[..., None]).to(torch.int64), dim=-1) - 1
-    return torch.clamp(idx, 0, n - 2)
+    """Largest i with cdf[i] <= u, clamped to [0, n - 2] (FindInterval),
+    over one shared CDF row by binary search: the count of entries <= u,
+    less one, without an [N, n] compare."""
+    return torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1,
+                       0, cdf.shape[-1] - 2)
 
 
 def sample_discrete_1d(d: Distribution1D, u):
@@ -129,3 +134,90 @@ def sample_discrete_1d(d: Distribution1D, u):
     pmf = torch.where(d.func_int > 0.0,
                       f / torch.clamp(d.func_int * n, min=1e-30), 0.0)
     return offset, pmf
+
+
+def sample_continuous_1d(d: Distribution1D, u):
+    """Distribution1D::SampleContinuous -> (x in [0, 1), pdf, offset)."""
+    n = d.func.shape[-1]
+    offset = find_interval(d.cdf, u)
+    c0 = d.cdf[offset]
+    c1 = d.cdf[offset + 1]
+    denom = c1 - c0
+    du = torch.where(denom > 0.0, (u - c0) / torch.clamp(denom, min=1e-30),
+                     u - c0)
+    f = d.func[offset]
+    pdf = torch.where(d.func_int > 0.0,
+                      f / torch.clamp(d.func_int, min=1e-30), 0.0)
+    return (offset.to(torch.float32) + du) / n, pdf, offset
+
+
+@dataclasses.dataclass(frozen=True)
+class Distribution2D:
+    """Marginal over rows, conditional per row (sampling.h:123-157):
+    cond_func [H, W], cond_cdf [H, W + 1], cond_int [H], marg_func [H],
+    marg_cdf [H + 1], marg_int [].  cond_keys [H * (W + 1)] f64 holds row
+    r's CDF as 2 r + cdf: one sorted sequence, so a lane's search in its
+    row is one searchsorted (the values are exact in float64)."""
+
+    cond_func: torch.Tensor
+    cond_cdf: torch.Tensor
+    cond_int: torch.Tensor
+    marg_func: torch.Tensor
+    marg_cdf: torch.Tensor
+    marg_int: torch.Tensor
+    cond_keys: torch.Tensor
+
+
+DISTRIBUTION_2D_FIELDS = ("cond_func", "cond_cdf", "cond_int", "marg_func",
+                          "marg_cdf", "marg_int")
+
+
+def build_distribution_2d_np(f) -> dict:
+    """Host-side Distribution2D over f [H, W] (v-major, pbrt's func[v][u]),
+    as numpy arrays named as Distribution2D's fields."""
+    cond = build_distribution_1d_np(np.asarray(f, np.float64))
+    marg = build_distribution_1d_np(np.asarray(cond["func_int"], np.float64))
+    return {"cond_func": cond["func"], "cond_cdf": cond["cdf"],
+            "cond_int": cond["func_int"], "marg_func": marg["func"],
+            "marg_cdf": marg["cdf"], "marg_int": marg["func_int"]}
+
+
+def distribution_2d_from_numpy(d: dict, device) -> Distribution2D:
+    cdf = np.asarray(d["cond_cdf"], np.float32)
+    keys = 2.0 * np.arange(cdf.shape[0])[:, None] + cdf.astype(np.float64)
+    return Distribution2D(
+        *(torch.as_tensor(np.asarray(d[k], np.float32), device=device)
+          for k in DISTRIBUTION_2D_FIELDS),
+        cond_keys=torch.as_tensor(keys.reshape(-1), device=device))
+
+
+def sample_continuous_2d(d: Distribution2D, u):
+    """Distribution2D::SampleContinuous: u [N, 2] -> ((x, y) in [0, 1)^2,
+    pdf), the marginal (v) first."""
+    w = d.cond_func.shape[1]
+    marg = Distribution1D(d.marg_func, d.marg_cdf, d.marg_int)
+    v, pdf_v, iv = sample_continuous_1d(marg, u[..., 1])
+    cint = d.cond_int[iv]
+    # find_interval in row iv: the keys of earlier rows are all below the
+    # query 2 iv + u, and those of later rows all above it
+    count = torch.searchsorted(d.cond_keys, 2.0 * iv + u[..., 0].double(),
+                               right=True) - iv * (w + 1)
+    iu = torch.clamp(count - 1, 0, w - 1)
+    c0 = d.cond_cdf[iv, iu]
+    c1 = d.cond_cdf[iv, iu + 1]
+    denom = c1 - c0
+    du = torch.where(denom > 0.0,
+                     (u[..., 0] - c0) / torch.clamp(denom, min=1e-30),
+                     u[..., 0] - c0)
+    fval = d.cond_func[iv, iu]
+    pdf_u = torch.where(cint > 0.0, fval / torch.clamp(cint, min=1e-30), 0.0)
+    x = (iu.to(torch.float32) + du) / w
+    return torch.stack([x, v], -1), pdf_u * pdf_v
+
+
+def pdf_2d(d: Distribution2D, p):
+    """Distribution2D::Pdf(p), p in [0, 1)^2."""
+    h, w = d.cond_func.shape
+    iu = torch.clamp((p[..., 0] * w).to(torch.int64), 0, w - 1)
+    iv = torch.clamp((p[..., 1] * h).to(torch.int64), 0, h - 1)
+    return d.cond_func[iv, iu] / torch.clamp(d.marg_int, min=1e-30)

@@ -194,6 +194,18 @@ def reflect(wo, n):
     return -wo + 2.0 * dot(wo, n)[..., None] * n
 
 
+def refract(wi, n, eta):
+    """Snell refraction (reflection.h:448 Refract), eta = incident IOR over
+    transmitted IOR.  Returns (ok, wt); ok is False on total internal
+    reflection."""
+    cos_i = dot(n, wi)
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta * eta * sin2_i
+    ok = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    return ok, eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n
+
+
 class _NudgeAway(torch.autograd.Function):
     """Round po one ulp away from the surface (geometry.h:1450-1457), with
     an identity derivative, as the JAX package's custom_jvp (vecmath.py:

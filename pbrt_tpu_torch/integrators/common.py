@@ -1,11 +1,11 @@
 """Direct lighting: next-event estimation with MIS.
 
 Port of pbrt_tpu/integrators/common.py (EstimateDirect / UniformSampleOneLight,
-integrator.cpp:85-215) for the path integrator's merged form: the shadow
-rays (any-hit), the BSDF-sampled MIS rays and the next bounce's extension
-rays go to the traversal kernel in ONE launch, lanes concatenated
-[shadow | MIS | extension] (common.py:111-161).  Dead lanes get t_max = 0 and
-leave the traversal at the root.
+integrator.cpp:85-215).  The shadow rays (any-hit) and the BSDF-sampled MIS
+rays go to the traversal kernel in one launch, lanes concatenated
+[shadow | MIS]; the path integrator adds its next bounce's extension rays
+to the same launch, [shadow | MIS | extension] (common.py:111-161).  Dead
+lanes get t_max = 0 and leave the traversal at the root.
 """
 from __future__ import annotations
 
@@ -60,10 +60,11 @@ def _cheap_hit_normal(scene, o, d, t, prim_id):
 
 
 def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
-                    u_scattering, mask, extra_ray, extra_live):
-    """EstimateDirect (integrator.cpp:108-215), specular = false, with the
-    extension rays extra_ray = (o3, d3) traced in the same launch.
-    Returns (Ld [n, 3], (t3, prim3))."""
+                    u_scattering, mask, extra_ray=None, extra_live=None):
+    """EstimateDirect (integrator.cpp:108-215), specular = false.  Returns
+    (Ld [n, 3], extra_hits): with extra_ray = (o3, d3), rays traced in the
+    same launch (live where extra_live), extra_hits is their (t3, prim3),
+    else None."""
     mat_types = scene.mat_types
     light_types = scene.light_types
     ss, ts, ns = frame
@@ -101,19 +102,21 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     dist = torch.sqrt(torch.clamp(dot(d_sh, d_sh), min=1e-20))
     live = mask.to(torch.float32)
     far = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
-    o3, d3 = extra_ray
+    o_cat = [o_sh, o2]
+    d_cat = [d_sh / dist[:, None], wi2_world]
+    t_max = [dist * _SHADOW_EPS * live, far * live]
+    if extra_ray is not None:
+        o_cat.append(extra_ray[0])
+        d_cat.append(extra_ray[1])
+        t_max.append(far * extra_live.to(torch.float32))
     t_cat, prim_cat = tv.intersect_closest(
-        scene,
-        torch.cat([o_sh, o2, o3]),
-        torch.cat([d_sh / dist[:, None], wi2_world, d3]),
-        torch.cat([dist * _SHADOW_EPS * live, far * live,
-                   far * extra_live.to(torch.float32)]),
+        scene, torch.cat(o_cat), torch.cat(d_cat), torch.cat(t_max),
         any_mask=torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
-                            torch.zeros(2 * n, dtype=torch.bool, device=dev)]),
+                            torch.zeros((len(o_cat) - 1) * n,
+                                        dtype=torch.bool, device=dev)]),
     )
     occ = prim_cat[:n] >= 0
     t2, prim2 = t_cat[n:2 * n], prim_cat[n:2 * n]
-    extra_hit = (t_cat[2 * n:], prim_cat[2 * n:])
 
     li = torch.where((usable & ~occ)[:, None], s["li"], 0.0)
     pdf_l = torch.where(usable, s["pdf"], 1.0)
@@ -134,21 +137,23 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     ld = ld + torch.where(
         do_bsdf[:, None],
         f2 * li2 * (weight2 / torch.clamp(pdf_b, min=1e-20))[:, None], 0.0)
-    return ld, extra_hit
+    if extra_ray is None:
+        return ld, None
+    return ld, (t_cat[2 * n:], prim_cat[2 * n:])
 
 
 def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
-                     u_scattering, mask, extra_ray, pick=None):
+                     u_scattering, mask, extra_ray=None, pick=None):
     """UniformSampleOneLight (integrator.cpp:85-106): pick one light from the
     scene's light distribution, or take the per-lane (light_idx, pmf) of the
     spatial distribution (lightdistrib.cpp:135) when `pick` is given,
-    estimate direct lighting, divide by its pmf.  Returns (Ld, (t, prim) of
-    the extension rays)."""
+    estimate direct lighting, divide by its pmf.  Returns (Ld,
+    extra_hits) as estimate_direct does."""
     if pick is not None:
         light_idx, pmf = pick
     else:
         light_idx, pmf = smp.sample_discrete_1d(scene.light_distr, u_select)
-    ld, extra_hit = estimate_direct(
+    ld, extra_hits = estimate_direct(
         scene, rec, frame, mat, wo_local, light_idx, u_light, u_scattering,
         mask & (pmf > 0.0), extra_ray, extra_live=mask)
-    return ld / torch.clamp(pmf, min=1e-20)[:, None], extra_hit
+    return ld / torch.clamp(pmf, min=1e-20)[:, None], extra_hits

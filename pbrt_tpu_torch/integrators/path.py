@@ -5,6 +5,11 @@ and SamplerIntegrator::Render, integrator.cpp:228-339) for scenes without
 subsurface materials.  One Python loop iteration per bounce takes the place
 of the JAX package's lax.scan; both draw the same sampler dimensions.
 
+Textures are evaluated once per bounce (eval_scene_textures).  On a scene
+with textures the camera rays carry ray differentials, which select the mip
+level at the first hit only; later bounces look up level 0 bilinearly, as
+pbrt's scattered rays carry no differentials.
+
 Dimension schedule (path.py:13-14): camera dims 0-4; from dim 5, each bounce
 b draws 5 NEE dims and 2 BSDF dims, plus 1 Russian-roulette dim after
 bounce 3.
@@ -28,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import film as fm
 from ..accel import traverse as tv
-from ..cameras import generate_rays
+from ..cameras import generate_ray_differentials, generate_rays
 from ..core import spectrum
 from ..core.vecmath import absdot, offset_ray_origin
 from ..filters import make_filter
@@ -37,6 +42,7 @@ from ..lights import lights as lt
 from ..materials import bsdf as bx
 from ..samplers import samplers as sa
 from ..scene import SceneArrays, resolve_device
+from ..textures.textures import evaluate_textures
 from ..utils import stats as st
 from . import common
 
@@ -64,10 +70,25 @@ def dims_per_bounce(bounce: int) -> int:
     return 7 + (1 if bounce > 3 else 0)
 
 
+def eval_scene_textures(scene: SceneArrays, rec, duv=None):
+    """The texture stack [T, n, 3] at the hits (path.py:47-57), or None on
+    a scene without textures.  duv: (duvdx, duvdy) from the camera rays'
+    differentials, or None (level-0 lookups)."""
+    if not scene.has_textures:
+        return None
+    duvdx, duvdy = duv if duv is not None else (None, None)
+    with record_function("layer: textures"):
+        return evaluate_textures(scene.textures, rec["uv"], rec["p"],
+                                 scene.tex_meta, scene.tex_ids,
+                                 duvdx=duvdx, duvdy=duvdy)
+
+
 def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
             cfg: PathConfig, counters, start_dim: int = 5,
-            remat: bool = False):
-    """Radiance along a batch of camera rays: L [n, 3].
+            remat: bool = False, ray_diffs=None):
+    """Radiance along a batch of camera rays: L [n, 3].  ray_diffs: the
+    camera rays' differentials (rx_o, rx_d, ry_o, ry_d), used at bounce 0
+    on a scene with textures, or None.
 
     remat=True wraps each bounce but the last in a non-reentrant
     torch.utils.checkpoint: the backward pass replays each bounce from its
@@ -89,7 +110,8 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
     dim = start_dim
     for bounce in range(cfg.max_depth + 1):
         body = _make_bounce_body(scene, bounce, dim, sampler_cfg,
-                                 sampler_state, cfg)
+                                 sampler_state, cfg,
+                                 ray_diffs if bounce == 0 else None)
         if remat and bounce < cfg.max_depth:
             carry, inc = checkpoint(body, *carry, use_reentrant=False,
                                     preserve_rng_state=False)
@@ -101,7 +123,7 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
 
 
 def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
-                      sampler_state, cfg: PathConfig):
+                      sampler_state, cfg: PathConfig, ray_diffs=None):
     """One bounce of the path walk as a function of the carry (L, beta,
     alive, specular_bounce, eta_scale, o, d, t, prim) to (the next carry,
     its counter increments), the counterpart of the JAX package's
@@ -131,7 +153,11 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
             return (L, beta, alive, specular_bounce, eta_scale, o, d, t,
                     prim), counters
 
-        mat = bx.gather_material(scene.materials, rec["material"])
+        duv = None
+        if ray_diffs is not None and scene.has_textures:
+            duv = tv.uv_differentials(rec, *ray_diffs)
+        mat = bx.gather_material(scene.materials, rec["material"],
+                                 eval_scene_textures(scene, rec, duv))
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])
@@ -203,30 +229,47 @@ def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
 
 
-def batch_sampler_state(sampler_cfg, pixels, sample_num: int,
-                        cfg: PathConfig):
-    """The sampler state of one sample per pixel; for halton, with all of
-    the batch's dims at once, one table row per dimension."""
+def n_path_dims(cfg: PathConfig) -> int:
+    """The sampler dims a path draws."""
+    return 5 + sum(dims_per_bounce(b) for b in range(cfg.max_depth)) + 1
+
+
+def batch_sampler_state(sampler_cfg, pixels, sample_num: int, n_dims: int):
+    """The sampler state of one sample per pixel; for halton, with its
+    first n_dims dims at once, one table row per dimension."""
     n = pixels.shape[0]
     state = sa.init_state(sampler_cfg, pixels,
                           torch.full((n,), sample_num, dtype=torch.int64,
                                      device=pixels.device))
     if sampler_cfg.name == "halton":
-        n_dims = 5 + sum(dims_per_bounce(b) for b in range(cfg.max_depth)) + 1
         with record_function("layer: sampler table"):
             state["table"] = sa.halton_table(sampler_cfg, state, n_dims)
     return state
+
+
+def camera_rays(scene: SceneArrays, camera, p_film, p_lens, time_u, spp: int):
+    """(o, d, weight, ray differentials or None): the differentials only
+    on a scene with textures (path.py:642-647)."""
+    with record_function("layer: camera rays"):
+        if not scene.has_textures:
+            o, d, _, weight = generate_rays(camera, p_film, p_lens, time_u)
+            return o, d, weight, None
+        o, d, _, weight, *diffs = generate_ray_differentials(
+            camera, p_film, p_lens, time_u, spp=spp)
+        return o, d, weight, tuple(diffs)
 
 
 def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
                         sampler_cfg, cfg: PathConfig, counters):
     """One sample per pixel, accumulated into film_state (in place)."""
     n = pixels.shape[0]
-    state = batch_sampler_state(sampler_cfg, pixels, sample_num, cfg)
+    state = batch_sampler_state(sampler_cfg, pixels, sample_num,
+                                n_path_dims(cfg))
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
-    with record_function("layer: camera rays"):
-        o, d, _, weight = generate_rays(camera, p_film, p_lens, time_u)
-    L = li_path(scene, o, d, sampler_cfg, state, cfg, counters)
+    o, d, weight, ray_diffs = camera_rays(scene, camera, p_film, p_lens,
+                                          time_u, sampler_cfg.spp)
+    L = li_path(scene, o, d, sampler_cfg, state, cfg, counters,
+                ray_diffs=ray_diffs)
     # NaN / negative radiance -> black (integrator.cpp:294-315).
     bad = ~torch.all(torch.isfinite(L), -1) | torch.any(L < 0.0, -1)
     L = torch.where(bad[:, None], 0.0, L)

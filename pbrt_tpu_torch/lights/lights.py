@@ -1,10 +1,12 @@
-"""Light sampling for point lights and diffuse area lights on spheres and
-triangles.
+"""Light sampling for point lights, diffuse area lights on spheres and
+triangles, and infinite lights.
 
-Port of the point / area parts of pbrt_tpu/lights/lights.py (lights/point.cpp,
-lights/diffuse.cpp, sphere.cpp:232-318 cone sampling, triangle.cpp Sample and
-shape.cpp:56 solid-angle conversion).  The scene has no infinite light in
-this port, so escaped rays carry no radiance.
+Port of the point / area / infinite parts of pbrt_tpu/lights/lights.py
+(lights/point.cpp, lights/diffuse.cpp, sphere.cpp:232-318 cone sampling,
+triangle.cpp Sample and shape.cpp:56 solid-angle conversion,
+lights/infinite.cpp).  An infinite light with a map is importance-sampled
+through the scene's Distribution2D; a constant one samples the uniform
+sphere.  Escaped rays carry the infinite lights' radiance.
 """
 from __future__ import annotations
 
@@ -120,8 +122,64 @@ def sample_li(scene, light_idx, ref_p, u, light_types):
         pdf = torch.where(m[:, 0], pdf_t, pdf)
         p_light = torch.where(m, p_t, p_light)
 
+    if sc.LIGHT_INFINITE in light_types:
+        # InfiniteAreaLight::Sample_Li (infinite.cpp:126-155).
+        m = (li_t == sc.LIGHT_INFINITE)[:, None]
+        if scene.env_light_idx >= 0:
+            uv, map_pdf = smp.sample_continuous_2d(lt.env_distr, u)
+            theta = uv[:, 1] * math.pi
+            phi = uv[:, 0] * 2.0 * math.pi
+            sin_t = torch.sin(theta)
+            w_light = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                                   torch.cos(theta)], -1)
+            # light to world: the transpose of the world-to-light rotation
+            wi_m = w_light @ lt.env_w2l[:3, :3]
+            pdf_m = torch.where(
+                sin_t == 0.0, 0.0,
+                map_pdf / torch.clamp(2.0 * math.pi * math.pi * sin_t, min=1e-12))
+            li_m = _env_lookup(lt, uv)
+        else:
+            wi_m = smp.uniform_sample_sphere(u)
+            pdf_m = torch.full((n,), smp.uniform_sphere_pdf(),
+                               device=ref_p.device)
+            li_m = L
+        wi = torch.where(m, wi_m, wi)
+        li = torch.where(m, li_m, li)
+        pdf = torch.where(m[:, 0], pdf_m, pdf)
+        p_light = torch.where(m, ref_p + wi_m * (2.0 * lt.world_radius), p_light)
+
     return {"wi": wi, "li": li, "pdf": pdf, "p_light": p_light,
             "is_delta": is_delta}
+
+
+def _env_lookup(lt, uv):
+    """Bilinear equirect map lookup at (u, v) in [0, 1)^2, u wrapping and v
+    clamped."""
+    env = lt.env_map
+    h, w = env.shape[0], env.shape[1]
+    x = uv[:, 0] * w - 0.5
+    y = uv[:, 1] * h - 0.5
+    xf = torch.floor(x)
+    yf = torch.floor(y)
+    fx = (x - xf)[:, None]
+    fy = (y - yf)[:, None]
+    x0 = xf.to(torch.int64)
+    y0 = yf.to(torch.int64)
+
+    def at(xi, yi):
+        return env[torch.clamp(yi, 0, h - 1), torch.remainder(xi, w)]
+
+    return ((1 - fx) * ((1 - fy) * at(x0, y0) + fy * at(x0, y0 + 1))
+            + fx * ((1 - fy) * at(x0 + 1, y0) + fy * at(x0 + 1, y0 + 1)))
+
+
+def _env_dir_to_uv(lt, wi):
+    """World direction to equirect (u, v) in light space, and theta."""
+    w_l = normalize(wi @ lt.env_w2l[:3, :3].T)
+    theta = torch.arccos(torch.clamp(w_l[:, 2], -1.0, 1.0))
+    phi = torch.atan2(w_l[:, 1], w_l[:, 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+    return torch.stack([phi / (2.0 * math.pi), theta / math.pi], -1), theta
 
 
 def pdf_li(scene, light_idx, ref_p, wi, light_types):
@@ -130,6 +188,18 @@ def pdf_li(scene, light_idx, ref_p, wi, light_types):
     li_t = lt.light_type[light_idx]
     n = ref_p.shape[0]
     pdf = torch.zeros(n, dtype=torch.float32, device=ref_p.device)
+    if sc.LIGHT_INFINITE in light_types:
+        # InfiniteAreaLight::Pdf_Li (infinite.cpp:157-168)
+        if scene.env_light_idx >= 0:
+            uv, theta = _env_dir_to_uv(lt, wi)
+            sin_t = torch.sin(theta)
+            pdf_m = torch.where(
+                sin_t == 0.0, 0.0,
+                smp.pdf_2d(lt.env_distr, uv)
+                / torch.clamp(2.0 * math.pi ** 2 * sin_t, min=1e-12))
+        else:
+            pdf_m = smp.uniform_sphere_pdf()
+        pdf = torch.where(li_t == sc.LIGHT_INFINITE, pdf_m, pdf)
     if sc.LIGHT_AREA not in light_types:
         return pdf
     m_area = li_t == sc.LIGHT_AREA
@@ -185,6 +255,17 @@ def area_light_emission(scene, arealight_idx, ng, wo):
 
 
 def escaped_radiance(scene, d, light_types):
-    """Radiance of escaped rays: infinite lights only, which this port does
-    not have (the scene refuses them), so zero."""
-    return torch.zeros_like(d)
+    """The infinite lights' Le along escaped rays (InfiniteAreaLight::Le,
+    infinite.cpp:37-45): the constant ones' L summed, plus the map's
+    lookup."""
+    out = torch.zeros_like(d)
+    if sc.LIGHT_INFINITE not in light_types:
+        return out
+    lt = scene.lights
+    rows = torch.arange(lt.light_type.shape[0], device=d.device)
+    is_const = (lt.light_type == sc.LIGHT_INFINITE) & (rows != scene.env_light_idx)
+    out = out + torch.where(is_const[:, None], lt.L, 0.0).sum(0)
+    if scene.env_light_idx >= 0:
+        uv, _ = _env_dir_to_uv(lt, normalize(d))
+        out = out + _env_lookup(lt, uv)
+    return out

@@ -28,6 +28,7 @@ from ..cameras import generate_rays
 from ..integrators import path as ip
 from ..lights import lightdistrib as ldist
 from ..samplers import samplers as sa
+from .. import scene as sc
 from ..scene import resolve_device
 from ..utils import stats as st
 
@@ -65,7 +66,9 @@ def extract_params(scene, camera, names=DEFAULT_PARAMS):
 
 def apply_params(scene, camera, params):
     """(scene, camera) with the parameters put in; every other field, the
-    spatial light distribution's tables among them, is kept."""
+    spatial light distribution's tables among them, is kept.  A tensor
+    lens_radius also sets the camera's host_lens_radius, so ray generation
+    takes the thin-lens branch exactly when the new radius is positive."""
     mat_updates = {k: v for k, v in params.items() if k in MATERIAL_PARAMS}
     if mat_updates:
         scene = dataclasses.replace(
@@ -74,8 +77,27 @@ def apply_params(scene, camera, params):
         scene = dataclasses.replace(
             scene, lights=dataclasses.replace(scene.lights, L=params["light_L"]))
     if "camera" in params:
-        camera = dataclasses.replace(camera, **params["camera"])
+        cam = dict(params["camera"])
+        lens = cam.get("lens_radius")
+        if isinstance(lens, torch.Tensor):
+            # The thin-lens branch follows the value put in, read once here
+            # (the JAX package decides from the value on each call).
+            cam["host_lens_radius"] = float(lens.detach())
+        camera = dataclasses.replace(camera, **cam)
     return scene, camera
+
+
+def _refuse_unchecked(scene):
+    """Gradients through textures, glass and the infinite light are not held
+    against the JAX package; a step on such a scene raises instead of
+    returning an unchecked gradient."""
+    lacks = [what for what, present in (
+        ("textures", scene.has_textures),
+        ("glass", sc.MAT_GLASS in scene.mat_types),
+        ("infinite lights", sc.LIGHT_INFINITE in scene.light_types)) if present]
+    if lacks:
+        raise NotImplementedError(
+            f"gradients through {', '.join(lacks)} are not ported")
 
 
 def render_batch_radiance(scene, camera, pixels, sample_num: int, sampler_cfg,
@@ -84,7 +106,8 @@ def render_batch_radiance(scene, camera, pixels, sample_num: int, sampler_cfg,
     non-finite L zeroed (diff.py:91-92).  counters: a stats vector
     (utils/stats.py) to bump, or None."""
     n = pixels.shape[0]
-    state = ip.batch_sampler_state(sampler_cfg, pixels, sample_num, path_cfg)
+    state = ip.batch_sampler_state(sampler_cfg, pixels, sample_num,
+                                   ip.n_path_dims(path_cfg))
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
     o, d, _, _ = generate_rays(camera, p_film, p_lens, time_u)
     if counters is None:
@@ -112,6 +135,7 @@ def render_grad_step(scene, camera, pixels, sample_num: int, grad_weights,
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, the step asked for "
                          f"{device}")
+    _refuse_unchecked(scene)
     if path_cfg.light_strategy == "spatial":
         scene = ldist.ensure_spatial_light_distribution(scene)
     camera = camera.to(device)

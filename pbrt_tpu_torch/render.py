@@ -2,9 +2,10 @@
 
 Port of pbrt_tpu/render.py (pbrt-v3 pbrtWorldEnd, api.cpp:1590-1649, and
 RenderOptions::MakeIntegrator, api.cpp:1662-1697) for ``Integrator "path"``
-on the lockstep engine.  Every other integrator, and PBRT_TPU_ENGINE other
-than "lockstep", raises NotImplementedError.  Runs on the card unless the
-caller passes device="cpu".
+on the lockstep engine and ``Integrator "directlighting"``.  Every other
+integrator, and PBRT_TPU_ENGINE other than "lockstep", raises
+NotImplementedError.  Runs on the card unless the caller passes
+device="cpu".
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ log = logging.getLogger("pbrt_tpu_torch")
 
 def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
                  crop=None, device="cuda", timer=None):
-    """Build the scene and run the path integrator.  Returns (img, stats).
+    """Build the scene and run its integrator.  Returns (img, stats).
 
     stats: wall_s (light distribution and render, to the image on the
     host), camera_rays, spp, resolution, counters (numpy), report (pbrt's
@@ -31,15 +32,18 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     construction, light distribution, rendering, and parsing when
     render_file parsed), render_cpu_s (this process's CPU seconds over the
     rendering phase) and profile (pbrt's Profile block)."""
+    from .integrators import direct as dl
     from .integrators import path as pt
     from .utils import stats as st
     from .utils.profiling import Timer
     from .utils.progress import ProgressReporter
 
     device = resolve_device(device)
-    if setup.integrator_name != "path":
+    renderers = {"path": pt.render, "directlighting": dl.render}
+    if setup.integrator_name not in renderers:
         raise NotImplementedError(
-            f"integrator {setup.integrator_name!r}: the port has 'path' only")
+            f"integrator {setup.integrator_name!r}: the port has "
+            f"{sorted(renderers)}")
     engine = os.environ.get("PBRT_TPU_ENGINE", "lockstep")
     if engine != "lockstep":
         raise NotImplementedError(
@@ -66,7 +70,7 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     cfg = setup.make_integrator_config()
 
     t0 = time.perf_counter()
-    if cfg.light_strategy == "spatial":
+    if getattr(cfg, "light_strategy", None) == "spatial":
         from .lights.lightdistrib import ensure_spatial_light_distribution
 
         with timer("Light distribution"):
@@ -77,9 +81,9 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     prog = ProgressReporter(sampler_cfg.spp, "Rendering")
     c0 = time.process_time()
     with timer("Rendering"):
-        img, counters = pt.render(scene, camera, film_cfg, sampler_cfg, cfg,
-                                  filt, stats_out=True, progress=prog,
-                                  device=device)
+        img, counters = renderers[setup.integrator_name](
+            scene, camera, film_cfg, sampler_cfg, cfg, filt, stats_out=True,
+            progress=prog, device=device)
         img = img.cpu().numpy()
     render_cpu_s = time.process_time() - c0
     prog.finish()

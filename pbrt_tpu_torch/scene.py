@@ -2,11 +2,15 @@
 SceneBuilder that assembles it.
 
 Port of pbrt_tpu/scene.py (SceneBuilder, SceneArrays, statics.py) for the
-shapes, materials and lights of the path integrator's main path:
+shapes, materials, lights and textures of the path and direct-lighting
+integrators:
 
 * shapes: triangle meshes and spheres;
-* materials: matte, plastic, mirror;
-* lights: point lights, and diffuse area lights on spheres and triangles.
+* materials: matte, plastic, mirror, glass (smooth and rough), with Kd, Ks,
+  sigma and roughness bound to textures (textures/textures.py);
+* lights: point lights, diffuse area lights on spheres and triangles, and
+  infinite lights, constant or with an equirect map importance-sampled by a
+  Distribution2D (one map a scene; the first wins, as in the JAX package).
 
 Anything else raises NotImplementedError.  The builder computes its numpy
 arrays exactly as the JAX builder does (``build_numpy``), and
@@ -30,32 +34,39 @@ from .accel.build import build_bvh
 from .core import sampling as smp
 from .core import transform as tf
 from .ops.bvh import build_bvh2_table, build_bvh4_table, build_prim_records
+from .textures.textures import HostTextureTable, TextureTable, texture_meta
 
 SHAPE_TRIANGLE = 0
 SHAPE_SPHERE = 1
 
 LIGHT_POINT = 0
 LIGHT_AREA = 3
+LIGHT_INFINITE = 4
 
 MAT_MATTE = 0
 MAT_PLASTIC = 1
 MAT_MIRROR = 2
+MAT_GLASS = 3
 
 SUPPORTED_MATERIALS = {MAT_MATTE: "matte", MAT_PLASTIC: "plastic",
-                       MAT_MIRROR: "mirror"}
-SUPPORTED_LIGHTS = {LIGHT_POINT: "point", LIGHT_AREA: "diffuse area"}
+                       MAT_MIRROR: "mirror", MAT_GLASS: "glass"}
+SUPPORTED_LIGHTS = {LIGHT_POINT: "point", LIGHT_AREA: "diffuse area",
+                    LIGHT_INFINITE: "infinite"}
 SUPPORTED_SHAPES = {SHAPE_TRIANGLE: "triangle", SHAPE_SPHERE: "sphere"}
 
-MATERIAL_FIELDS = ("mat_type", "kd", "ks", "kr", "sigma", "roughness",
-                   "urough", "vrough", "eta", "remap_roughness")
+# texture-bound material columns the port evaluates; the JAX package's
+# bump_tex and opacity_tex (uber) have no material here and are refused
+TEXTURE_COLUMNS = ("kd_tex", "ks_tex", "sigma_tex", "rough_tex")
+MATERIAL_FIELDS = ("mat_type", "kd", "ks", "kr", "kt", "sigma", "roughness",
+                   "urough", "vrough", "eta", "remap_roughness") + TEXTURE_COLUMNS
 LIGHT_FIELDS = ("light_type", "L", "pos", "shape_type", "shape_idx",
-                "two_sided")
+                "two_sided", "n_samples", "world_radius", "world_center")
+ENV_FIELDS = ("env_map", "env_w2l")
 SCENE_FIELDS = ("bvh_min", "bvh_max", "bvh_offset", "bvh_nprims", "bvh_axis",
                 "prim_meta", "tri_indices", "tri_p", "tri_attr", "tri_verts",
                 "q_type", "q_w2o", "q_o2w", "q_params", "q_rev", "q_packed",
                 "q_prim_id")
-_TEXTURE_COLUMNS = ("kd_tex", "ks_tex", "sigma_tex", "rough_tex", "bump_tex",
-                    "opacity_tex")
+_REFUSED_TEXTURE_COLUMNS = ("bump_tex", "opacity_tex")
 
 
 def resolve_device(device) -> torch.device:
@@ -81,22 +92,37 @@ class MaterialTable:
     kd: torch.Tensor  # [M, 3]
     ks: torch.Tensor  # [M, 3]
     kr: torch.Tensor  # [M, 3]
+    kt: torch.Tensor  # [M, 3] glass transmission
     sigma: torch.Tensor  # [M] Oren-Nayar sigma, degrees
     roughness: torch.Tensor  # [M]
     urough: torch.Tensor  # [M]
     vrough: torch.Tensor  # [M]
     eta: torch.Tensor  # [M]
     remap_roughness: torch.Tensor  # [M] bool
+    # texture ids (-1: the constant column holds the value)
+    kd_tex: torch.Tensor  # [M] i32
+    ks_tex: torch.Tensor
+    sigma_tex: torch.Tensor
+    rough_tex: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class LightTable:
     light_type: torch.Tensor  # [L] i32
-    L: torch.Tensor  # [L, 3] intensity (point) or emitted radiance (area)
+    L: torch.Tensor  # [L, 3] intensity (point), emitted radiance (area),
+    #   scale (infinite)
     pos: torch.Tensor  # [L, 3]
     shape_type: torch.Tensor  # [L] i32 (area lights)
     shape_idx: torch.Tensor  # [L] i32 into the triangle or quadric table
     two_sided: torch.Tensor  # [L] bool
+    n_samples: torch.Tensor  # [L] i32, the light's "nsamples"
+    world_radius: torch.Tensor  # [] the scene's bounding-sphere radius
+    world_center: torch.Tensor  # [3]
+    # the infinite light's map (lights/infinite.cpp:62-124): a 1x1 black
+    # placeholder when no infinite light has one
+    env_map: torch.Tensor  # [H, W, 3] equirect radiance, L folded in
+    env_w2l: torch.Tensor  # [4, 4] world to light
+    env_distr: smp.Distribution2D  # over luminance * sin(theta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +160,11 @@ class SceneArrays:
     light_types: tuple
     quadric_types: tuple
     quadric_rows: tuple  # ((quadric index, prim row), ...) for the quadric pass
+    env_light_idx: int = -1  # the light row of the env map, -1 none
+    textures: Optional[TextureTable] = None
+    tex_meta: tuple = ()  # per texture row (type, child1, child2, fparams,
+    #   n_levels): evaluate_textures' control flow
+    tex_ids: tuple = ()  # the texture rows materials refer to
     # the spatial light distribution (lights/lightdistrib.py), filled by
     # ensure_spatial_light_distribution when a render uses "spatial"
     spatial_grid_res: Optional[torch.Tensor] = None  # [3] i64
@@ -146,6 +177,10 @@ class SceneArrays:
     def device(self) -> torch.device:
         return self.prim_meta.device
 
+    @property
+    def has_textures(self) -> bool:
+        return len(self.tex_ids) > 0
+
     @staticmethod
     def from_numpy(fields: dict, device) -> "SceneArrays":
         """Tensors on `device` from numpy arrays named as the JAX package's
@@ -154,9 +189,13 @@ class SceneArrays:
         device = resolve_device(device)
         mats = fields["materials"]
         lights = fields["lights"]
-        for col in _TEXTURE_COLUMNS:
+        for col in _REFUSED_TEXTURE_COLUMNS:
             if col in mats and (np.asarray(mats[col]) >= 0).any():
-                raise NotImplementedError("textured material parameters")
+                raise NotImplementedError(f"material column {col}: bump "
+                                          "mapping and uber opacity")
+        tex_ids = tuple(sorted({int(i) for col in TEXTURE_COLUMNS
+                                for i in np.asarray(mats[col]) if i >= 0}))
+        tex = fields.get("textures")
         prim_meta = np.asarray(fields["prim_meta"])
         mat_types = tuple(sorted(set(np.asarray(mats["mat_type"]).tolist())))
         light_types = tuple(sorted(set(np.asarray(lights["light_type"]).tolist())))
@@ -188,9 +227,14 @@ class SceneArrays:
             bvh2_nodes=torch.as_tensor(rows2, device=device),
             prim_tris=torch.as_tensor(recs, device=device),
             materials=_tensors(MaterialTable, mats, device),
-            lights=_tensors(LightTable, lights, device),
+            lights=_light_table(lights, device),
             light_distr=smp.distribution_from_numpy(fields["light_distr"],
                                                     device),
+            env_light_idx=int(np.asarray(lights["env_light_idx"])),
+            textures=(None if tex is None or not tex_ids
+                      else TextureTable.from_numpy(tex, device)),
+            tex_meta=() if tex is None or not tex_ids else texture_meta(tex),
+            tex_ids=tex_ids,
             bvh4_depth=depth,
             bvh2_depth=depth2,
             mat_types=mat_types,
@@ -199,6 +243,13 @@ class SceneArrays:
             quadric_rows=tuple((int(qi), int(r)) for qi, r in enumerate(q_prim)
                                if r >= 0),
         )
+
+
+def _light_table(lights: dict, device) -> LightTable:
+    cols = {k: torch.as_tensor(np.asarray(lights[k]), device=device)
+            for k in LIGHT_FIELDS + ENV_FIELDS}
+    return LightTable(**cols, env_distr=smp.distribution_2d_from_numpy(
+        lights["env_distr"], device))
 
 
 def _refuse(present, supported: dict, what: str):
@@ -239,17 +290,18 @@ class SceneBuilder:
         self.materials: list[dict] = []
         self.lights: list[dict] = []
         self.light_strategy = "uniform"  # "uniform" | "power"
+        self.textures = HostTextureTable()
 
     # -- materials --
     def add_material(self, mat_type: int = MAT_MATTE, **params) -> int:
+        """params as the JAX builder's: kd, ks, kr, kt, sigma, roughness,
+        urough, vrough, eta, remap_roughness, and the texture ids kd_tex,
+        ks_tex, sigma_tex, roughness_tex (rows of self.textures)."""
         _refuse((mat_type,), SUPPORTED_MATERIALS, "material type")
-        unknown = set(params) - {"kd", "ks", "kr", "sigma", "roughness",
-                                 "urough", "vrough", "eta", "remap_roughness"}
+        m = _default_material()
+        unknown = set(params) - set(m)
         if unknown:
             raise NotImplementedError(f"material parameters {sorted(unknown)}")
-        m = dict(kd=(0.5, 0.5, 0.5), ks=(0.25, 0.25, 0.25), kr=(0.9, 0.9, 0.9),
-                 sigma=0.0, roughness=0.1, urough=-1.0, vrough=-1.0, eta=1.5,
-                 remap_roughness=True)
         m.update(params)
         m["mat_type"] = mat_type
         self.materials.append(m)
@@ -312,18 +364,31 @@ class SceneBuilder:
             pos=light_to_world.apply_point(np.zeros(3)).astype(np.float32)))
         return len(self.lights) - 1
 
+    def add_infinite_light(self, L=(1.0, 1.0, 1.0), image=None,
+                           world_to_light=None) -> int:
+        """InfiniteAreaLight (lights/infinite.cpp): an equirect map (L
+        already folded in, as the scene file's reader does) or a constant
+        L, importance-sampled by luminance."""
+        self.lights.append(dict(
+            light_type=LIGHT_INFINITE, L=np.asarray(L, np.float32),
+            image=None if image is None else np.asarray(image, np.float32),
+            w2l=(np.eye(4, dtype=np.float32) if world_to_light is None
+                 else np.asarray(world_to_light, np.float32))))
+        return len(self.lights) - 1
+
     def add_area_light_handle(self, L, shape_type, shape_idx, two_sided=False,
                               n_samples=1) -> int:
         """One DiffuseAreaLight per shape (lights/diffuse.cpp)."""
         self.lights.append(dict(
             light_type=LIGHT_AREA, L=np.asarray(L, np.float32),
-            shape_type=shape_type, shape_idx=shape_idx, two_sided=two_sided))
+            shape_type=shape_type, shape_idx=shape_idx, two_sided=two_sided,
+            n_samples=n_samples))
         return len(self.lights) - 1
 
     def add_emissive_sphere(self, object_to_world, radius, L, material=-1,
                             two_sided=False, n_samples=1):
         li = self.add_area_light_handle(L, SHAPE_SPHERE, len(self.quadrics),
-                                        two_sided)
+                                        two_sided, n_samples)
         self.add_sphere(object_to_world, radius, material=material,
                         arealight=li)
         return li
@@ -337,7 +402,7 @@ class SceneBuilder:
         first_light = len(self.lights)
         for k in range(indices.shape[0]):
             self.add_area_light_handle(L, SHAPE_TRIANGLE, first_tri + k,
-                                       two_sided)
+                                       two_sided, n_samples)
         self.add_triangle_mesh(indices, p, n=n, uv=uv,
                                object_to_world=object_to_world,
                                material=material)
@@ -411,7 +476,7 @@ class SceneBuilder:
         q_prim_id = np.full(max(len(self.quadrics), 1), -1, np.int32)
         quad = prim_meta[:, 0] != SHAPE_TRIANGLE
         q_prim_id[prim_meta[quad, 1]] = np.nonzero(quad)[0]
-        light_table, light_distr = self._build_lights()
+        light_table, light_distr = self._build_lights(bmin, bmax)
         return dict(
             bvh_min=bvh.nodes_min, bvh_max=bvh.nodes_max,
             bvh_offset=bvh.offset, bvh_nprims=bvh.n_prims, bvh_axis=bvh.axis,
@@ -420,20 +485,20 @@ class SceneBuilder:
             q_w2o=q_w2o, q_o2w=q_o2w, q_params=q_params, q_rev=q_rev,
             q_packed=q_packed, q_prim_id=q_prim_id,
             materials=self._build_materials(), lights=light_table,
-            light_distr=light_distr,
+            light_distr=light_distr, textures=self.textures.to_numpy(),
         )
 
     def _build_materials(self) -> dict:
-        mats = self.materials or [dict(
-            mat_type=MAT_MATTE, kd=(0.5, 0.5, 0.5), ks=(0.25,) * 3,
-            kr=(0.9,) * 3, sigma=0.0, roughness=0.1, urough=-1.0,
-            vrough=-1.0, eta=1.5, remap_roughness=True)]
+        mats = self.materials or [dict(_default_material(), mat_type=MAT_MATTE)]
         out = {k: np.asarray([m[k] for m in mats], np.float32)
-               for k in MATERIAL_FIELDS if k not in ("mat_type",
-                                                     "remap_roughness")}
+               for k in ("kd", "ks", "kr", "kt", "sigma", "roughness",
+                         "urough", "vrough", "eta")}
         out["mat_type"] = np.array([m["mat_type"] for m in mats], np.int32)
         out["remap_roughness"] = np.array(
             [bool(m["remap_roughness"]) for m in mats])
+        for col in TEXTURE_COLUMNS:
+            key = "roughness_tex" if col == "rough_tex" else col
+            out[col] = np.array([int(m[key]) for m in mats], np.int32)
         return out
 
     def _light_power(self, li: dict) -> float:
@@ -443,6 +508,8 @@ class SceneBuilder:
         y = float(0.212671 * L[0] + 0.715160 * L[1] + 0.072169 * L[2])
         if li["light_type"] == LIGHT_POINT:
             return 4.0 * np.pi * y
+        if li["light_type"] == LIGHT_INFINITE:
+            return y  # the JAX package's fall-through (scene.py:1216)
         if li["shape_type"] == SHAPE_SPHERE:
             r = float(self.quadrics[li["shape_idx"]][2][0])
             area = 4.0 * np.pi * r * r
@@ -453,7 +520,9 @@ class SceneBuilder:
             area = 0.5 * np.linalg.norm(np.cross(v[1] - v[0], v[2] - v[0]))
         return (2.0 if li.get("two_sided") else 1.0) * y * area * np.pi
 
-    def _build_lights(self):
+    def _build_lights(self, bmin, bmax):
+        center = 0.5 * (bmin.min(0) + bmax.max(0))
+        radius = float(np.linalg.norm(bmax.max(0) - center))
         lights = self.lights or [dict(light_type=LIGHT_POINT,
                                       L=(0.0, 0.0, 0.0), pos=(0, 0, 0))]
 
@@ -467,6 +536,10 @@ class SceneBuilder:
             shape_type=col("shape_type", -1, np.int32),
             shape_idx=col("shape_idx", -1, np.int32),
             two_sided=col("two_sided", False, bool),
+            n_samples=col("n_samples", 1, np.int32),
+            world_radius=np.float32(max(radius, 1e-3)),
+            world_center=center.astype(np.float32),
+            **_env_payload(lights),
         )
         if self.light_strategy == "power" and self.lights:
             powers = np.array([self._light_power(li) for li in lights])
@@ -477,3 +550,35 @@ class SceneBuilder:
         else:
             raise NotImplementedError(f"light strategy {self.light_strategy!r}")
         return table, smp.build_distribution_1d_np(powers)
+
+
+def _default_material() -> dict:
+    """The JAX builder's defaults for the columns the port keeps."""
+    return dict(kd=(0.5, 0.5, 0.5), ks=(0.25, 0.25, 0.25), kr=(0.9, 0.9, 0.9),
+                kt=(1.0, 1.0, 1.0), sigma=0.0, roughness=0.1, urough=-1.0,
+                vrough=-1.0, eta=1.5, remap_roughness=True, kd_tex=-1,
+                ks_tex=-1, sigma_tex=-1, roughness_tex=-1)
+
+
+def _env_payload(lights) -> dict:
+    """The first infinite light with a map (InfiniteAreaLight ctor,
+    infinite.cpp:62-124): the map, its world-to-light matrix and the
+    Distribution2D over luminance * sin(theta) (pbrt_tpu/scene.py:1218-1244);
+    a 1x1 black placeholder without one."""
+    env_idx = -1
+    env_map = np.zeros((1, 1, 3), np.float32)
+    env_w2l = np.eye(4, dtype=np.float32)
+    for i, li in enumerate(lights):
+        if li.get("light_type") == LIGHT_INFINITE and li.get("image") is not None:
+            env_idx = i
+            env_map = np.asarray(li["image"], np.float32)
+            env_w2l = np.asarray(li.get("w2l", np.eye(4)), np.float32)
+            break
+    h = env_map.shape[0]
+    lum = (0.212671 * env_map[..., 0] + 0.715160 * env_map[..., 1]
+           + 0.072169 * env_map[..., 2])
+    sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+    func = np.maximum(lum * sin_theta[:, None], 0.0) + 1e-9
+    return dict(env_map=env_map, env_w2l=env_w2l,
+                env_distr=smp.build_distribution_2d_np(func),
+                env_light_idx=np.int32(env_idx))

@@ -1,20 +1,26 @@
 """Graphics-state machine: .pbrt directives -> SceneBuilder + render config.
 
 Port of pbrt_tpu/sceneio/api.py (pbrt-v3 core/api.cpp) for what the path
-integrator's main path renders:
+and direct-lighting integrators render:
 
 * the options/world phases, the CTM and its stacks, named coordinate
   systems (api.cpp:899-1186);
 * ``Camera "perspective"`` (with ``lensradius``/``focaldistance``), the image
-  film, the box filter, the halton and sobol samplers, ``Integrator "path"``;
-* matte, plastic and mirror materials, named materials and the default
-  matte material;
-* point lights and diffuse area lights on triangle meshes and spheres;
+  film, the box filter, the halton and sobol samplers, ``Integrator
+  "path"`` and ``"directlighting"``;
+* matte, plastic, mirror and glass materials, named materials and the
+  default matte material; matte's and plastic's Kd, Ks, sigma and roughness
+  bind to textures;
+* ``Texture``: constant, scale, mix, checkerboard (2D), uv, bilerp, fbm,
+  wrinkled, windy, marble, dots and imagemap, with uv mapping;
+* point lights, infinite lights (constant or with ``mapname``) and diffuse
+  area lights on triangle meshes and spheres;
 * ``trianglemesh``, ``sphere`` and ``plymesh`` shapes.
 
-Everything else raises NotImplementedError naming what is missing: textures,
-instancing, media, other shapes, lights, materials and kd-trees.  Unlike the
-JAX package, nothing degrades to a stand-in.
+Everything else raises NotImplementedError naming what is missing:
+instancing, media, other shapes, lights, materials, texture classes and
+mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
+stand-in: a missing image file raises.
 
 Output: ``RenderSetup``, everything render.py needs.
 """
@@ -111,9 +117,17 @@ class RenderSetup:
                              self.resolution)
 
     def make_integrator_config(self):
+        """PathConfig for "path", DirectLightingConfig for
+        "directlighting" (maxdepth; strategy, by default "all")."""
         from ..integrators.path import PathConfig
 
         p = self.integrator_params or ParamSet()
+        if self.integrator_name == "directlighting":
+            from ..integrators.direct import DirectLightingConfig
+
+            return DirectLightingConfig(
+                max_depth=p.find_one_int("maxdepth", 5),
+                strategy=p.find_one_string("strategy", "all"))
         return PathConfig(
             max_depth=p.find_one_int("maxdepth", 5),
             rr_threshold=p.find_one_float("rrthreshold", 1.0),
@@ -127,6 +141,8 @@ class _GraphicsState:
     area_light: ParamSet | None = None
     reverse_orientation: bool = False
     named_materials: dict = dataclasses.field(default_factory=dict)
+    float_textures: dict = dataclasses.field(default_factory=dict)
+    spectrum_textures: dict = dataclasses.field(default_factory=dict)
 
 
 class PbrtApi:
@@ -236,11 +252,102 @@ class PbrtApi:
     def reverse_orientation(self):
         self.gs.reverse_orientation = not self.gs.reverse_orientation
 
-    # ---- not ported ----
+    # ---- textures (api.cpp:1058-1093) ----
     def texture(self, name, ttype, tclass, params):
-        raise NotImplementedError(f'Texture "{name}" ({tclass}): textures are '
-                                  "not ported")
+        """The texture row is made at declaration, so children precede
+        their parents in the table."""
+        tid = self._make_texture(tclass, ParamSet.from_decls(params))
+        if ttype == "float":
+            self.gs.float_textures[name] = tid
+        else:
+            self.gs.spectrum_textures[name] = tid
 
+    def _texture_id(self, tname, float_first=False):
+        tables = (self.gs.float_textures, self.gs.spectrum_textures)
+        for table in (tables if float_first else tables[::-1]):
+            if tname in table:
+                return table[tname]
+        raise ValueError(f"texture {tname!r} was never declared")
+
+    def _tex_child(self, ps: ParamSet, pname, default):
+        """A texture-or-constant parameter as (child id, constant rgb)."""
+        tname = ps.find_texture(pname)
+        if tname is not None:
+            return self._texture_id(tname), np.zeros(3, np.float32)
+        return -1, ps.find_one_spectrum(pname, default)
+
+    def _make_texture(self, tclass, ps: ParamSet) -> int:
+        from ..textures import textures as tx
+        from ..utils.imageio import read_image
+
+        tt = self.setup.scene_builder.textures
+        mapping = ps.find_one_string("mapping", "uv")
+        if mapping != "uv":
+            raise NotImplementedError(
+                f'texture mapping {mapping!r}: the port has "uv"')
+        if ps.find_one_int("dimension", 2) != 2:
+            raise NotImplementedError("3D checkerboards are not ported")
+        map2d = (ps.find_one_float("uscale", 1.0),
+                 ps.find_one_float("vscale", 1.0),
+                 ps.find_one_float("udelta", 0.0),
+                 ps.find_one_float("vdelta", 0.0))
+        w2t = self.ctm.m_inv  # world to texture space (TextureMapping3D)
+        if tclass == "constant":
+            return tt.add(tx.TEX_CONSTANT, c1=ps.find_one_spectrum("value", 1.0))
+        if tclass in ("scale", "mix", "checkerboard"):
+            ttype = {"scale": tx.TEX_SCALE, "mix": tx.TEX_MIX,
+                     "checkerboard": tx.TEX_CHECKER}[tclass]
+            defaults = {"scale": (1.0, 1.0), "mix": (0.0, 1.0),
+                        "checkerboard": (1.0, 0.0)}[tclass]
+            c1id, c1 = self._tex_child(ps, "tex1", defaults[0])
+            c2id, c2 = self._tex_child(ps, "tex2", defaults[1])
+            kw = dict(c1=c1, c2=c2, child1=c1id, child2=c2id)
+            if tclass == "mix":
+                kw["fparams"] = (ps.find_one_float("amount", 0.5), 0, 0, 0)
+            if tclass == "checkerboard":
+                kw.update(map2d=map2d, w2t=w2t)
+            return tt.add(ttype, **kw)
+        if tclass == "uv":
+            return tt.add(tx.TEX_UV, map2d=map2d)
+        if tclass in ("fbm", "wrinkled"):
+            return tt.add(tx.TEX_FBM if tclass == "fbm" else tx.TEX_WRINKLED,
+                          fparams=(ps.find_one_int("octaves", 8),
+                                   ps.find_one_float("roughness", 0.5), 0, 0),
+                          w2t=w2t)
+        if tclass == "windy":
+            return tt.add(tx.TEX_WINDY, w2t=w2t)
+        if tclass == "marble":
+            return tt.add(tx.TEX_MARBLE, w2t=w2t, fparams=(
+                ps.find_one_int("octaves", 8), ps.find_one_float("roughness", 0.5),
+                ps.find_one_float("scale", 1.0),
+                ps.find_one_float("variation", 0.2)))
+        if tclass == "dots":
+            c1id, c1 = self._tex_child(ps, "inside", 1.0)
+            c2id, c2 = self._tex_child(ps, "outside", 0.0)
+            return tt.add(tx.TEX_DOTS, c1=c1, c2=c2, child1=c1id, child2=c2id,
+                          map2d=map2d)
+        if tclass == "bilerp":
+            return tt.add(tx.TEX_BILERP, c1=ps.find_one_spectrum("v00", 0.0),
+                          c2=ps.find_one_spectrum("v11", 1.0), map2d=map2d)
+        if tclass == "imagemap":
+            fname = ps.find_one_string("filename", "")
+            if not fname:
+                raise ValueError('imagemap texture without "filename"')
+            scale = ps.find_one_float("scale", 1.0)
+            wrap_s = ps.find_one_string("wrap", "repeat")
+            wraps = {"repeat": tx.WRAP_REPEAT, "black": tx.WRAP_BLACK,
+                     "clamp": tx.WRAP_CLAMP}
+            if wrap_s not in wraps:
+                raise NotImplementedError(f"imagemap wrap {wrap_s!r}")
+            return tt.add(
+                tx.TEX_IMAGEMAP, c1=(scale, scale, scale), map2d=map2d,
+                image=read_image(self._path(fname)),
+                fparams=(1.0 if ps.find_one_bool("trilinear", False) else 0.0,
+                         ps.find_one_float("maxanisotropy", 8.0),
+                         float(wraps[wrap_s]), 0.0))
+        raise NotImplementedError(f"texture class {tclass!r}")
+
+    # ---- not ported ----
     def object_begin(self, name, params=None):
         raise NotImplementedError("ObjectBegin/ObjectInstance: instancing is "
                                   "not ported")
@@ -270,13 +377,17 @@ class PbrtApi:
             raise ValueError(f"NamedMaterial {name!r} was never made")
         self.gs.material = self.gs.named_materials[name]
 
-    @staticmethod
-    def _constant(ps, pname, default, spectrum=True):
-        if ps.find_texture(pname) is not None:
-            raise NotImplementedError(f'textures: "texture {pname}" is not ported')
-        if spectrum:
-            return ps.find_one_spectrum(pname, default)
-        return ps.find_one_float(pname, default)
+    def _bind(self, ps, kw, pname, key, default, spectrum=True):
+        """A material parameter bound to a texture (kw[key + "_tex"], the
+        constant zeroed) or given as a constant (api.py:435-454)."""
+        tname = ps.find_texture(pname)
+        if tname is not None:
+            kw[key + "_tex"] = self._texture_id(tname, float_first=not spectrum)
+            kw[key] = (0.0, 0.0, 0.0) if spectrum else 0.0
+        elif spectrum:
+            kw[key] = ps.find_one_spectrum(pname, default)
+        else:
+            kw[key] = ps.find_one_float(pname, default)
 
     def _make_material(self, name, ps: ParamSet) -> int:
         if name in ("", "none"):
@@ -284,33 +395,51 @@ class PbrtApi:
         kw = {}
         if name == "matte":
             mt = sc.MAT_MATTE
-            kw["kd"] = self._constant(ps, "Kd", 0.5)
-            kw["sigma"] = self._constant(ps, "sigma", 0.0, spectrum=False)
+            self._bind(ps, kw, "Kd", "kd", 0.5)
+            self._bind(ps, kw, "sigma", "sigma", 0.0, spectrum=False)
         elif name == "plastic":
             mt = sc.MAT_PLASTIC
-            kw["kd"] = self._constant(ps, "Kd", 0.25)
-            kw["ks"] = self._constant(ps, "Ks", 0.25)
-            kw["roughness"] = self._constant(ps, "roughness", 0.1, spectrum=False)
+            self._bind(ps, kw, "Kd", "kd", 0.25)
+            self._bind(ps, kw, "Ks", "ks", 0.25)
+            self._bind(ps, kw, "roughness", "roughness", 0.1, spectrum=False)
             kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
         elif name == "mirror":
             mt = sc.MAT_MIRROR
-            kw["kr"] = self._constant(ps, "Kr", 0.9)
+            kw["kr"] = ps.find_one_spectrum("Kr", 0.9)
+        elif name == "glass":
+            # the JAX package reads uroughness alone (api.py:479-484)
+            mt = sc.MAT_GLASS
+            kw["kr"] = ps.find_one_spectrum("Kr", 1.0)
+            kw["kt"] = ps.find_one_spectrum("Kt", 1.0)
+            kw["eta"] = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
+            kw["roughness"] = ps.find_one_float("uroughness", 0.0)
         else:
             raise NotImplementedError(
-                f"material {name!r}: the port has matte, plastic and mirror")
+                f"material {name!r}: the port has matte, plastic, mirror and "
+                "glass")
         return self.setup.scene_builder.add_material(mt, **kw)
 
     # ---- lights ----
     def light_source(self, name, params):
-        if name != "point":
-            raise NotImplementedError(
-                f"light {name!r}: the port has point and diffuse area lights")
         ps = ParamSet.from_decls(params)
-        i = (np.asarray(ps.find_one_spectrum("I", 1.0))
-             * np.asarray(ps.find_one_spectrum("scale", 1.0)))
-        from_p = ps.find_one_point("from", (0, 0, 0))
-        self.setup.scene_builder.add_point_light(
-            self.ctm @ tf.translate(*from_p), i)
+        b = self.setup.scene_builder
+        if name == "point":
+            i = (np.asarray(ps.find_one_spectrum("I", 1.0))
+                 * np.asarray(ps.find_one_spectrum("scale", 1.0)))
+            from_p = ps.find_one_point("from", (0, 0, 0))
+            b.add_point_light(self.ctm @ tf.translate(*from_p), i)
+        elif name == "infinite":
+            from ..utils.imageio import read_image
+
+            L = (np.asarray(ps.find_one_spectrum("L", 1.0))
+                 * np.asarray(ps.find_one_spectrum("scale", 1.0)))
+            mapname = ps.find_one_string("mapname", "")
+            img = read_image(self._path(mapname)) * L if mapname else None
+            b.add_infinite_light(L=L, image=img, world_to_light=self.ctm.m_inv)
+        else:
+            raise NotImplementedError(
+                f"light {name!r}: the port has point, infinite and diffuse "
+                "area lights")
         ps.report_unused(f"LightSource {name}")
 
     def area_light_source(self, name, params):

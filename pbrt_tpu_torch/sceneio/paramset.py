@@ -91,7 +91,7 @@ class ParamSet:
         ptype, vals = v
         if ptype == "texture":
             raise NotImplementedError(
-                f'textures: "texture {name}" is not ported')
+                f'"texture {name}": this parameter takes a constant in the port')
         if ptype not in _RGB_TYPES:
             raise NotImplementedError(
                 f'"{ptype} {name}": the port takes spectra as rgb or color')

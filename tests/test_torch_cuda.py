@@ -4,8 +4,10 @@ batches, and a tree at each kernel's stack cap; one deeper refused) and
 against each other, the layout probe's Triton chain against its plain form
 B (at its size and at a ragged one), the launch counts, a render on the
 card against one on the CPU, the CLI on the card against a pbrt-v3
-golden, and a differentiable render step on the card against one on the
-CPU and under each BVH kernel.
+golden, a differentiable render step on the card against one on the
+CPU and under each BVH kernel, and the config-3 file (textures, glass, the
+infinite light) and the direct-lighting integrator on the card against the
+CPU and under each BVH kernel, with their launch counts.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -24,13 +26,14 @@ from pbrt_tpu_torch import cameras
 from pbrt_tpu_torch import scene as sc
 from pbrt_tpu_torch.core import transform as tf
 from pbrt_tpu_torch.film import FilmConfig
-from pbrt_tpu_torch.integrators import path
+from pbrt_tpu_torch.integrators import direct, path
 from pbrt_tpu_torch.ops import bvh as kb
 from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_trees import caterpillar_rays, caterpillar_tree
+from chip_smoke import bvh_switch, write_config3_pbrt
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -344,3 +347,83 @@ def test_grad_step_bvh2_matches_bvh4(monkeypatch):
     g4, _ = launched_step(monkeypatch, "1", True)
     g2, _ = launched_step(monkeypatch, "0", True)
     assert_leaves_close(g2, g4, 1e-4)
+
+
+def assert_image_bars(got, ref):
+    """tests/test_torch_path.py:58-59's bars."""
+    rel = (got - ref).abs() / ref.abs().clamp(min=1e-2)
+    assert (rel <= 1e-3).all(-1).float().mean() >= 0.995
+    assert abs(float(got.mean()) - float(ref.mean())) <= 5e-3 * float(ref.mean())
+
+
+def config3_render(tmp_path, device, switch="1"):
+    """The small config-3 file (tests/test_torch_config3.py's) rendered on
+    `device` under PBRT_TPU_BVH4=switch: (image, bvh4 and bvh2 launches)."""
+    from pbrt_tpu_torch.render import render_file
+
+    p = write_config3_pbrt(tmp_path, res=(32, 32), spp=2, blob=(64, 32),
+                           skin=(64, 64), env=(32, 16))
+    kb.bvh4_traverse.launches = kb.bvh2_traverse.launches = 0
+    with bvh_switch(switch):
+        img, _ = render_file(str(p), out=str(tmp_path / f"{device}.pfm"),
+                             device=device)
+    return (torch.as_tensor(img),
+            (kb.bvh4_traverse.launches, kb.bvh2_traverse.launches))
+
+
+def test_config3_on_card_matches_cpu_and_bvh2(tmp_path):
+    card, n4 = config3_render(tmp_path, "cuda")
+    assert n4 == (2 * (1 + 5), 0)
+    cpu, _ = config3_render(tmp_path, "cpu")
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_image_bars(card, cpu)
+    card2, n2 = config3_render(tmp_path, "cuda", "0")
+    assert n2 == (0, 2 * (1 + 5))
+    assert_image_bars(card2, card)
+    assert torch.equal(config3_render(tmp_path, "cuda")[0], card)
+
+
+def two_lights():
+    """A matte floor, a glass sphere, and two area lights of nsamples 1 and
+    2 (tests/test_torch_direct.py's scene)."""
+    b = sc.SceneBuilder()
+    matte = b.add_material(sc.MAT_MATTE, kd=(0.5, 0.6, 0.7))
+    glass = b.add_material(sc.MAT_GLASS, eta=1.5, roughness=0.0)
+    b.add_triangle_mesh([[0, 1, 2], [2, 3, 0]],
+                        [[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]],
+                        material=matte)
+    b.add_sphere(tf.translate(1.3, -0.5, 0.8), 0.8, material=glass)
+    b.add_emissive_sphere(tf.translate(0, 4, 6), 0.6, L=(30.0, 30.0, 30.0),
+                          material=matte, n_samples=1)
+    b.add_emissive_sphere(tf.translate(-4, -2, 3), 0.3, L=(60.0, 40.0, 20.0),
+                          material=matte, n_samples=2)
+    return b
+
+
+def direct_render(device, strategy, switch="1"):
+    res = (32, 32)
+    scene = sc.SceneArrays.from_numpy(two_lights().build_numpy(), device)
+    cam = cameras.make_perspective_camera(
+        tf.look_at([0, -7, 4], [0, 0, 1], [0, 0, 1]), res, fov_deg=45.0)
+    kb.bvh4_traverse.launches = kb.bvh2_traverse.launches = 0
+    with bvh_switch(switch):
+        img = direct.render(scene, cam, FilmConfig(full_resolution=res),
+                            SamplerConfig("halton", 2, res),
+                            direct.DirectLightingConfig(3, strategy),
+                            device=device)
+    return img.cpu(), (kb.bvh4_traverse.launches, kb.bvh2_traverse.launches)
+
+
+@pytest.mark.parametrize("strategy", ["one", "all"])
+def test_direct_on_card_matches_cpu_and_bvh2(strategy):
+    """Launches a sample at depth 3: 4 closest-hit, then NEE: one a vertex
+    for "one"; for "all" 1 + 2 at the first vertex, 2 at each later one."""
+    card, n4 = direct_render("cuda", strategy)
+    per_spp = 4 + (3 if strategy == "one" else 3 + 2 + 2)
+    assert n4 == (2 * per_spp, 0)
+    cpu, _ = direct_render("cpu", strategy)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_image_bars(card, cpu)
+    card2, n2 = direct_render("cuda", strategy, "0")
+    assert n2 == (0, 2 * per_spp)
+    assert_image_bars(card2, card)

@@ -310,3 +310,64 @@ def test_far_hit_point_keeps_camera_gradients_finite():
                                  tpath.PathConfig(max_depth=5), device="cpu")
     for leaf in [g[k] for k in LEAVES] + list(g["camera"].values()):
         assert torch.isfinite(leaf).all()
+
+
+def test_apply_params_lens_radius_sets_the_thin_lens_branch():
+    """A lens radius put in by apply_params takes effect: a pinhole camera
+    (identity pose, 8x8, fov 60) given lens_radius 0.5 and focal_distance
+    2.0 as tensors generates the JAX package's thin-lens rays (origins
+    (0.283, -0.283, 0) and (-0.260, 0.150, 0)), at the camera tests'
+    tolerance (rtol = atol = 1e-6)."""
+    from pbrt_tpu.cameras import cameras as jcam
+    from pbrt_tpu.core import transform as jtf
+    from pbrt_tpu_torch.cameras import generate_rays
+
+    res = (8, 8)
+    jc = jcam.make_perspective_camera(jtf.identity(), res, fov_deg=60.0)
+    jc = dataclasses.replace(jc, lens_radius=jnp.float32(0.5),
+                             focal_distance=jnp.float32(2.0))
+    tc = make_perspective_camera(ttf.identity(), res, fov_deg=60.0)
+    _, tc = diff.apply_params(None, tc, {"camera": {
+        "lens_radius": torch.tensor(0.5), "focal_distance": torch.tensor(2.0)}})
+    assert tc.host_lens_radius == 0.5
+    p_film = np.array([[1.0, 2.0], [5.0, 6.0]], np.float32)
+    p_lens = np.array([[0.9, 0.1], [0.2, 0.7]], np.float32)
+    time_u = np.zeros(2, np.float32)
+    ref = jcam.generate_rays(jc, jnp.asarray(p_film), jnp.asarray(p_lens),
+                             jnp.asarray(time_u))
+    got = generate_rays(tc, torch.as_tensor(p_film), torch.as_tensor(p_lens),
+                        torch.as_tensor(time_u))
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(np.asarray(a), b.detach().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[0].detach().numpy(),
+                               [[0.283, -0.283, 0.0], [-0.260, 0.150, 0.0]],
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("what", ["textures", "glass", "infinite lights"])
+def test_grad_step_refuses_what_it_does_not_check(what):
+    """Gradients through textures, glass and the infinite light are not held
+    against the JAX package, so a step on such a scene raises and names
+    what it lacks."""
+    from pbrt_tpu_torch.textures import textures as ttx
+
+    b = tsc.SceneBuilder()
+    kw = {}
+    if what == "textures":
+        kw = dict(kd_tex=b.textures.add(ttx.TEX_CHECKER, c1=(1, 1, 1)))
+    m = b.add_material(tsc.MAT_GLASS if what == "glass" else tsc.MAT_MATTE, **kw)
+    b.add_triangle_mesh([[0, 1, 2]], [[-1, -1, 0], [1, -1, 0], [0, 1, 0]],
+                        material=m)
+    if what == "infinite lights":
+        b.add_infinite_light()
+    else:
+        b.add_point_light(ttf.translate(0, 0, 2), (1.0, 1.0, 1.0))
+    res = (4, 4)
+    camera = make_perspective_camera(ttf.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
+                                     res)
+    pixels = torch.as_tensor(tpath.make_pixel_grid(tfm.FilmConfig(full_resolution=res)))
+    with pytest.raises(NotImplementedError, match=what):
+        diff.render_grad_step(b.build(device="cpu"), camera, pixels, 0,
+                              torch.ones((16, 3)), TSampler("halton", 1, res),
+                              tpath.PathConfig(max_depth=1), device="cpu")

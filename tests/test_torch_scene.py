@@ -130,9 +130,9 @@ def test_bvh4_table_covers_every_primitive_once():
 def test_refuses_what_is_not_ported():
     b = tsc.SceneBuilder()
     with pytest.raises(NotImplementedError):
-        b.add_material(3)  # glass
+        b.add_material(4)  # metal
     j = jsc.SceneBuilder()
-    m = j.add_material(jsc.MAT_GLASS)
+    m = j.add_material(jsc.MAT_METAL)
     j.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_numpy(_jax_fields(j.build()), "cpu")

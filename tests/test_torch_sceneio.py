@@ -115,9 +115,14 @@ def test_include_and_plymesh_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("body,what", [
-    ('Texture "t" "spectrum" "checkerboard"\n', "Texture"),
-    ('Material "matte" "texture Kd" "t"\n', "texture Kd"),
-    ('Material "glass"\n', "glass"),
+    ('Texture "t" "spectrum" "ptex"\n', "ptex"),
+    ('Texture "t" "spectrum" "checkerboard" "integer dimension" [3]\n', "3D"),
+    ('Texture "t" "spectrum" "checkerboard" "string mapping" "spherical"\n',
+     "mapping"),
+    ('Texture "t" "spectrum" "constant"\nMaterial "mirror" "texture Kr" "t"\n',
+     "texture Kr"),
+    ('Material "metal"\n', "metal"),
+    ('LightSource "distant"\n', "distant"),
     ('Material "matte" "spectrum Kd" [400 .5 700 .5]\n', "spectrum Kd"),
     ('ObjectBegin "o"\nObjectEnd\n', "instancing"),
     ('MakeNamedMedium "fog" "string type" "homogeneous"\n', "media"),
@@ -153,3 +158,13 @@ def test_kdtree_and_exact_sampler_refused(monkeypatch):
     monkeypatch.setenv("PBRT_TPU_EXACT_SAMPLER", "1")
     with pytest.raises(NotImplementedError, match="EXACT_SAMPLER"):
         setup.make_sampler_config()
+
+
+def test_missing_image_raises(tmp_path):
+    """The JAX package puts a gray placeholder in for an image it cannot
+    read (api.py:392-395); the port raises."""
+    scene = tmp_path / "s.pbrt"
+    scene.write_text('WorldBegin\nTexture "t" "spectrum" "imagemap" '
+                     '"string filename" "missing.pfm"\nWorldEnd\n')
+    with pytest.raises(FileNotFoundError):
+        tio.parse_pbrt_file(str(scene))
