@@ -34,9 +34,9 @@ Phases, each printing its result on a line of its own and its seconds:
      rest;
   6. card against CPU: a small scene rendered on the card and on the CPU
      (the plain versions) at depth 1 (per pixel) and depth 3 (image mean);
-  7. parity ladder: the in-repo ladder scenes through render.render_file on
-     the card, against the pbrt-v3 goldens at tests/test_parity_images.py's
-     thresholds;
+  7. parity ladder: the in-repo ladder scenes, d_media_volpath (media,
+     volpath) among them, through render.render_file on the card, against
+     the pbrt-v3 goldens at tests/test_parity_images.py's thresholds;
   8. CLI: the main scene written as a .pbrt file and a binary PLY, rendered
      by `python -m pbrt_tpu_torch` in a subprocess and by render_file with
      each BVH kernel once (spatial light distribution), 48 launches of
@@ -68,6 +68,31 @@ Phases, each printing its result on a line of its own and its seconds:
      golden at tests/test_parity_images.py's bars, and the main scene at
      400x400 @ 8 spp, depth 5, strategies "one" and "all" (88 bvh4
      launches each);
+ 12. config4: BASELINE config 4 through render.render_file
+     (write_config4_pbrt): the main scene's blob, floor, wall, emissive
+     sphere and a point light, a material-less sphere of homogeneous fog
+     in the mirror's place and a material-less box beside the blob holding
+     a seeded 128^3 density grid (8.4 MB); volpath, 400x400 @ 8 spp, depth
+     5, halton, spatial distribution: Mrays/s (live traversal lanes over
+     the render's wall), the wall a spp, process CPU and set-up by phase,
+     the bytes on the card, 688 bvh4 launches (86 a spp), a bit-identical
+     repeat, PBRT_TPU_BVH4=0 with 688 bvh2 launches against bvh4 and a
+     64x64 @ 2 spp copy on the card against the CPU, both at
+     tests/test_torch_path.py:58-59's bars, and each kernel against its
+     plain version and bvh2 against bvh4 on the camera batch and the first
+     segment of each of the four walks (the surface's at bounce 0, the
+     medium vertex's at bounce 1); with --profile FILE,
+     one spp under torch.profiler, its table written to FILE's name plus
+     "_config4" (ranges "layer: media / delta tracking", "/ ratio
+     tracking", "/ Tr walk", "/ medium NEE");
+ 13. whitted and ao: the main scene's file with Integrator "whitted"
+     (maxdepth 5, 88 launches) and "ao" (nsamples 64, 520 launches) at
+     400x400 @ 8 spp: finite, non-zero, a bit-identical repeat, a 64x64 @
+     2 spp copy on the card against the CPU at tests/test_torch_path.py:
+     58-59's bars, and each kernel against its plain version and bvh2
+     against bvh4 on the batches of one spp as each render launched them:
+     the camera rays, whitted's bounce-0 shadow rays and ao's first probe
+     (every lane any-hit, unbounded);
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -92,11 +117,16 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 SLAB_FLOPS = 27  # one box's slab test
 TRI_FLOPS = 45  # per Moller-Trumbore test
 SPP, DEPTH, RES = 8, 5, (400, 400)
+# traversal launches a spp at DEPTH: config4 (volpath with media) 1 + 16
+# walk segments a bounce but the last, 1 at the last; whitted on the main
+# scene (one light) 1 + 1 a bounce but the last, 1 at the last; ao 1 + 64
+CONFIG4_LAUNCHES = DEPTH * (1 + 16) + 1
+WHITTED_LAUNCHES = DEPTH * (1 + 1) + 1
+AO_SAMPLES = 64
 
-# tests/test_parity_images.py:35-42: (scene, rel-tol, min match_frac,
-# max mean-rel).  c2u_uniform has no golden; d_media_volpath (media) and
-# killeroo_64_4spp (it includes files from outside the repository) are not
-# rendered.
+# tests/test_parity_images.py:35-49: (scene, rel-tol, min match_frac,
+# max mean-rel).  c2u_uniform has no golden; killeroo_64_4spp (it includes
+# files from outside the repository) is not rendered.
 LADDER = [
     ("a_floor_point", 1e-3, 0.995, 5e-3),
     ("c3_plastic_d1", 1e-3, 0.995, 5e-3),
@@ -105,6 +135,7 @@ LADDER = [
     ("c4_mirror_d3", 1e-3, 0.995, 1e-3),
     ("c1_matte_point_d5", 1e-3, 0.70, 1e-3),
     ("c_indirect", 2e-2, 0.70, 2e-2),
+    ("d_media_volpath", 1e-3, 0.60, 4e-2),
 ]
 
 
@@ -358,6 +389,95 @@ def write_config3_pbrt(out_dir: Path, res=RES, spp=64, blob=(512, 256),
     path = out_dir / "config3_path.pbrt"
     path.write_text(CONFIG3_PBRT.format(xres=res[0], yres=res[1], spp=spp,
                                         depth=DEPTH, extra=extra))
+    return path
+
+
+CONFIG4_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "config4.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "volpath" "integer maxdepth" [{depth}]
+WorldBegin
+LightSource "point" "rgb I" [30 30 30] "point from" [-3 -5 7]
+Material "matte" "rgb Kd" [0.5 0.5 0.8]
+Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+  "integer indices" [0 1 2 2 3 0]
+Shape "trianglemesh" "point P" [-10 6 0  10 6 0  10 6 12  -10 6 12]
+  "integer indices" [0 1 2 2 3 0]
+AttributeBegin
+  Material "plastic" "rgb Kd" [0.4 0.2 0.2] "rgb Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  Shape "plymesh" "string filename" "blob.ply"
+AttributeEnd
+AttributeBegin
+  MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [0.12 0.12 0.12] "rgb sigma_s" [0.6 0.6 0.6] "float g" [0.2]
+  Material ""
+  MediumInterface "fog" ""
+  Translate 3.7 -0.5 1.2
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  MakeNamedMedium "smoke" "string type" "heterogeneous"
+    "rgb sigma_a" [0.4 0.4 0.4] "rgb sigma_s" [2.0 2.0 2.0]
+    "point p0" [{p0}] "point p1" [{p1}]
+    "integer nx" [{n}] "integer ny" [{n}] "integer nz" [{n}]
+    "float density" [{density}]
+  Material ""
+  MediumInterface "smoke" ""
+  Shape "trianglemesh" "point P" [{box}]
+    "integer indices" [0 2 1 0 3 2  4 5 6 4 6 7  0 1 5 0 5 4
+                       3 6 2 3 7 6  0 4 7 0 7 3  1 2 6 1 6 5]
+AttributeEnd
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [40 40 40]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+WorldEnd
+"""
+SMOKE_BOX = ((-4.4, -1.4, 0.02), (-2.4, 0.6, 2.6))  # beside the blob
+
+
+def smoke_density(n: int, seed: int = 7) -> np.ndarray:
+    """A seeded, smooth density grid [n, n, n] (z, y, x) with values in
+    [0, 2.4]: 1.2 plus a sum of three random plane waves, scaled."""
+    rs = np.random.RandomState(seed)
+    c = (np.arange(n, dtype=np.float32) + 0.5) / n
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    f = np.zeros((n, n, n), np.float32)
+    for _ in range(3):
+        k = rs.uniform(2.0, 9.0, 3).astype(np.float32)
+        ph = np.float32(rs.uniform(0.0, 6.3))
+        f += np.sin(k[0] * x + ph) * np.sin(k[1] * y + 2 * ph) * np.sin(k[2] * z + 3 * ph)
+    return np.clip(1.2 + 1.2 * f / 3.0, 0.0, 2.4).astype(np.float32)
+
+
+def write_config4_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
+                       grid=128) -> Path:
+    """BASELINE config 4 on the main scene: the blob (2 nu nv triangles, a
+    PLY) in plastic, the matte floor and back wall, the emissive sphere and
+    a point light; the mirror sphere's place holds a material-less sphere
+    of homogeneous fog (d_media_volpath's coefficients), and beside the
+    blob a material-less box holds a heterogeneous medium whose seeded
+    grid^3 density (smoke_density) fills it through p0/p1.  volpath at
+    depth 5, halton, the spatial distribution."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(blob[0], blob[1], seed=0, center=(0.0, 0.0, 2.2),
+                       radius=2.0)
+    write_ply(out_dir / "blob.ply", idx, v)
+    lo, hi = SMOKE_BOX
+    corners = [(x, y, z) for z in (lo[2], hi[2])
+               for (x, y) in ((lo[0], lo[1]), (hi[0], lo[1]), (hi[0], hi[1]),
+                              (lo[0], hi[1]))]
+    text = CONFIG4_PBRT.format(
+        xres=res[0], yres=res[1], spp=spp, depth=DEPTH, n=grid,
+        p0=" ".join(map(str, lo)), p1=" ".join(map(str, hi)),
+        box="  ".join(" ".join(map(str, c)) for c in corners),
+        density=" ".join(f"{x:.5g}" for x in smoke_density(grid).ravel()))
+    path = out_dir / "config4.pbrt"
+    path.write_text(text)
     return path
 
 
@@ -758,9 +878,8 @@ def ladder_phase(render, read_pfm, dev):
           "ladder c2u_uniform: image not finite or black")
     print(f"ladder c2u_uniform: no golden; finite, mean {float(img.mean()):.6f}",
           flush=True)
-    print("ladder skipped: d_media_volpath (media are not ported), "
-          "killeroo_64_4spp (it includes files from outside the repository)",
-          flush=True)
+    print("ladder skipped: killeroo_64_4spp (it includes files from outside "
+          "the repository)", flush=True)
 
 
 def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
@@ -1013,8 +1132,10 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
 
 
 def image_bars(ref, got):
-    """(match_frac, mean rel) at tests/test_torch_path.py:58-59's bars:
-    at least 0.995 of pixels within rel 1e-3, means within 5e-3."""
+    """(match_frac, mean rel): the share of pixels within rel 1e-3 and the
+    means' relative difference, which tests/test_torch_path.py:58-59 bar
+    at 0.995 and 5e-3, and tests/test_parity_images.py:48 (media) at 0.60
+    and 4e-2."""
     rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-2)
     frac = float(np.all(rel <= 1e-3, -1).mean())
     mean_rel = abs(float(got.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-6)
@@ -1192,9 +1313,10 @@ def config3_phase(render, counted, card, dev, profile):
         state = fm.make_film_state(film_cfg, filt, dev)
         pixels = torch.as_tensor(ip.make_pixel_grid(film_cfg), device=dev)
         with torch.no_grad():
-            profile_render(lambda: ip.render_sample_batch(
-                scene, camera, state, pixels, 0, sampler,
-                setup.make_integrator_config(), stats.zeros(dev)),
+            cfg = setup.make_integrator_config()
+            profile_render(lambda: ip.sample_batch(
+                ip.path_li(scene, sampler, cfg), ip.n_path_dims(cfg), scene,
+                camera, state, pixels, 0, sampler, stats.zeros(dev)),
                 profile.with_name(f"{profile.stem}_config3{profile.suffix}"),
                 "config3 profile")
     config3_cross(scene, captured)
@@ -1249,6 +1371,193 @@ def direct_phase(render, read_pfm, counted, card, dev):
     m1, m2 = out["one"][0], out["all"][0]
     check(abs(m1 - m2) <= 0.02 * m1, f"direct means: one {m1}, all {m2}")
     return {k: v[1] for k, v in out.items()}
+
+
+def config4_phase(render, counted, card, dev, profile):
+    """Phase 12: BASELINE config 4 through render_file on the card: the
+    main scene's blob with a homogeneous fog sphere and a 128^3 density
+    grid, volpath at 400x400 @ 8 spp, depth 5.  86 launches a spp; a
+    bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4 and a 64x64 @ 2
+    spp copy on the card against the CPU at tests/test_torch_path.py:58-59's
+    bars, and each kernel held against its plain version on the walk
+    batches of one spp."""
+    from pbrt_tpu_torch.integrators import volpath
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "config4"
+    t0 = time.perf_counter()
+    path = write_config4_pbrt(out_dir)
+    print(f"config4 file: {path.stat().st_size / 1e6:.1f} MB written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    want = SPP * CONFIG4_LAUNCHES
+    runs = []
+    for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
+        c0 = time.process_time()
+        img, st, launches = timed_render_file(render, counted, path,
+                                              out_dir / f"{kind}.pfm", dev, switch)
+        cpu = time.process_time() - c0
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == want
+              and launches[f"{other}_traverse"] == 0,
+              f"config4 ({kind}) launches {launches}, not {want} of {kind}")
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"config4 {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+                          launches, card)
+              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              f"call {cpu:.3f} s, image mean {float(img.mean()):.6f}", flush=True)
+        runs.append((img, launches))
+    check(np.array_equal(runs[0][0], runs[1][0]), "config4: a repeat differs")
+    frac, mean_rel = image_bars(runs[0][0], runs[2][0])
+    print(f"config4 bvh2 against bvh4: bit-equal "
+          f"{np.array_equal(runs[0][0], runs[2][0])}, match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}", flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"config4 bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
+
+    small = write_config4_pbrt(out_dir / "small", res=(64, 64), spp=2)
+    a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
+                              device=dev)
+    t0 = time.perf_counter()
+    b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
+                              device="cpu")
+    frac, mean_rel = image_bars(b, a)
+    print(f"config4 card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}; the CPU render {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"config4 card against cpu: match_frac {frac}, mean rel {mean_rel}")
+
+    setup = parse_pbrt_file(str(path))
+    scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+    mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
+          "bvh2 nodes + triangles": scene.bvh2_nodes.nbytes + scene.prim_tris.nbytes,
+          "density atlas": scene.media.density_atlas.nbytes,
+          "spatial distribution": scene.spatial_cdf.nbytes + scene.spatial_pmf.nbytes}
+    print("config4 bytes on the card, MB: " + json.dumps(
+        {k: round(v / 1e6, 3) for k, v in mb.items()}), flush=True)
+    film_cfg, filt = setup.make_film_config()
+    camera = setup.make_camera()
+    cfg = setup.make_integrator_config()
+    one = SamplerConfig("halton", 1, RES)
+    if profile is not None:
+        profile_render(lambda: volpath.render(scene, camera, film_cfg, one, cfg, filt,
+                                              device=dev),
+                       profile.with_name(f"{profile.stem}_config4{profile.suffix}"),
+                       "config4 profile")
+    # each kernel against its plain version and bvh2 against bvh4 on the
+    # batches of one spp: the camera rays, the first segment of the surface
+    # NEE's shadow and MIS walks at bounce 0 (launches 9 and 13), and of the
+    # medium vertex's at bounce 1 (18 and 22; no lane is in a medium at
+    # bounce 0, the camera being outside the media)
+    kernels = bvh_kernels(bvh)
+    with bvh.record_calls() as captured:
+        volpath.render(scene, camera, film_cfg, one, cfg, filt, device=dev)
+    check(len(captured) == CONFIG4_LAUNCHES,
+          f"config4: one spp launched {len(captured)} times")
+    results = {kind: {} for kind in kernels}
+    for label, i in (("camera", 0), ("surface-shadow", 9), ("surface-mis", 13),
+                     ("medium-shadow", 18), ("medium-mis", 22)):
+        oc, dc, tc, mc, order = captured[i]
+        print(f"batch config4-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live", flush=True)
+        for kind, k in kernels.items():
+            results[kind][label] = kernel_case(f"{kind}-config4-{label}", k, bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order)
+        cross_check(f"config4-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+    del captured
+    return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"],
+            "results": results}
+
+
+def whitted_ao_phase(render, counted, card, dev):
+    """Phase 13: Integrator "whitted" (maxdepth 5) and "ao" (nsamples 64)
+    on the main scene through render_file at 400x400 @ 8 spp: finite and
+    non-zero, the launches, a bit-identical repeat, and a 64x64 @ 2 spp
+    copy on the card against the CPU at tests/test_torch_path.py:58-59's
+    bars.  Then one spp of each under bvh.record_calls(): each kernel held
+    against its plain version, and bvh2 against bvh4, on the camera batch,
+    whitted's bounce-0 shadow batch and ao's first probe batch."""
+    from pbrt_tpu_torch.integrators import ao, whitted
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "whitted_ao"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = write_main_pbrt(out_dir).read_text()
+    line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
+    kernels = bvh_kernels(bvh)
+    out = {"results": {kind: {} for kind in kernels}}
+    # (name, Integrator line, launches a spp, renderer, batches to check:
+    # label and index in one spp's launches)
+    for name, integ, per_spp, renderer, batches in (
+            ("whitted", f'Integrator "whitted" "integer maxdepth" [{DEPTH}]',
+             WHITTED_LAUNCHES, whitted.render, (("camera", 0), ("shadow", 1))),
+            ("ao", f'Integrator "ao" "integer nsamples" [{AO_SAMPLES}]',
+             1 + AO_SAMPLES, ao.render, (("probe", 1),))):
+        p = out_dir / f"main_{name}.pbrt"
+        p.write_text(text.replace(line, integ))
+        imgs = []
+        for _ in range(2):
+            img, st, launches = timed_render_file(render, counted, p,
+                                                  out_dir / f"{name}.pfm", dev)
+            check(launches["bvh4_traverse"] == SPP * per_spp
+                  and launches["bvh2_traverse"] == 0,
+                  f"{name}: launches {launches}, not {SPP * per_spp}")
+            print(render_line(f"{name} main {RES[0]}x{RES[1]} @ {SPP} spp", st,
+                              launches, card)
+                  + f", wall {st['phases']['Rendering'] / SPP:.4f} s a spp, "
+                  f"image mean {float(img.mean()):.6f}", flush=True)
+            imgs.append(img)
+        check(np.array_equal(imgs[0], imgs[1]), f"{name}: a repeat differs")
+        small = out_dir / f"small_{name}.pbrt"
+        small.write_text(p.read_text().replace(
+            f'"integer xresolution" [{RES[0]}] "integer yresolution" [{RES[1]}]',
+            '"integer xresolution" [64] "integer yresolution" [64]').replace(
+            f'"integer pixelsamples" [{SPP}]', '"integer pixelsamples" [2]'))
+        a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
+                                  device=dev)
+        t0 = time.perf_counter()
+        b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
+                                  device="cpu")
+        frac, mean_rel = image_bars(b, a)
+        print(f"{name} card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+              f"mean rel {mean_rel:.3e}; the CPU render "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        check(a.shape == (64, 64, 3) and frac >= 0.995 and mean_rel <= 5e-3,
+              f"{name} card against cpu: match_frac {frac}, mean rel {mean_rel}")
+        out[name] = launches["bvh4_traverse"]
+
+        setup = parse_pbrt_file(str(p))
+        scene = setup.build_scene(dev)
+        film_cfg, filt = setup.make_film_config()
+        with bvh.record_calls() as captured:
+            renderer(scene, setup.make_camera(), film_cfg,
+                     SamplerConfig("halton", 1, RES),
+                     setup.make_integrator_config(), filt, device=dev)
+        check(len(captured) == per_spp,
+              f"{name}: one spp launched {len(captured)} times, not {per_spp}")
+        for label, i in batches:
+            oc, dc, tc, mc, order = captured[i]
+            live = tc > 0
+            print(f"batch {name}-{label}: {tc.shape[0]} lanes, "
+                  f"{int(live.sum())} live, {int((mc > 0).sum())} any-hit",
+                  flush=True)
+            if name == "ao":
+                check(bool((mc > 0).all()) and bool((tc[live] >= 1e30).all()),
+                      "ao: a probe batch has lanes that are not unbounded any-hit")
+            for kind, k in kernels.items():
+                out["results"][kind][f"{name}-{label}"] = kernel_case(
+                    f"{kind}-{name}-{label}", k, bvh, scene, oc, dc, tc, mc > 0,
+                    "mask", order)
+            cross_check(f"{name}-{label}", kernels, scene, oc, dc, tc, mc > 0,
+                        order)
+        del captured, scene
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1425,6 +1734,16 @@ def run(profile: Path | None = None) -> dict:
     dl = direct_phase(render, read_pfm, counted, card, dev)
     phase("direct", t0)
 
+    # 12. BASELINE config 4: participating media, volpath
+    t0 = time.perf_counter()
+    c4 = config4_phase(render, counted, card, dev, profile)
+    phase("config4", t0)
+
+    # 13. the Whitted and ambient-occlusion integrators
+    t0 = time.perf_counter()
+    wa = whitted_ao_phase(render, counted, card, dev)
+    phase("whitted and ao", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -1435,14 +1754,23 @@ def run(profile: Path | None = None) -> dict:
              "pbrt_tpu/ops/pallas_bvh.py:230 (_make_kernel, pallas_call at :666)",
              bvh2_launches)):
         res = results[kind]
+        checked = (list(res.values()) + list(c4["results"][kind].values())
+                   + list(wa["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch,
             "grad_launches": grad_launches[kind],
             "config3_launches": c3[kind],
-            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
-            "mismatch_frac": max(r["mismatch_frac"] for r in res.values()),
+            "config4_launches": c4[kind],
+            "config4_camera_ms": c4["results"][kind]["camera"]["ms"],
+            "config4_walk_ms": c4["results"][kind]["surface-shadow"]["ms"],
+            "config4_walk_plain_ms": c4["results"][kind]["surface-shadow"]["plain_ms"],
+            "whitted_shadow_ms": wa["results"][kind]["whitted-shadow"]["ms"],
+            "ao_probe_ms": wa["results"][kind]["ao-probe"]["ms"],
+            "ao_probe_plain_ms": wa["results"][kind]["ao-probe"]["plain_ms"],
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "mismatch_frac": max(r["mismatch_frac"] for r in checked),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],
             "bound_ms": nee["bound_ms"], "bound_by": nee["bound_by"],
             "library_ms": None, "visit_bound_ms": nee["visit_bound_ms"],
@@ -1457,6 +1785,8 @@ def run(profile: Path | None = None) -> dict:
         })
     entries[0]["direct_one_launches"] = dl["one"]
     entries[0]["direct_all_launches"] = dl["all"]
+    entries[0]["whitted_launches"] = wa["whitted"]
+    entries[0]["ao_launches"] = wa["ao"]
     entries.append({
         "name": "chain_fused", "route": "triton",
         "source": "pbrt_tpu_torch/tools/bench_layout_probe.py",

@@ -6,8 +6,9 @@ does that for any dataclass, without importing JAX) and hands the result
 here, so both packages render the very same arrays: the geometry, the
 material table with its glass and texture columns, the light table with
 n_samples and the infinite light's map, world-to-light matrix and
-Distribution2D, and the texture table (rows, image atlas, pyramid offsets,
-level counts); ``params_from_numpy``
+Distribution2D, the texture table (rows, image atlas, pyramid offsets,
+level counts), and the medium table with each primitive's inside and
+outside medium and the camera's; ``params_from_numpy``
 carries the differentiable parameters over the same way.  ``compare_setups``
 holds a RenderSetup parsed by the JAX package against one parsed by the port.
 The port itself never imports JAX or pbrt_tpu.
@@ -21,8 +22,9 @@ import torch
 
 from .cameras import CameraParams
 from .core.sampling import DISTRIBUTION_2D_FIELDS
-from .scene import (ENV_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS, SCENE_FIELDS,
-                    SceneArrays, resolve_device)
+from .media.media import MEDIUM_FIELDS
+from .scene import (ENV_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS, MEDIUM_ID_FIELDS,
+                    SCENE_FIELDS, SceneArrays, resolve_device)
 from .textures.textures import TEXTURE_FIELDS
 
 
@@ -43,11 +45,8 @@ def as_numpy_fields(obj) -> dict:
 
 def scene_from_numpy(fields: dict, device) -> SceneArrays:
     """The JAX package's SceneArrays, as numpy fields, on `device`.
-    MaterialTable, LightTable and light_distr arrive as nested dicts."""
-    for key in ("prim_medium_inside", "prim_medium_outside"):
-        ids = fields.get(key)
-        if ids is not None and (np.asarray(ids) >= 0).any():
-            raise NotImplementedError("participating media")
+    MaterialTable, LightTable, MediumTable and light_distr arrive as
+    nested dicts."""
     return SceneArrays.from_numpy(fields, device)
 
 
@@ -128,7 +127,14 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
     _diff(out, "sampler.resolution", js.resolution, ts.resolution, rtol)
 
     ji, ti = jax_setup.make_integrator_config(), port_setup.make_integrator_config()
-    _diff(out, "integrator.max_depth", ji.max_depth, ti.max_depth, rtol)
+    if hasattr(ti, "max_depth"):
+        _diff(out, "integrator.max_depth", ji.max_depth, ti.max_depth, rtol)
+    else:  # AOConfig: the JAX package reads these in render.py:103-112
+        jp = jax_setup.integrator_params
+        _diff(out, "integrator.cos_sample", jp.find_one_bool("cossample", True),
+              ti.cos_sample, rtol)
+        _diff(out, "integrator.n_samples", jp.find_one_int("nsamples", 64),
+              ti.n_samples, rtol)
     if hasattr(ti, "light_strategy"):  # the JAX package's PathConfig
         _diff(out, "integrator.rr_threshold", ji.rr_threshold, ti.rr_threshold,
               rtol)
@@ -140,8 +146,10 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
 
     ref = as_numpy_fields(jax_setup.build_scene())
     got = port_setup.scene_builder.build_numpy()
-    for k in SCENE_FIELDS:
+    for k in SCENE_FIELDS + MEDIUM_ID_FIELDS:
         _diff(out, f"scene.{k}", ref[k], got[k], rtol)
+    for k in MEDIUM_FIELDS:
+        _diff(out, f"scene.media.{k}", ref["media"][k], got["media"][k], rtol)
     for k in MATERIAL_FIELDS:
         _diff(out, f"scene.materials.{k}", ref["materials"][k],
               got["materials"][k], rtol)

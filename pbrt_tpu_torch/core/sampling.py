@@ -22,6 +22,17 @@ def _vec(x, y, z):
     return torch.stack([x, y, z], dim=-1)
 
 
+def uniform_sample_hemisphere(u):
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * u[..., 1]
+    return _vec(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def uniform_hemisphere_pdf() -> float:
+    return 1.0 / (2.0 * PI)
+
+
 def uniform_sphere_pdf() -> float:
     return 1.0 / (4.0 * PI)
 
@@ -55,6 +66,10 @@ def cosine_sample_hemisphere(u):
     z = torch.sqrt(torch.clamp(
         1.0 - d[..., 0] * d[..., 0] - d[..., 1] * d[..., 1], min=0.0))
     return _vec(d[..., 0], d[..., 1], z)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
 
 
 def uniform_cone_pdf(cos_theta_max):

@@ -6,6 +6,11 @@ rays go to the traversal kernel in one launch, lanes concatenated
 [shadow | MIS]; the path integrator adds its next bounce's extension rays
 to the same launch, [shadow | MIS | extension] (common.py:111-161).  Dead
 lanes get t_max = 0 and leave the traversal at the root.
+
+With participating media (handleMedia = true, the volumetric path
+integrator) the caller passes tr_fn and isect_tr_fn, and the shadow and
+MIS rays are traced by them, with transmittance, instead (common.py:
+163-168): their walks cross material-less medium boundaries.
 """
 from __future__ import annotations
 
@@ -22,12 +27,16 @@ from ..materials import bsdf as bx
 _SHADOW_EPS = 1.0 - 1e-4  # shadowEpsilon-scaled tMax (interaction.h:231)
 
 
-def occluded(scene, p, p_err, ng, p_light):
-    """VisibilityTester::Unoccluded (light.cpp:56): shadow ray p -> p_light."""
+def occluded(scene, p, p_err, ng, p_light, live=None):
+    """VisibilityTester::Unoccluded (light.cpp:56): shadow ray p -> p_light.
+    Lanes outside `live` (when given) trace nothing and read unoccluded."""
     o = offset_ray_origin(p, p_err, ng, p_light - p)
     d = p_light - o
     dist = torch.sqrt(torch.clamp(dot(d, d), min=1e-20))
-    return tv.intersect_any(scene, o, d / dist[:, None], dist * _SHADOW_EPS)
+    t_max = dist * _SHADOW_EPS
+    if live is not None:
+        t_max = torch.where(live, t_max, 0.0)
+    return tv.intersect_any(scene, o, d / dist[:, None], t_max)
 
 
 def _cheap_hit_normal(scene, o, d, t, prim_id):
@@ -60,11 +69,18 @@ def _cheap_hit_normal(scene, o, d, t, prim_id):
 
 
 def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
-                    u_scattering, mask, extra_ray=None, extra_live=None):
+                    u_scattering, mask, extra_ray=None, extra_live=None,
+                    tr_fn=None, isect_tr_fn=None):
     """EstimateDirect (integrator.cpp:108-215), specular = false.  Returns
     (Ld [n, 3], extra_hits): with extra_ray = (o3, d3), rays traced in the
     same launch (live where extra_live), extra_hits is their (t3, prim3),
-    else None."""
+    else None.
+
+    handleMedia = true: tr_fn(p, p_err, ng, p_light, live) -> (occluded,
+    Tr [n, 3]) traces the shadow ray (VisibilityTester::Tr) and
+    isect_tr_fn(o, d, live) -> (t, prim, Tr) the MIS ray
+    (Scene::IntersectTr), each live where `live` (only those lanes' answers
+    are read); then no extension ray rides along."""
     mat_types = scene.mat_types
     light_types = scene.light_types
     ss, ts, ns = frame
@@ -95,30 +111,40 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     zero_light_pdf = ~bs["is_specular"] & (light_pdf2 == 0.0)
     do_bsdf = do_bsdf & ~zero_light_pdf & (bs["pdf"] > 0.0)
 
-    # one traversal launch: [shadow (any-hit) | MIS | extension]
-    w_sh = s["p_light"] - rec["p"]
-    o_sh = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], w_sh)
-    d_sh = s["p_light"] - o_sh
-    dist = torch.sqrt(torch.clamp(dot(d_sh, d_sh), min=1e-20))
-    live = mask.to(torch.float32)
-    far = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
-    o_cat = [o_sh, o2]
-    d_cat = [d_sh / dist[:, None], wi2_world]
-    t_max = [dist * _SHADOW_EPS * live, far * live]
-    if extra_ray is not None:
-        o_cat.append(extra_ray[0])
-        d_cat.append(extra_ray[1])
-        t_max.append(far * extra_live.to(torch.float32))
-    t_cat, prim_cat = tv.intersect_closest(
-        scene, torch.cat(o_cat), torch.cat(d_cat), torch.cat(t_max),
-        any_mask=torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
-                            torch.zeros((len(o_cat) - 1) * n,
-                                        dtype=torch.bool, device=dev)]),
-    )
-    occ = prim_cat[:n] >= 0
-    t2, prim2 = t_cat[n:2 * n], prim_cat[n:2 * n]
+    trv = trv2 = extra_hits = None
+    if tr_fn is not None:
+        if extra_ray is not None:
+            raise ValueError("an extension ray rides the merged launch only")
+        occ, trv = tr_fn(rec["p"], rec["p_error"], rec["ng"], s["p_light"], mask)
+        t2, prim2, trv2 = isect_tr_fn(o2, wi2_world, mask)
+    else:  # one traversal launch: [shadow (any-hit) | MIS | extension]
+        w_sh = s["p_light"] - rec["p"]
+        o_sh = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], w_sh)
+        d_sh = s["p_light"] - o_sh
+        dist = torch.sqrt(torch.clamp(dot(d_sh, d_sh), min=1e-20))
+        live = mask.to(torch.float32)
+        far = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
+        o_cat = [o_sh, o2]
+        d_cat = [d_sh / dist[:, None], wi2_world]
+        t_max = [dist * _SHADOW_EPS * live, far * live]
+        if extra_ray is not None:
+            o_cat.append(extra_ray[0])
+            d_cat.append(extra_ray[1])
+            t_max.append(far * extra_live.to(torch.float32))
+        t_cat, prim_cat = tv.intersect_closest(
+            scene, torch.cat(o_cat), torch.cat(d_cat), torch.cat(t_max),
+            any_mask=torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
+                                torch.zeros((len(o_cat) - 1) * n,
+                                            dtype=torch.bool, device=dev)]),
+        )
+        occ = prim_cat[:n] >= 0
+        t2, prim2 = t_cat[n:2 * n], prim_cat[n:2 * n]
+        if extra_ray is not None:
+            extra_hits = (t_cat[2 * n:], prim_cat[2 * n:])
 
     li = torch.where((usable & ~occ)[:, None], s["li"], 0.0)
+    if trv is not None:
+        li = li * trv
     pdf_l = torch.where(usable, s["pdf"], 1.0)
     ld = torch.where(usable[:, None],
                      f * li * (weight / torch.clamp(pdf_l, min=1e-20))[:, None],
@@ -133,27 +159,29 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     li2 = torch.where(same_light[:, None], li2, 0.0)
     li2 = torch.where(hit2[:, None], li2,
                       lt.escaped_radiance(scene, wi2_world, light_types))
+    if trv2 is not None:
+        li2 = li2 * trv2
     pdf_b = torch.where(do_bsdf, bs["pdf"], 1.0)
     ld = ld + torch.where(
         do_bsdf[:, None],
         f2 * li2 * (weight2 / torch.clamp(pdf_b, min=1e-20))[:, None], 0.0)
-    if extra_ray is None:
-        return ld, None
-    return ld, (t_cat[2 * n:], prim_cat[2 * n:])
+    return ld, extra_hits
 
 
 def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
-                     u_scattering, mask, extra_ray=None, pick=None):
+                     u_scattering, mask, extra_ray=None, pick=None,
+                     tr_fn=None, isect_tr_fn=None):
     """UniformSampleOneLight (integrator.cpp:85-106): pick one light from the
     scene's light distribution, or take the per-lane (light_idx, pmf) of the
     spatial distribution (lightdistrib.cpp:135) when `pick` is given,
     estimate direct lighting, divide by its pmf.  Returns (Ld,
-    extra_hits) as estimate_direct does."""
+    extra_hits) as estimate_direct does; tr_fn and isect_tr_fn as there."""
     if pick is not None:
         light_idx, pmf = pick
     else:
         light_idx, pmf = smp.sample_discrete_1d(scene.light_distr, u_select)
     ld, extra_hits = estimate_direct(
         scene, rec, frame, mat, wo_local, light_idx, u_light, u_scattering,
-        mask & (pmf > 0.0), extra_ray, extra_live=mask)
+        mask & (pmf > 0.0), extra_ray, extra_live=mask, tr_fn=tr_fn,
+        isect_tr_fn=isect_tr_fn)
     return ld / torch.clamp(pmf, min=1e-20)[:, None], extra_hits

@@ -33,16 +33,14 @@ from torch.profiler import record_function
 
 from .. import film as fm
 from ..accel import traverse as tv
-from ..cameras import generate_rays
 from ..core.vecmath import absdot, offset_ray_origin
-from ..filters import make_filter
 from ..lights import lights as lt
 from ..materials import bsdf as bx
 from ..samplers import samplers as sa
-from ..scene import SceneArrays, resolve_device
+from ..scene import SceneArrays
 from ..utils import stats as st
 from . import common
-from .path import batch_sampler_state, eval_scene_textures, make_pixel_grid
+from .path import eval_scene_textures, render_loop
 
 STRATEGIES = ("one", "all")
 
@@ -198,36 +196,13 @@ def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
     card unless device="cpu", with the scene already there.  Returns the
     image [H, W, 3]; with count_rays also the rays traced, with stats_out
     also the counter vector."""
-    device = resolve_device(device)
-    if scene.device != device:
-        raise ValueError(f"scene is on {scene.device}, render asked for {device}")
-    camera = camera.to(device)
-    film_state = fm.make_film_state(
-        film_cfg, filt or make_filter(film_cfg.filter_name), device)
-    pixels = torch.as_tensor(make_pixel_grid(film_cfg), device=device)
     light_ns = (light_sample_counts(scene, sampler_cfg)
                 if cfg.strategy == "all" else ())
-    n_dims = n_regular_dims(cfg, light_ns)
-    counters = st.zeros(device)
-    with torch.no_grad():
-        for s in range(sampler_cfg.spp):
-            state = batch_sampler_state(sampler_cfg, pixels, s, n_dims)
-            p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state,
-                                                          pixels)
-            with record_function("layer: camera rays"):
-                o, d, _, weight = generate_rays(camera, p_film, p_lens, time_u)
-            L = li_direct(scene, o, d, sampler_cfg, state, cfg, counters,
-                          pixels=pixels, sample_num=s, light_ns=light_ns)
-            bad = ~torch.all(torch.isfinite(L), -1) | torch.any(L < 0.0, -1)
-            L = torch.where(bad[:, None], 0.0, L)
-            with record_function("layer: film"):
-                fm.add_samples(film_state, p_film, L, weight)
-            st.bump(counters, "Film/Samples added", float(pixels.shape[0]))
-            if progress is not None:
-                progress.update(s + 1)
-        img = fm.to_image(film_state, scale=film_cfg.scale)
-    if stats_out:
-        return img, counters
-    if count_rays:
-        return img, st.ray_total(counters)
-    return img
+
+    def li(o, d, state, pixels, s, counters, ray_diffs):
+        return li_direct(scene, o, d, sampler_cfg, state, cfg, counters,
+                         pixels=pixels, sample_num=s, light_ns=light_ns)
+
+    return render_loop(li, n_regular_dims(cfg, light_ns), scene, camera,
+                       film_cfg, sampler_cfg, filt, count_rays, stats_out,
+                       progress, device)

@@ -259,41 +259,60 @@ def camera_rays(scene: SceneArrays, camera, p_film, p_lens, time_u, spp: int):
         return o, d, weight, tuple(diffs)
 
 
-def render_sample_batch(scene, camera, film_state, pixels, sample_num: int,
-                        sampler_cfg, cfg: PathConfig, counters):
-    """One sample per pixel, accumulated into film_state (in place)."""
-    n = pixels.shape[0]
-    state = batch_sampler_state(sampler_cfg, pixels, sample_num,
-                                n_path_dims(cfg))
+def path_li(scene: SceneArrays, sampler_cfg, cfg: PathConfig):
+    """li_path as render_loop's li."""
+    def li(o, d, state, pixels, s, counters, ray_diffs):
+        return li_path(scene, o, d, sampler_cfg, state, cfg, counters,
+                       ray_diffs=ray_diffs)
+    return li
+
+
+def sample_batch(li, n_dims: int, scene: SceneArrays, camera, film_state,
+                 pixels, sample_num: int, sampler_cfg, counters):
+    """One sample per pixel, accumulated into film_state (in place): the
+    sampler state of n_dims dims, the camera rays (with differentials on a
+    scene with textures), L = li(o, d, state, pixels, sample_num, counters,
+    ray_diffs) with non-finite and negative L zeroed (integrator.cpp:294-315),
+    into the film.  Integrators other than path ignore ray_diffs, so their
+    textures look up level 0, as the JAX package's do."""
+    state = batch_sampler_state(sampler_cfg, pixels, sample_num, n_dims)
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
     o, d, weight, ray_diffs = camera_rays(scene, camera, p_film, p_lens,
                                           time_u, sampler_cfg.spp)
-    L = li_path(scene, o, d, sampler_cfg, state, cfg, counters,
-                ray_diffs=ray_diffs)
-    # NaN / negative radiance -> black (integrator.cpp:294-315).
+    L = li(o, d, state, pixels, sample_num, counters, ray_diffs)
     bad = ~torch.all(torch.isfinite(L), -1) | torch.any(L < 0.0, -1)
     L = torch.where(bad[:, None], 0.0, L)
     with record_function("layer: film"):
         fm.add_samples(film_state, p_film, L, weight)
-    st.bump(counters, "Film/Samples added", float(n))
+    st.bump(counters, "Film/Samples added", float(pixels.shape[0]))
     return film_state
 
 
 def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
            cfg: PathConfig = PathConfig(), filt=None, count_rays: bool = False,
            stats_out: bool = False, progress=None, device="cuda"):
-    """Full render: one batch per sample per pixel.  Runs on the card unless
-    device="cpu"; the scene must already be on that device.  Returns the
-    image [H, W, 3]; with count_rays also the rays traced, with stats_out
-    also the counter vector (utils/stats.py).  filt: the reconstruction
-    filter (the film's named one by default).  progress: a
-    ProgressReporter updated once per spp batch.  The spatial light
+    """Full render of the path integrator (render_loop).  The spatial light
     distribution is built here, once per scene, when cfg asks for it."""
+    if cfg.light_strategy == "spatial":
+        scene = ldist.ensure_spatial_light_distribution(scene)
+    return render_loop(path_li(scene, sampler_cfg, cfg), n_path_dims(cfg),
+                       scene, camera, film_cfg, sampler_cfg, filt, count_rays,
+                       stats_out, progress, device)
+
+
+def render_loop(li, n_dims: int, scene: SceneArrays, camera, film_cfg,
+                sampler_cfg, filt=None, count_rays: bool = False,
+                stats_out: bool = False, progress=None, device="cuda"):
+    """The sample loop of every integrator's render: one sample_batch per
+    sample per pixel.  Runs on the card unless device="cpu"; the scene must
+    already be on that device.  Returns the image [H, W, 3]; with count_rays
+    also the rays traced, with stats_out also the counter vector
+    (utils/stats.py).  filt: the reconstruction filter (the film's named
+    one by default).  progress: a ProgressReporter updated once per spp
+    batch."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
-    if cfg.light_strategy == "spatial":
-        scene = ldist.ensure_spatial_light_distribution(scene)
     camera = camera.to(device)
     film_state = fm.make_film_state(
         film_cfg, filt or make_filter(film_cfg.filter_name), device)
@@ -301,8 +320,8 @@ def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
     counters = st.zeros(device)
     with torch.no_grad():
         for s in range(sampler_cfg.spp):
-            render_sample_batch(scene, camera, film_state, pixels, s,
-                                sampler_cfg, cfg, counters)
+            sample_batch(li, n_dims, scene, camera, film_state, pixels, s,
+                         sampler_cfg, counters)
             if progress is not None:
                 progress.update(s + 1)
         img = fm.to_image(film_state, scale=film_cfg.scale)

@@ -2,8 +2,9 @@
 
 Port of pbrt_tpu/render.py (pbrt-v3 pbrtWorldEnd, api.cpp:1590-1649, and
 RenderOptions::MakeIntegrator, api.cpp:1662-1697) for ``Integrator "path"``
-on the lockstep engine and ``Integrator "directlighting"``.  Every other
-integrator, and PBRT_TPU_ENGINE other than "lockstep", raises
+on the lockstep engine, ``"volpath"``, ``"directlighting"``, ``"whitted"``
+and ``"ao"``.  Every other integrator (bdpt, mlt, sppm), and a path
+render under PBRT_TPU_ENGINE other than "lockstep", raises
 NotImplementedError.  Runs on the card unless the caller passes
 device="cpu".
 """
@@ -32,20 +33,25 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     construction, light distribution, rendering, and parsing when
     render_file parsed), render_cpu_s (this process's CPU seconds over the
     rendering phase) and profile (pbrt's Profile block)."""
+    from .integrators import ao
     from .integrators import direct as dl
     from .integrators import path as pt
+    from .integrators import volpath as vp
+    from .integrators import whitted as wh
     from .utils import stats as st
     from .utils.profiling import Timer
     from .utils.progress import ProgressReporter
 
     device = resolve_device(device)
-    renderers = {"path": pt.render, "directlighting": dl.render}
+    renderers = {"path": pt.render, "volpath": vp.render,
+                 "directlighting": dl.render, "whitted": wh.render,
+                 "ao": ao.render}
     if setup.integrator_name not in renderers:
         raise NotImplementedError(
             f"integrator {setup.integrator_name!r}: the port has "
             f"{sorted(renderers)}")
     engine = os.environ.get("PBRT_TPU_ENGINE", "lockstep")
-    if engine != "lockstep":
+    if engine != "lockstep" and setup.integrator_name == "path":
         raise NotImplementedError(
             f"PBRT_TPU_ENGINE={engine}: the port has the lockstep engine only")
     timer = timer or Timer()

@@ -10,7 +10,9 @@ integrators:
   sigma and roughness bound to textures (textures/textures.py);
 * lights: point lights, diffuse area lights on spheres and triangles, and
   infinite lights, constant or with an equirect map importance-sampled by a
-  Distribution2D (one map a scene; the first wins, as in the JAX package).
+  Distribution2D (one map a scene; the first wins, as in the JAX package);
+* media: homogeneous and density-grid media (media/media.py), each
+  primitive's inside and outside medium (MediumInterface) and the camera's.
 
 Anything else raises NotImplementedError.  The builder computes its numpy
 arrays exactly as the JAX builder does (``build_numpy``), and
@@ -33,6 +35,7 @@ import torch
 from .accel.build import build_bvh
 from .core import sampling as smp
 from .core import transform as tf
+from .media.media import MEDIUM_NAMES, HostMediumTable, MediumTable
 from .ops.bvh import build_bvh2_table, build_bvh4_table, build_prim_records
 from .textures.textures import HostTextureTable, TextureTable, texture_meta
 
@@ -66,6 +69,7 @@ SCENE_FIELDS = ("bvh_min", "bvh_max", "bvh_offset", "bvh_nprims", "bvh_axis",
                 "prim_meta", "tri_indices", "tri_p", "tri_attr", "tri_verts",
                 "q_type", "q_w2o", "q_o2w", "q_params", "q_rev", "q_packed",
                 "q_prim_id")
+MEDIUM_ID_FIELDS = ("prim_medium_inside", "prim_medium_outside", "camera_medium")
 _REFUSED_TEXTURE_COLUMNS = ("bump_tex", "opacity_tex")
 
 
@@ -172,6 +176,14 @@ class SceneArrays:
     spatial_diag: Optional[torch.Tensor] = None  # [3]
     spatial_cdf: Optional[torch.Tensor] = None  # [V, L+1]
     spatial_pmf: Optional[torch.Tensor] = None  # [V, L]
+    # media (core/medium.h:102 MediumInterface per primitive, BVH order)
+    prim_medium_inside: Optional[torch.Tensor] = None  # [P] i32, -1 none
+    prim_medium_outside: Optional[torch.Tensor] = None  # [P] i32
+    media: Optional[MediumTable] = None
+    camera_medium: int = -1  # the camera's (the scene's outer) medium
+    medium_types: tuple = ()  # types of the media some primitive or the
+    #   camera uses (statics.py:58-70)
+    has_media: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -209,6 +221,7 @@ class SceneArrays:
         for key in ("kd_nodes", "curve_packed", "inst_tri"):
             if fields.get(key) is not None:
                 raise NotImplementedError(f"scenes with {key}")
+        media = _media_fields(fields)
 
         rows, depth = build_bvh4_table(fields["bvh_min"], fields["bvh_max"],
                                        fields["bvh_offset"],
@@ -242,7 +255,32 @@ class SceneArrays:
             quadric_types=tuple(t for t in prim_types if t != SHAPE_TRIANGLE),
             quadric_rows=tuple((int(qi), int(r)) for qi, r in enumerate(q_prim)
                                if r >= 0),
+            prim_medium_inside=torch.as_tensor(media["prim_medium_inside"],
+                                               device=device),
+            prim_medium_outside=torch.as_tensor(media["prim_medium_outside"],
+                                                device=device),
+            media=MediumTable.from_numpy(media["media"], device),
+            camera_medium=media["camera_medium"],
+            medium_types=media["medium_types"],
+            has_media=media["has_media"],
         )
+
+
+def _media_fields(fields: dict) -> dict:
+    """The media fields of `fields`, with the types of the media in use
+    and whether there are any (statics.py:58-70: the media some primitive
+    or the camera refers to)."""
+    ids = {k: np.asarray(fields[k], np.int32) for k in MEDIUM_ID_FIELDS[:2]}
+    cam = int(np.asarray(fields["camera_medium"]))
+    table = fields["media"]
+    used = {int(i) for col in ids.values() for i in col[col >= 0]}
+    if cam >= 0:
+        used.add(cam)
+    med_types = np.asarray(table["med_type"])
+    types = tuple(sorted({int(med_types[i]) for i in used}))
+    _refuse(types, MEDIUM_NAMES, "medium type")
+    return dict(ids, media=table, camera_medium=cam, medium_types=types,
+                has_media=bool(used))
 
 
 def _light_table(lights: dict, device) -> LightTable:
@@ -269,6 +307,8 @@ class _PrimBlock:
     arealight: np.ndarray  # [k]
     bmin: np.ndarray  # [k, 3]
     bmax: np.ndarray  # [k, 3]
+    medium_inside: int = -1
+    medium_outside: int = -1
 
 
 class SceneBuilder:
@@ -291,6 +331,8 @@ class SceneBuilder:
         self.lights: list[dict] = []
         self.light_strategy = "uniform"  # "uniform" | "power"
         self.textures = HostTextureTable()
+        self.media = HostMediumTable()
+        self.camera_medium = -1
 
     # -- materials --
     def add_material(self, mat_type: int = MAT_MATTE, **params) -> int:
@@ -310,8 +352,11 @@ class SceneBuilder:
     # -- shapes --
     def add_triangle_mesh(self, indices, p, n=None, uv=None,
                           object_to_world: Optional[tf.Transform] = None,
-                          material: int = -1, arealight: int = -1) -> None:
-        """Vertices are transformed to world here (triangle.cpp:54)."""
+                          material: int = -1, arealight: int = -1,
+                          medium_inside: int = -1,
+                          medium_outside: int = -1) -> None:
+        """Vertices are transformed to world here (triangle.cpp:54).
+        medium_inside/outside: rows of self.media, -1 none."""
         indices = np.asarray(indices, np.int32).reshape(-1, 3)
         p = np.asarray(p, np.float32).reshape(-1, 3)
         if object_to_world is not None and not object_to_world.is_identity():
@@ -331,13 +376,15 @@ class SceneBuilder:
         tri_v = p[indices]
         self.blocks.append(_PrimBlock(
             SHAPE_TRIANGLE, np.arange(self._n_tris, self._n_tris + nt),
-            material, np.full(nt, arealight), tri_v.min(1), tri_v.max(1)))
+            material, np.full(nt, arealight), tri_v.min(1), tri_v.max(1),
+            medium_inside, medium_outside))
         self._n_verts += nv
         self._n_tris += nt
 
     def add_sphere(self, object_to_world: tf.Transform, radius, material=-1,
                    arealight=-1, zmin=None, zmax=None, phimax_deg=360.0,
-                   reverse_orientation=False) -> int:
+                   reverse_orientation=False, medium_inside=-1,
+                   medium_outside=-1) -> int:
         zmin = -radius if zmin is None else zmin
         zmax = radius if zmax is None else zmax
         params = np.asarray((radius, zmin, zmax, np.deg2rad(phimax_deg)),
@@ -354,7 +401,8 @@ class SceneBuilder:
         wc = object_to_world.apply_point(corners)
         self.blocks.append(_PrimBlock(SHAPE_SPHERE, np.array([qi]), material,
                                       np.array([arealight]), wc.min(0)[None],
-                                      wc.max(0)[None]))
+                                      wc.max(0)[None], medium_inside,
+                                      medium_outside))
         return qi
 
     # -- lights --
@@ -431,6 +479,9 @@ class SceneBuilder:
                       np.full(b.shape_idx.shape, b.material), b.arealight], 1)
             for b in self.blocks]).astype(np.int32)
         prim_meta = meta[bvh.order]
+        med_ids = {key: np.concatenate([
+            np.full(b.shape_idx.shape, getattr(b, key[5:])) for b in self.blocks
+        ]).astype(np.int32)[bvh.order] for key in MEDIUM_ID_FIELDS[:2]}
 
         if self.tri_indices:
             tri_indices = np.concatenate(self.tri_indices)
@@ -486,6 +537,8 @@ class SceneBuilder:
             q_packed=q_packed, q_prim_id=q_prim_id,
             materials=self._build_materials(), lights=light_table,
             light_distr=light_distr, textures=self.textures.to_numpy(),
+            media=self.media.to_numpy(), camera_medium=np.int32(self.camera_medium),
+            **med_ids,
         )
 
     def _build_materials(self) -> dict:

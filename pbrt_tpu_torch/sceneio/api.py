@@ -15,11 +15,17 @@ and direct-lighting integrators render:
   wrinkled, windy, marble, dots and imagemap, with uv mapping;
 * point lights, infinite lights (constant or with ``mapname``) and diffuse
   area lights on triangle meshes and spheres;
-* ``trianglemesh``, ``sphere`` and ``plymesh`` shapes.
+* ``trianglemesh``, ``sphere`` and ``plymesh`` shapes;
+* ``MakeNamedMedium`` (homogeneous and heterogeneous) and
+  ``MediumInterface``: in the options block it sets the camera's medium,
+  in the world block the media of the shapes that follow (non-emissive
+  trianglemeshes and spheres, as in the JAX package: a plymesh or an
+  emissive shape gets none);
+* ``Integrator "volpath"``, ``"whitted"`` and ``"ao"``.
 
 Everything else raises NotImplementedError naming what is missing:
-instancing, media, other shapes, lights, materials, texture classes and
-mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
+instancing, other shapes, lights, materials, medium types, texture classes
+and mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
 stand-in: a missing image file raises.
 
 Output: ``RenderSetup``, everything render.py needs.
@@ -117,17 +123,26 @@ class RenderSetup:
                              self.resolution)
 
     def make_integrator_config(self):
-        """PathConfig for "path", DirectLightingConfig for
-        "directlighting" (maxdepth; strategy, by default "all")."""
+        """PathConfig for "path" and "volpath", DirectLightingConfig for
+        "directlighting" (maxdepth; strategy, by default "all") and
+        "whitted" (maxdepth), AOConfig for "ao" (cossample, nsamples);
+        the JAX package's parameters (render.py:55-120)."""
         from ..integrators.path import PathConfig
 
         p = self.integrator_params or ParamSet()
-        if self.integrator_name == "directlighting":
+        if self.integrator_name in ("directlighting", "whitted"):
             from ..integrators.direct import DirectLightingConfig
 
+            if self.integrator_name == "whitted":
+                return DirectLightingConfig(max_depth=p.find_one_int("maxdepth", 5))
             return DirectLightingConfig(
                 max_depth=p.find_one_int("maxdepth", 5),
                 strategy=p.find_one_string("strategy", "all"))
+        if self.integrator_name == "ao":
+            from ..integrators.ao import AOConfig
+
+            return AOConfig(cos_sample=p.find_one_bool("cossample", True),
+                            n_samples=p.find_one_int("nsamples", 64))
         return PathConfig(
             max_depth=p.find_one_int("maxdepth", 5),
             rr_threshold=p.find_one_float("rrthreshold", 1.0),
@@ -143,6 +158,8 @@ class _GraphicsState:
     named_materials: dict = dataclasses.field(default_factory=dict)
     float_textures: dict = dataclasses.field(default_factory=dict)
     spectrum_textures: dict = dataclasses.field(default_factory=dict)
+    medium_inside: int = -1  # rows of the builder's medium table, -1 none
+    medium_outside: int = -1
 
 
 class PbrtApi:
@@ -156,6 +173,8 @@ class PbrtApi:
         self.gs = _GraphicsState()
         self.gs_stack: list = []
         self.cwd = "."
+        self.in_world = False
+        self.named_media: dict = {}
         # Default material: matte (api.cpp GraphicsState constructor).
         self.gs.material = self.setup.scene_builder.add_material(
             sc.MAT_MATTE, kd=(0.5, 0.5, 0.5))
@@ -229,6 +248,7 @@ class PbrtApi:
 
     # ---- world block ----
     def world_begin(self):
+        self.in_world = True
         self.ctm = tf.identity()
         self.named_coordinate_systems["world"] = self.ctm
 
@@ -354,11 +374,53 @@ class PbrtApi:
 
     object_end = object_instance = object_begin
 
+    # ---- media (api.cpp:724-768, 1492-1512) ----
+    def _medium_id(self, name) -> int:
+        if not name:
+            return -1
+        if name not in self.named_media:
+            raise ValueError(f"medium {name!r} was never made")
+        return self.named_media[name]
+
     def medium_interface(self, inside, outside):
-        raise NotImplementedError("MediumInterface: media are not ported")
+        """The media of the shapes that follow; in the options block, the
+        camera's medium (the inside one)."""
+        self.gs.medium_inside = self._medium_id(inside)
+        self.gs.medium_outside = self._medium_id(outside)
+        if not self.in_world:
+            self.setup.scene_builder.camera_medium = self.gs.medium_inside
 
     def make_named_medium(self, name, params):
-        raise NotImplementedError("MakeNamedMedium: media are not ported")
+        """MakeMedium (api.cpp:724-768): homogeneous, or heterogeneous
+        with its density grid filling the box p0-p1 under the CTM."""
+        ps = ParamSet.from_decls(params)
+        mtype = ps.find_one_string("type", "homogeneous")
+        if mtype not in ("homogeneous", "heterogeneous"):
+            raise NotImplementedError(
+                f"medium type {mtype!r}: the port has homogeneous and "
+                "heterogeneous")
+        if ps.find_one_string("preset", ""):
+            raise NotImplementedError("medium \"preset\": the named "
+                                      "scattering tables are not ported")
+        media = self.setup.scene_builder.media
+        scale = ps.find_one_float("scale", 1.0)
+        sigma_a = ps.find_one_spectrum("sigma_a", (0.0011, 0.0024, 0.014)) * scale
+        sigma_s = ps.find_one_spectrum("sigma_s", (2.55, 3.21, 3.77)) * scale
+        g = ps.find_one_float("g", 0.0)
+        if mtype == "homogeneous":
+            mid = media.add_homogeneous(sigma_a, sigma_s, g)
+        else:
+            density = ps.find_floats("density")
+            if density is None:
+                raise ValueError(f'heterogeneous medium {name!r} without "density"')
+            p0 = ps.find_one_point("p0", (0, 0, 0))
+            p1 = ps.find_one_point("p1", (1, 1, 1))
+            # medium to world = CTM * Translate(p0) * Scale(p1 - p0)
+            m2w = self.ctm @ tf.translate(*p0) @ tf.scale(*np.maximum(p1 - p0, 1e-9))
+            mid = media.add_grid(sigma_a, sigma_s, g, ps.find_one_int("nx", 1),
+                                 ps.find_one_int("ny", 1), ps.find_one_int("nz", 1),
+                                 density, w2m=m2w.m_inv)
+        self.named_media[name] = mid
 
     # ---- materials (api.cpp:560-640) ----
     def _path(self, fname):
@@ -473,7 +535,9 @@ class PbrtApi:
                     two_sided=two_sided, n_samples=n_samples, n=n, uv=uv)
             else:
                 b.add_triangle_mesh(idx, p, n=n, uv=uv, object_to_world=o2w,
-                                    material=mat)
+                                    material=mat,
+                                    medium_inside=self.gs.medium_inside,
+                                    medium_outside=self.gs.medium_outside)
         elif name == "sphere":
             r = ps.find_one_float("radius", 1.0)
             zmin = ps.find_one_float("zmin", -r)
@@ -485,7 +549,9 @@ class PbrtApi:
             else:
                 b.add_sphere(o2w, r, material=mat, zmin=zmin, zmax=zmax,
                              phimax_deg=phimax,
-                             reverse_orientation=self.gs.reverse_orientation)
+                             reverse_orientation=self.gs.reverse_orientation,
+                             medium_inside=self.gs.medium_inside,
+                             medium_outside=self.gs.medium_outside)
         elif name == "plymesh":
             if area is not None:
                 raise NotImplementedError(

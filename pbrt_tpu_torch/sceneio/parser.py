@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 import re
 
+import numpy as np
+
 _TOKEN_RE = re.compile(
     r"""
     "(?:[^"\\]|\\.)*"      # quoted string
@@ -67,6 +69,15 @@ def _to_num(tok: str):
         return float(tok)
 
 
+def _numbers(toks: list) -> list:
+    """A list of numeric tokens as numbers: ints when every one is an int,
+    else floats, converted in one pass (a density grid holds millions)."""
+    try:
+        return np.array(toks, dtype=np.int64).tolist()
+    except (ValueError, OverflowError):
+        return np.array(toks, dtype=np.float64).tolist()
+
+
 class _TokenStream:
     def __init__(self, tokens):
         self.toks = list(tokens)
@@ -94,13 +105,16 @@ def _parse_params(ts: _TokenStream):
         decl = _unquote(ts.next())
         vals = []
         if ts.peek() == "[":
-            ts.next()
-            while ts.peek() != "]":
-                tok = ts.next()
-                if tok is None:
-                    raise ValueError("unterminated [ in parameter list")
-                vals.append(_unquote(tok) if tok.startswith('"') else _to_num(tok))
-            ts.next()  # ]
+            try:
+                end = ts.toks.index("]", ts.i + 1)
+            except ValueError:
+                raise ValueError("unterminated [ in parameter list") from None
+            raw = ts.toks[ts.i + 1:end]
+            ts.i = end + 1
+            if raw and not any(t.startswith('"') for t in raw):
+                vals = _numbers(raw)
+            else:
+                vals = [_unquote(t) if t.startswith('"') else _to_num(t) for t in raw]
         else:
             tok = ts.next()
             vals.append(_unquote(tok) if tok.startswith('"') else _to_num(tok))

@@ -6,8 +6,11 @@ B (at its size and at a ragged one), the launch counts, a render on the
 card against one on the CPU, the CLI on the card against a pbrt-v3
 golden, a differentiable render step on the card against one on the
 CPU and under each BVH kernel, and the config-3 file (textures, glass, the
-infinite light) and the direct-lighting integrator on the card against the
-CPU and under each BVH kernel, with their launch counts.
+infinite light), the direct-lighting integrator, the volumetric path
+integrator on d_media_volpath, and the Whitted and AO integrators on the
+card against the CPU (and under each BVH kernel), with their launch counts;
+and each kernel against its plain version on every batch of a volpath, a
+Whitted and an AO sample.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -30,6 +33,7 @@ from pbrt_tpu_torch.integrators import direct, path
 from pbrt_tpu_torch.ops import bvh as kb
 from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from pbrt_tpu_torch.sceneio import parse_pbrt_file
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_trees import caterpillar_rays, caterpillar_tree
@@ -427,3 +431,117 @@ def test_direct_on_card_matches_cpu_and_bvh2(strategy):
     card2, n2 = direct_render("cuda", strategy, "0")
     assert n2 == (0, 2 * per_spp)
     assert_image_bars(card2, card)
+
+
+def parity_file(tmp_path, name, res, spp, integrator=None):
+    """refgold/parity/<name>.pbrt at res x res and spp, its Integrator line
+    replaced by `integrator` when given."""
+    import re
+
+    src = (ROOT / "refgold/parity" / f"{name}.pbrt").read_text()
+    src = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
+                 f'"integer xresolution" [{res}] "integer yresolution" [{res}]', src)
+    src = re.sub(r'"integer pixelsamples" \[\d+\]', f'"integer pixelsamples" [{spp}]',
+                 src)
+    if integrator is not None:
+        src = re.sub(r'Integrator "[a-z]+"[^\n]*', f"Integrator {integrator}", src)
+    path = tmp_path / f"{name}_{res}.pbrt"
+    path.write_text(src)
+    return path
+
+
+def file_render(path, device, switch="1"):
+    """render_file on `device` under PBRT_TPU_BVH4=switch: (image, bvh4 and
+    bvh2 launches)."""
+    from pbrt_tpu_torch.render import render_file
+
+    kb.bvh4_traverse.launches = kb.bvh2_traverse.launches = 0
+    with bvh_switch(switch):
+        img, _ = render_file(str(path), out=str(path.with_suffix(f".{device}.pfm")),
+                             device=device)
+    return (torch.as_tensor(img),
+            (kb.bvh4_traverse.launches, kb.bvh2_traverse.launches))
+
+
+def assert_media_bars(got, ref):
+    """tests/test_parity_images.py:48's bars for media scenes."""
+    rel = (got - ref).abs() / ref.abs().clamp(min=1e-2)
+    assert (rel <= 1e-3).all(-1).float().mean() >= 0.60
+    assert abs(float(got.mean()) - float(ref.mean())) <= 4e-2 * float(ref.mean())
+
+
+MEDIA_VOLPATH = '"volpath" "integer maxdepth" [3]'
+
+
+def test_volpath_on_card_matches_cpu_and_bvh2(tmp_path):
+    """d_media_volpath at 32x32 @ 2 spp, depth 3: 3 x (1 + 16) + 1 launches
+    a sample; a bit-identical repeat."""
+    path = parity_file(tmp_path, "d_media_volpath", 32, 2, MEDIA_VOLPATH)
+    card, n4 = file_render(path, "cuda")
+    assert n4 == (2 * (3 * 17 + 1), 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_media_bars(card, file_render(path, "cpu")[0])
+    card2, n2 = file_render(path, "cuda", "0")
+    assert n2 == (0, 2 * (3 * 17 + 1))
+    assert_image_bars(card2, card)
+    assert torch.equal(file_render(path, "cuda")[0], card)
+
+
+def assert_batches_equal_plain(path, kind, n_calls):
+    """Every batch one sample of `path` launches through `kind`'s kernel and
+    its plain version, bit for bit; returns the live lanes."""
+    from pbrt_tpu_torch.render import render_file
+
+    with bvh_switch("1" if kind == "bvh4" else "0"), kb.record_calls() as calls:
+        render_file(str(path), out=str(path.with_suffix(".o.pfm")), device="cuda")
+    assert len(calls) == n_calls
+    scene = parse_pbrt_file(str(path)).build_scene("cuda")
+    wrapper = getattr(kb, f"{kind}_traverse")
+    plain = getattr(kb, f"{kind}_traverse_plain")
+    nodes, depth = getattr(scene, f"{kind}_nodes"), getattr(scene, f"{kind}_depth")
+    live = 0
+    for o, d, t_max, mode, order in calls:
+        t_k, p_k = wrapper(nodes, scene.prim_tris, o, d, t_max, mode, depth, order)
+        t_p, p_p = plain(nodes, scene.prim_tris, o, d, t_max, mode, order=order)
+        assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+        live += int((t_max > 0).sum())
+    return live
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+def test_volpath_batches_kernel_equals_plain(tmp_path, kind):
+    """Every batch one volpath sample launches (the closest hits and the
+    medium walks' segments, dead lanes at t_max = 0) through the kernel and
+    its plain version, bit for bit."""
+    path = parity_file(tmp_path, "d_media_volpath", 32, 1, MEDIA_VOLPATH)
+    assert assert_batches_equal_plain(path, kind, 3 * 17 + 1) > 32 * 32
+
+
+@pytest.mark.parametrize("integrator,per_spp", [
+    ('"whitted" "integer maxdepth" [3]', (1 + 1) * 3 + 1),
+    ('"ao" "integer nsamples" [8]', 1 + 8),
+])
+def test_whitted_and_ao_on_card_match_cpu(tmp_path, integrator, per_spp):
+    """c4_mirror_d3 (one point light) at 32x32 @ 2 spp under each
+    integrator: the launches, the CPU at tests/test_torch_path.py:58-59's
+    bars, a bit-identical repeat."""
+    path = parity_file(tmp_path, "c4_mirror_d3", 32, 2, integrator)
+    card, n4 = file_render(path, "cuda")
+    assert n4 == (2 * per_spp, 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_image_bars(card, file_render(path, "cpu")[0])
+    assert torch.equal(file_render(path, "cuda")[0], card)
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+@pytest.mark.parametrize("integrator,per_spp", [
+    ('"whitted" "integer maxdepth" [3]', (1 + 1) * 3 + 1),
+    ('"ao" "integer nsamples" [8]', 1 + 8),
+])
+def test_whitted_and_ao_batches_kernel_equals_plain(tmp_path, integrator,
+                                                    per_spp, kind):
+    """Every batch one whitted or ao sample launches (camera rays, shadow
+    rays, the specular continuation, ao's unbounded any-hit probes) through
+    the kernel and its plain version, bit for bit."""
+    path = parity_file(tmp_path, "c4_mirror_d3", 32, 1, integrator)
+    assert assert_batches_equal_plain(path, kind, per_spp) > 32 * 32

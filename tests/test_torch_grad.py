@@ -238,7 +238,8 @@ def test_grad_step_counts_the_forward_rays_once():
     film = tfm.make_film_state(film_cfg, tpath.make_filter(film_cfg.filter_name),
                                "cpu")
     with torch.no_grad():
-        tpath.render_sample_batch(scene, camera, film, pixels, 0, scfg, pcfg, ref)
+        tpath.sample_batch(tpath.path_li(scene, scfg, pcfg), tpath.n_path_dims(pcfg),
+                           scene, camera, film, pixels, 0, scfg, ref)
     assert st.ray_total(ref) > 0
     assert torch.equal(counters, ref)
 

@@ -125,8 +125,8 @@ def test_include_and_plymesh_match_jax(tmp_path):
     ('LightSource "distant"\n', "distant"),
     ('Material "matte" "spectrum Kd" [400 .5 700 .5]\n', "spectrum Kd"),
     ('ObjectBegin "o"\nObjectEnd\n', "instancing"),
-    ('MakeNamedMedium "fog" "string type" "homogeneous"\n', "media"),
-    ('MediumInterface "fog" ""\n', "media"),
+    ('MakeNamedMedium "m" "string type" "cloud"\n', "cloud"),
+    ('Shape "curve"\n', "curve"),
     ('LightSource "spot"\n', "spot"),
     ('Shape "cylinder"\n', "cylinder"),
     ('AreaLightSource "diffuse"\nShape "plymesh" "string filename" "x.ply"\n',
@@ -136,6 +136,23 @@ def test_include_and_plymesh_match_jax(tmp_path):
 def test_world_refusals(body, what):
     with pytest.raises(NotImplementedError, match=what):
         tio.parse_pbrt_string(f"WorldBegin\n{body}WorldEnd\n")
+
+
+def test_media_directives_parse():
+    """MakeNamedMedium and MediumInterface (no longer refused): the shapes
+    after the interface carry its media, an emissive shape none; a medium
+    never made is an error."""
+    got = tio.parse_pbrt_string(
+        'WorldBegin\nMakeNamedMedium "fog" "string type" "homogeneous"\n'
+        'MediumInterface "fog" ""\nShape "sphere"\n'
+        'AttributeBegin\nAreaLightSource "diffuse"\nShape "sphere"\nAttributeEnd\n'
+        'WorldEnd\n')
+    fields = got.scene_builder.build_numpy()
+    assert sorted(fields["prim_medium_inside"].tolist()) == [-1, 0]
+    assert fields["prim_medium_outside"].tolist() == [-1, -1]
+    assert int(fields["camera_medium"]) == -1
+    with pytest.raises(ValueError, match="never made"):
+        tio.parse_pbrt_string('WorldBegin\nMediumInterface "fog" ""\nWorldEnd\n')
 
 
 @pytest.mark.parametrize("options,call,what", [
