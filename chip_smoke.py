@@ -93,6 +93,26 @@ Phases, each printing its result on a line of its own and its seconds:
      against bvh4 on the batches of one spp as each render launched them:
      the camera rays, whitted's bounce-0 shadow rays and ao's first probe
      (every lane any-hit, unbounded);
+ 14. breadth: pbrt-v3's classic material and light set through
+     render.render_file (write_breadth_pbrt): the main scene's blob in uber,
+     the floor in substrate, the wall in translucent with a spot light
+     behind it, the mirror sphere in metal (copper), a sphere mixing matte
+     and metal, a sphere in uber with an imagemap opacity, the emissive
+     sphere and a distant, a projection (a seeded 64x64 slide) and a
+     goniometric light (a seeded 32x64 map); path at 400x400 @ 8 spp,
+     depth 5, spatial distribution: Mrays/s, the wall a spp, process CPU
+     and set-up by phase, the bytes on the card, 48 bvh4 launches, a
+     bit-identical repeat, PBRT_TPU_BVH4=0 with 48 bvh2 launches against
+     bvh4, a 64x64 @ 1 spp copy under path, directlighting "all" and
+     volpath on the card against the CPU (the CPU scene takes the card's
+     spatial distribution), all at tests/test_torch_path.py:
+     58-59's bars, and each kernel against its plain version bit for bit
+     and bvh2 against bvh4 on one spp's camera batch and bounce-0 merged
+     batch (its shadow lanes reach every kind of light, the distant one's
+     at twice the scene's radius); with --profile FILE, one spp under
+     torch.profiler, its table written to FILE's name plus "_breadth"
+     (ranges "layer: materials" and "layer: lights", main's beside them in
+     phase 5's table);
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -101,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -481,6 +502,115 @@ def write_config4_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
     return path
 
 
+BREADTH_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "breadth.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]{extra}
+WorldBegin
+LightSource "distant" "point from" [0 0 0] "point to" [1 0.6 -2]
+  "rgb L" [1.2 1.1 0.9]
+AttributeBegin
+  Translate 0 9 4
+  Rotate 90 1 0 0
+  LightSource "spot" "rgb I" [90 80 60] "float coneangle" [40]
+    "float conedeltaangle" [10]
+AttributeEnd
+AttributeBegin
+  Translate 0 -2 9
+  Rotate 180 1 0 0
+  LightSource "projection" "rgb I" [120 120 120] "float fov" [60]
+    "string mapname" "slide.pfm"
+AttributeEnd
+AttributeBegin
+  Translate -3 -3 5
+  LightSource "goniometric" "rgb I" [25 25 25] "string mapname" "gonio.pfm"
+AttributeEnd
+Texture "op" "spectrum" "imagemap" "string filename" "opacity.pfm"
+MakeNamedMaterial "mixa" "string type" "matte" "rgb Kd" [0.2 0.6 0.3]
+MakeNamedMaterial "mixb" "string type" "metal" "float roughness" [0.05]
+AttributeBegin
+  Material "substrate" "rgb Kd" [0.5 0.5 0.7] "rgb Ks" [0.3 0.3 0.3]
+    "float uroughness" [0.05] "float vroughness" [0.2]
+  Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+  Material "translucent" "rgb Kd" [0.6 0.5 0.4] "rgb Ks" [0.2 0.2 0.2]
+    "rgb reflect" [0.5 0.5 0.5] "rgb transmit" [0.5 0.5 0.5]
+    "float roughness" [0.1]
+  Shape "trianglemesh" "point P" [-10 6 0  10 6 0  10 6 12  -10 6 12]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+  Material "uber" "rgb Kd" [0.3 0.3 0.3] "rgb Ks" [0.2 0.2 0.2]
+    "rgb Kr" [0.1 0.1 0.1] "float roughness" [0.05]
+  Shape "plymesh" "string filename" "blob.ply"
+AttributeEnd
+AttributeBegin
+  Material "metal" "float roughness" [0.05]
+  Translate 3.7 -0.5 1.2
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Material "mix" "string namedmaterial1" "mixa" "string namedmaterial2" "mixb"
+    "rgb amount" [0.3 0.3 0.3]
+  Translate 2.2 -3.2 0.8
+  Shape "sphere" "float radius" [0.8]
+AttributeEnd
+AttributeBegin
+  Material "uber" "rgb Kd" [0.6 0.3 0.2] "texture Ks" "op"
+    "texture opacity" "op" "float roughness" [0.1]
+  Translate -3.4 -1.5 1.0
+  Shape "sphere" "float radius" [1.0]
+AttributeEnd
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [40 40 40]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_breadth_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
+                       depth=DEPTH, extra="") -> Path:
+    """pbrt-v3's classic materials and lights on the main scene: the blob
+    (2 nu nv triangles, a PLY) in uber, the floor in substrate, the wall in
+    translucent with a spot light behind it, the mirror sphere in metal
+    (copper, roughness 0.05), a sphere mixing matte and metal (amount 0.3)
+    and a sphere in uber whose opacity (and Ks) is an imagemap (seeded,
+    mean 0.5: the JAX package evaluates a texture only where a Kd, Ks,
+    sigma, roughness or bump binds it, pbrt_tpu/statics.py:42, and the
+    port refuses an opacity map bound alone);
+    the emissive sphere, a distant light, a projection light with a seeded
+    64x64 slide and a goniometric light with a seeded 32x64 equirect map,
+    all PFM.  path at `depth`, halton, the spatial distribution; extra:
+    more parameters of the Integrator line."""
+    from pbrt_tpu_torch.utils.imageio import write_pfm
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(blob[0], blob[1], seed=0, center=(0.0, 0.0, 2.2),
+                       radius=2.0)
+    write_ply(out_dir / "blob.ply", idx, v)
+    rs = np.random.RandomState(8)
+    slide = 0.2 + 0.8 * rs.rand(64, 64, 3)
+    slide[::8] = (1.0, 0.9, 0.3)  # bars the light projects
+    write_pfm(str(out_dir / "slide.pfm"), slide.astype(np.float32))
+    theta = (np.arange(32) + 0.5) / 32 * np.pi
+    gonio = (0.3 + np.cos(theta / 2) ** 2)[:, None, None] * (
+        0.8 + 0.4 * rs.rand(32, 64, 1))
+    write_pfm(str(out_dir / "gonio.pfm"), np.broadcast_to(
+        gonio, (32, 64, 3)).astype(np.float32))
+    write_pfm(str(out_dir / "opacity.pfm"),
+              (0.25 + 0.5 * rs.rand(16, 16, 3)).astype(np.float32))
+    path = out_dir / "breadth.pbrt"
+    path.write_text(BREADTH_PBRT.format(xres=res[0], yres=res[1], spp=spp,
+                                        depth=depth, extra=extra))
+    return path
+
+
 # ---------------------------------------------------------------------------
 # BVH kernels against their plain versions and against each other
 # ---------------------------------------------------------------------------
@@ -539,17 +669,22 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
     saved = wrapper.launches
     t_k, p_k = wrapper(*args, zeros, depth, order)
     tm_k, pm_k = wrapper(*args, mode, depth, order)
-    t_p, p_p = plain(*args, zeros, order=order)
-    tm_p, pm_p = plain(*args, mode, order=order)
+    # the plain version once a mode; the timed mode's run counts the visits
     torch.cuda.synchronize()
+    runs = {}
+    for key, m in (("closest", zeros), ("mask", mode)):
+        t0 = time.perf_counter()
+        runs[key] = plain(*args, m, return_counts=key == timed, order=order)
+        torch.cuda.synchronize()
+        if key == timed:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+    t_p, p_p = runs["closest"][:2]
+    tm_p, pm_p = runs["mask"][:2]
+    visits, tests = runs[timed][2:]
     check(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
           f"{name}: kernel and plain version differ (closest hit)")
     check(torch.equal(tm_k, tm_p) and torch.equal(pm_k, pm_p),
           f"{name}: kernel and plain version differ (any-hit mask)")
-    t0 = time.perf_counter()
-    _, _, visits, tests = plain(*args, timed_mode, return_counts=True, order=order)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
     ms = time_cuda(lambda: wrapper(*args, timed_mode, depth, order), 10)
     extra = {}
     if order is not None:
@@ -1560,6 +1695,172 @@ def whitted_ao_phase(render, counted, card, dev):
     return out
 
 
+def breadth_phase(render, counted, card, dev, profile):
+    """Phase 14: pbrt-v3's classic material and light set through
+    render_file on the card (write_breadth_pbrt: uber, substrate,
+    translucent, metal, mix, uber with an imagemap opacity; spot, distant,
+    projection and goniometric lights beside the emissive sphere), path at
+    400x400 @ 8 spp, depth 5, halton, spatial distribution: 48 launches, a
+    bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4; a 64x64 @ 1 spp copy
+    under path, directlighting "all" and volpath on the card against the
+    CPU, after the card's spatial distribution against the CPU's; each kernel
+    against its plain version and bvh2 against bvh4 on one spp's camera
+    batch and bounce-0 merged batch, whose shadow lanes go to every kind of
+    light."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import direct, volpath
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "breadth"
+    t0 = time.perf_counter()
+    split = {}
+    path = write_breadth_pbrt(out_dir)
+    print(f"breadth file and maps written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    want = SPP * (1 + DEPTH)
+    runs = []
+    for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
+        c0 = time.process_time()
+        img, st, launches = timed_render_file(render, counted, path,
+                                              out_dir / f"{kind}.pfm", dev, switch)
+        cpu = time.process_time() - c0
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == want
+              and launches[f"{other}_traverse"] == 0,
+              f"breadth ({kind}) launches {launches}, not {want} of {kind}")
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"breadth {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+                          launches, card)
+              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              f"call {cpu:.3f} s, image mean {float(img.mean()):.6f}", flush=True)
+        runs.append((img, launches))
+    check(np.array_equal(runs[0][0], runs[1][0]), "breadth: a repeat differs")
+    frac, mean_rel = image_bars(runs[0][0], runs[2][0])
+    print(f"breadth bvh2 against bvh4: bit-equal "
+          f"{np.array_equal(runs[0][0], runs[2][0])}, match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}", flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"breadth bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
+
+    split["renders"] = time.perf_counter() - t0
+
+    # the 64x64 copy under three integrators, card against CPU, each side
+    # with the spatial distribution it builds; the card's is first held
+    # against the CPU's at tests/test_torch_lightdistrib.py's bars (grid,
+    # origin and extent equal, cdf and pmf within 1e-5)
+    t0 = time.perf_counter()
+    small = write_breadth_pbrt(out_dir / "small", res=(64, 64), spp=1)
+    line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
+    spatial = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
+               "spatial_pmf")
+    card_scene = lightdistrib.ensure_spatial_light_distribution(
+        parse_pbrt_file(str(small)).build_scene(dev))
+    t1 = time.perf_counter()
+    cpu_scene = lightdistrib.ensure_spatial_light_distribution(
+        parse_pbrt_file(str(small)).build_scene("cpu"))
+    cpu_build = time.perf_counter() - t1
+    errs = {}
+    for k in spatial:
+        a, b = getattr(card_scene, k).cpu().numpy(), getattr(cpu_scene, k).numpy()
+        check(a.shape == b.shape, f"breadth spatial {k}: shape {a.shape} "
+              f"on the card, {b.shape} on the CPU")
+        errs[k] = float(np.abs(a - b).max())
+        check(errs[k] == 0.0 if k in spatial[:3] else errs[k] <= 1e-5,
+              f"breadth spatial {k}: the card's differs from the CPU's by "
+              f"{errs[k]}")
+    print(f"breadth spatial distribution ({int(np.prod(b.shape[:-1]))} voxels "
+          f"x {b.shape[-1]} lights), card against cpu: max abs differences "
+          f"{json.dumps(errs)}; the CPU build {cpu_build:.2f} s", flush=True)
+    del card_scene
+    for name, integ, renderer in (
+            ("path", line, ip.render),
+            ("directlighting", f'Integrator "directlighting" "integer maxdepth" '
+                               f'[{DEPTH}] "string strategy" "all"', direct.render),
+            ("volpath", f'Integrator "volpath" "integer maxdepth" [{DEPTH}]',
+             volpath.render)):
+        p = small.with_name(f"small_{name}.pbrt")
+        p.write_text(small.read_text().replace(line, integ))
+        a, _ = render.render_file(str(p), out=str(out_dir / f"small_{name}.pfm"),
+                                  device=dev)
+        t1 = time.perf_counter()
+        setup = parse_pbrt_file(str(p))
+        film_cfg, filt = setup.make_film_config()
+        b = renderer(cpu_scene, setup.make_camera(), film_cfg,
+                     setup.make_sampler_config(), setup.make_integrator_config(),
+                     filt, device="cpu").numpy()
+        frac, mean_rel = image_bars(b, a)
+        print(f"breadth {name} card against cpu (64x64 @ 1 spp): match_frac "
+              f"{frac:.4f}, mean rel {mean_rel:.3e}; the CPU "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        check(a.shape == (64, 64, 3) and bool(np.isfinite(a).all())
+              and float(a.mean()) > 0 and frac >= 0.995 and mean_rel <= 5e-3,
+              f"breadth {name} card against cpu: match_frac {frac}, "
+              f"mean rel {mean_rel}")
+    del cpu_scene
+    split["64x64 copies"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(path))
+    scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+    lt, mt = scene.lights, scene.materials
+    mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
+          "bvh2 nodes + triangles": scene.bvh2_nodes.nbytes + scene.prim_tris.nbytes,
+          "material table": sum(getattr(mt, f.name).nbytes
+                                for f in dataclasses.fields(mt)),
+          "texture atlas (the opacity map)": scene.textures.atlas.nbytes,
+          "projection slide": lt.proj_img.nbytes,
+          "goniometric map": lt.gonio_img.nbytes,
+          "spatial distribution": scene.spatial_cdf.nbytes + scene.spatial_pmf.nbytes}
+    print("breadth bytes on the card, MB: " + json.dumps(
+        {k: round(v / 1e6, 4) for k, v in mb.items()}), flush=True)
+    film_cfg, filt = setup.make_film_config()
+    camera = setup.make_camera()
+    cfg = setup.make_integrator_config()
+    one = SamplerConfig("halton", 1, RES)
+    if profile is not None:
+        profile_render(lambda: ip.render(scene, camera, film_cfg, one, cfg, filt,
+                                         device=dev),
+                       profile.with_name(f"{profile.stem}_breadth{profile.suffix}"),
+                       "breadth profile")
+    kernels = bvh_kernels(bvh)
+    split["set-up, bytes, profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with bvh.record_calls() as captured:
+        ip.render(scene, camera, film_cfg, one, cfg, filt, device=dev)
+    check(len(captured) == 1 + DEPTH,
+          f"breadth: one spp launched {len(captured)} times")
+    results = {kind: {} for kind in kernels}
+    for label, i in (("camera", 0), ("merged-b0", 1)):
+        oc, dc, tc, mc, order = captured[i]
+        n = tc.shape[0] // 3 if label != "camera" else tc.shape[0]
+        shadow_t = tc[:n] if label != "camera" else tc[:0]
+        # a distant light's shadow lane runs to 2 * world_radius; no other
+        # light of the scene is 1.9 radii from a surface
+        far = int((shadow_t > 1.9 * float(lt.world_radius)).sum())
+        print(f"batch breadth-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live, {int((mc > 0).sum())} any-hit, {far} shadow lanes to the "
+              f"distant light", flush=True)
+        check(label == "camera" or far > 0,
+              "breadth: no distant-light shadow lane in the merged batch")
+        for kind, k in kernels.items():
+            results[kind][label] = kernel_case(f"{kind}-breadth-{label}", k, bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order)
+        cross_check(f"breadth-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+    del captured, scene
+    torch.cuda.empty_cache()
+    split["kernel checks"] = time.perf_counter() - t0
+    print("breadth phase split, s: " + json.dumps(
+        {k: round(v, 2) for k, v in split.items()}), flush=True)
+    return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"],
+            "results": results}
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -1744,6 +2045,11 @@ def run(profile: Path | None = None) -> dict:
     wa = whitted_ao_phase(render, counted, card, dev)
     phase("whitted and ao", t0)
 
+    # 14. pbrt-v3's classic materials and lights
+    t0 = time.perf_counter()
+    br = breadth_phase(render, counted, card, dev, profile)
+    phase("breadth", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -1755,7 +2061,8 @@ def run(profile: Path | None = None) -> dict:
              bvh2_launches)):
         res = results[kind]
         checked = (list(res.values()) + list(c4["results"][kind].values())
-                   + list(wa["results"][kind].values()))
+                   + list(wa["results"][kind].values())
+                   + list(br["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -1769,6 +2076,11 @@ def run(profile: Path | None = None) -> dict:
             "whitted_shadow_ms": wa["results"][kind]["whitted-shadow"]["ms"],
             "ao_probe_ms": wa["results"][kind]["ao-probe"]["ms"],
             "ao_probe_plain_ms": wa["results"][kind]["ao-probe"]["plain_ms"],
+            "breadth_launches": br[kind],
+            "breadth_camera_ms": br["results"][kind]["camera"]["ms"],
+            "breadth_merged_ms": br["results"][kind]["merged-b0"]["ms"],
+            "breadth_merged_plain_ms": br["results"][kind]["merged-b0"]["plain_ms"],
+            "breadth_merged_bound_ms": br["results"][kind]["merged-b0"]["bound_ms"],
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "mismatch_frac": max(r["mismatch_frac"] for r in checked),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],

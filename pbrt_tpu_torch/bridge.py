@@ -4,9 +4,10 @@ The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
 here, so both packages render the very same arrays: the geometry, the
-material table with its glass and texture columns, the light table with
-n_samples and the infinite light's map, world-to-light matrix and
-Distribution2D, the texture table (rows, image atlas, pyramid offsets,
+material table with its glass, metal, uber opacity, mix and texture
+columns, the light table with n_samples, the spot and distant columns, the
+projection and goniometric lights' maps and the infinite light's map,
+world-to-light matrix and Distribution2D, the texture table (rows, image atlas, pyramid offsets,
 level counts), and the medium table with each primitive's inside and
 outside medium and the camera's; ``params_from_numpy``
 carries the differentiable parameters over the same way.  ``compare_setups``
@@ -23,8 +24,8 @@ import torch
 from .cameras import CameraParams
 from .core.sampling import DISTRIBUTION_2D_FIELDS
 from .media.media import MEDIUM_FIELDS
-from .scene import (ENV_FIELDS, LIGHT_FIELDS, MATERIAL_FIELDS, MEDIUM_ID_FIELDS,
-                    SCENE_FIELDS, SceneArrays, resolve_device)
+from .scene import (ENV_FIELDS, LIGHT_FIELDS, MAP_LIGHT_FIELDS, MATERIAL_FIELDS,
+                    MEDIUM_ID_FIELDS, SCENE_FIELDS, SceneArrays, resolve_device)
 from .textures.textures import TEXTURE_FIELDS
 
 
@@ -150,10 +151,11 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
         _diff(out, f"scene.{k}", ref[k], got[k], rtol)
     for k in MEDIUM_FIELDS:
         _diff(out, f"scene.media.{k}", ref["media"][k], got["media"][k], rtol)
-    for k in MATERIAL_FIELDS:
+    for k in MATERIAL_FIELDS + ("bump_tex",):
         _diff(out, f"scene.materials.{k}", ref["materials"][k],
               got["materials"][k], rtol)
-    for k in LIGHT_FIELDS + ENV_FIELDS + ("env_light_idx",):
+    for k in (LIGHT_FIELDS + ENV_FIELDS + MAP_LIGHT_FIELDS
+              + ("env_light_idx", "proj_light_idx", "gonio_light_idx")):
         _diff(out, f"scene.lights.{k}", ref["lights"][k], got["lights"][k], rtol)
     for k in DISTRIBUTION_2D_FIELDS:
         _diff(out, f"scene.lights.env_distr.{k}", ref["lights"]["env_distr"][k],

@@ -36,6 +36,9 @@ class Transform:
         w = np.asarray(w)
         return np.where(w[..., None] == 1.0, ph, ph / w[..., None])
 
+    def apply_vector(self, v: np.ndarray) -> np.ndarray:
+        return v @ self.m[:3, :3].T
+
     def apply_normal(self, n: np.ndarray) -> np.ndarray:
         """Normals transform by the inverse transpose (transform.h:287)."""
         return n @ self.m_inv[:3, :3]

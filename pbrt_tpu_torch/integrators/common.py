@@ -11,10 +11,15 @@ With participating media (handleMedia = true, the volumetric path
 integrator) the caller passes tr_fn and isect_tr_fn, and the shadow and
 MIS rays are traced by them, with transmittance, instead (common.py:
 163-168): their walks cross material-less medium boundaries.
+
+Profiler ranges "layer: lights" and "layer: materials" mark the calls into
+lights/ and materials/ (the path integrator's bounce body adds its own
+gather and BSDF sample to the latter).
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from .. import scene as sc
 from ..accel import traverse as tv
@@ -70,7 +75,7 @@ def _cheap_hit_normal(scene, o, d, t, prim_id):
 
 def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
                     u_scattering, mask, extra_ray=None, extra_live=None,
-                    tr_fn=None, isect_tr_fn=None):
+                    tr_fn=None, isect_tr_fn=None, bsdf_sample=None):
     """EstimateDirect (integrator.cpp:108-215), specular = false.  Returns
     (Ld [n, 3], extra_hits): with extra_ray = (o3, d3), rays traced in the
     same launch (live where extra_live), extra_hits is their (t3, prim3),
@@ -80,7 +85,11 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     Tr [n, 3]) traces the shadow ray (VisibilityTester::Tr) and
     isect_tr_fn(o, d, live) -> (t, prim, Tr) the MIS ray
     (Scene::IntersectTr), each live where `live` (only those lanes' answers
-    are read); then no extension ray rides along."""
+    are read); then no extension ray rides along.
+
+    bsdf_sample: sample_material's result at u_scattering when the caller
+    drew it already (the path integrator draws it in one call with its
+    next bounce's sample: half the host's operations of the two)."""
     mat_types = scene.mat_types
     light_types = scene.light_types
     ss, ts, ns = frame
@@ -88,11 +97,13 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
     dev = light_idx.device
 
     # light-sampling strategy
-    s = lt.sample_li(scene, light_idx, rec["p"], u_light, light_types)
+    with record_function("layer: lights"):
+        s = lt.sample_li(scene, light_idx, rec["p"], u_light, light_types)
     wi_world = s["wi"]
-    f, scattering_pdf = bx.eval_material(mat, wo_local,
-                                         bx.to_local(ss, ts, ns, wi_world),
-                                         mat_types)
+    with record_function("layer: materials"):
+        f, scattering_pdf = bx.eval_material(mat, wo_local,
+                                             bx.to_local(ss, ts, ns, wi_world),
+                                             mat_types)
     f = f * absdot(wi_world, ns)[:, None]
     usable = (mask & (s["pdf"] > 0.0) & torch.any(s["li"] > 0.0, -1)
               & torch.any(f != 0.0, -1))
@@ -100,12 +111,16 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
                          smp.power_heuristic(1.0, s["pdf"], 1.0, scattering_pdf))
 
     # BSDF-sampling strategy (non-delta lights only)
-    bs = bx.sample_material(mat, wo_local, u_scattering, mat_types)
+    bs = bsdf_sample
+    if bs is None:
+        with record_function("layer: materials"):
+            bs = bx.sample_material(mat, wo_local, u_scattering, mat_types)
     wi2_world = bx.to_world(ss, ts, ns, bs["wi"])
     f2 = bs["f"] * absdot(wi2_world, ns)[:, None]
     do_bsdf = mask & ~s["is_delta"] & bs["valid"]
     o2 = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], wi2_world)
-    light_pdf2 = lt.pdf_li(scene, light_idx, o2, wi2_world, light_types)
+    with record_function("layer: lights"):
+        light_pdf2 = lt.pdf_li(scene, light_idx, o2, wi2_world, light_types)
     weight2 = torch.where(bs["is_specular"], 1.0,
                           smp.power_heuristic(1.0, bs["pdf"], 1.0, light_pdf2))
     zero_light_pdf = ~bs["is_specular"] & (light_pdf2 == 0.0)
@@ -170,12 +185,13 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
 
 def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
                      u_scattering, mask, extra_ray=None, pick=None,
-                     tr_fn=None, isect_tr_fn=None):
+                     tr_fn=None, isect_tr_fn=None, bsdf_sample=None):
     """UniformSampleOneLight (integrator.cpp:85-106): pick one light from the
     scene's light distribution, or take the per-lane (light_idx, pmf) of the
     spatial distribution (lightdistrib.cpp:135) when `pick` is given,
     estimate direct lighting, divide by its pmf.  Returns (Ld,
-    extra_hits) as estimate_direct does; tr_fn and isect_tr_fn as there."""
+    extra_hits) as estimate_direct does; tr_fn, isect_tr_fn and
+    bsdf_sample as there."""
     if pick is not None:
         light_idx, pmf = pick
     else:
@@ -183,5 +199,5 @@ def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
     ld, extra_hits = estimate_direct(
         scene, rec, frame, mat, wo_local, light_idx, u_light, u_scattering,
         mask & (pmf > 0.0), extra_ray, extra_live=mask, tr_fn=tr_fn,
-        isect_tr_fn=isect_tr_fn)
+        isect_tr_fn=isect_tr_fn, bsdf_sample=bsdf_sample)
     return ld / torch.clamp(pmf, min=1e-20)[:, None], extra_hits

@@ -126,7 +126,8 @@ def li_direct(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
             break
 
         mat = bx.gather_material(scene.materials, rec["material"],
-                                 eval_scene_textures(scene, rec))
+                                 eval_scene_textures(scene, rec),
+                                 scene.mat_types, scene.mix_sub_types)
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])

@@ -156,8 +156,10 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
         duv = None
         if ray_diffs is not None and scene.has_textures:
             duv = tv.uv_differentials(rec, *ray_diffs)
-        mat = bx.gather_material(scene.materials, rec["material"],
-                                 eval_scene_textures(scene, rec, duv))
+        tex = eval_scene_textures(scene, rec, duv)
+        with record_function("layer: materials"):
+            mat = bx.gather_material(scene.materials, rec["material"], tex,
+                                     scene.mat_types, scene.mix_sub_types)
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])
@@ -178,13 +180,23 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
                 pick = ldist.spatial_pick_light(
                     scene.spatial_grid_res, scene.spatial_b0, scene.spatial_diag,
                     scene.spatial_cdf, scene.spatial_pmf, rec["p"], u_select)
-        bs = bx.sample_material(mat, wo_local, u_bsdf, scene.mat_types)
+        with record_function("layer: materials"):
+            # the NEE's MIS sample (u_scatter) and the next bounce's
+            # (u_bsdf) in one call over both lane sets: bit for bit the two
+            # calls, half their operations
+            n = u_bsdf.shape[0]
+            both = bx.sample_material(_twice(mat), torch.cat([wo_local, wo_local]),
+                                      torch.cat([u_scatter, u_bsdf]),
+                                      scene.mat_types)
+            bs_mis = {k: v[:n] for k, v in both.items()}
+            bs = {k: v[n:] for k, v in both.items()}
         wi_world = bx.to_world(ss, ts, ns, bs["wi"])
         o_next = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], wi_world)
         with record_function("layer: NEE incl. its traversal"):
             ld, (t_next, prim_next) = common.sample_one_light(
                 scene, rec, frame, mat, wo_local, u_select, u_light, u_scatter,
-                has_bsdf, extra_ray=(o_next, wi_world), pick=pick)
+                has_bsdf, extra_ray=(o_next, wi_world), pick=pick,
+                bsdf_sample=bs_mis)
         L = L + torch.where(has_bsdf[:, None], beta * ld, 0.0)
 
         valid = has_bsdf & bs["valid"]
@@ -220,6 +232,13 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
                 prim_next), counters
 
     return body
+
+
+def _twice(mat):
+    """A material dict with every lane's parameters twice, [mat; mat]."""
+    return {k: (_twice(v) if isinstance(v, dict) else
+                torch.cat([v, v]) if isinstance(v, torch.Tensor) else v)
+            for k, v in mat.items()}
 
 
 def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:

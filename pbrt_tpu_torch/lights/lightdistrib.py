@@ -117,6 +117,7 @@ def build_spatial_distribution(scene):
 
     contrib = torch.zeros((V, L), dtype=torch.float32, device=dev)
     vox_per_chunk = max(1, CHUNK // S)
+    types = scene.lights.light_type.cpu().tolist()
     with torch.no_grad():
         for l in range(L):
             parts = []
@@ -126,7 +127,8 @@ def build_spatial_distribution(scene):
                        + t_pos[None] * vmax[v0:v1, None, :]).reshape(-1, 3)
                 u = u_all.repeat(v1 - v0, 1)
                 idx = torch.full((pts.shape[0],), l, dtype=torch.int64, device=dev)
-                s = lt.sample_li(scene, idx, pts, u, scene.light_types)
+                # every lane is light l: only its type's branch runs
+                s = lt.sample_li(scene, idx, pts, u, (types[l],))
                 li, pdf = s["li"], s["pdf"]
                 y = 0.212671 * li[:, 0] + 0.715160 * li[:, 1] + 0.072169 * li[:, 2]
                 parts.append(torch.where(pdf > 0, y / torch.where(pdf > 0, pdf, 1.0),

@@ -87,14 +87,24 @@ def apply_params(scene, camera, params):
     return scene, camera
 
 
+# materials and lights whose gradients are not held against the JAX
+# package (its diff.py differentiates them generically)
+_UNCHECKED_MATERIALS = (sc.MAT_GLASS, sc.MAT_METAL, sc.MAT_SUBSTRATE,
+                        sc.MAT_UBER, sc.MAT_TRANSLUCENT, sc.MAT_MIX)
+_UNCHECKED_LIGHTS = (sc.LIGHT_INFINITE, sc.LIGHT_SPOT, sc.LIGHT_DISTANT,
+                     sc.LIGHT_PROJECTION, sc.LIGHT_GONIO)
+
+
 def _refuse_unchecked(scene):
-    """Gradients through textures, glass and the infinite light are not held
-    against the JAX package; a step on such a scene raises instead of
-    returning an unchecked gradient."""
-    lacks = [what for what, present in (
-        ("textures", scene.has_textures),
-        ("glass", sc.MAT_GLASS in scene.mat_types),
-        ("infinite lights", sc.LIGHT_INFINITE in scene.light_types)) if present]
+    """Gradients through textures, glass, metal, substrate, uber,
+    translucent and mix, and the infinite, spot, distant, projection and
+    goniometric lights are not held against the JAX package; a step on
+    such a scene raises instead of returning an unchecked gradient."""
+    lacks = (["textures"] if scene.has_textures else [])
+    lacks += [sc.SUPPORTED_MATERIALS[t] for t in _UNCHECKED_MATERIALS
+              if t in scene.mat_types]
+    lacks += [f"{sc.SUPPORTED_LIGHTS[t]} lights" for t in _UNCHECKED_LIGHTS
+              if t in scene.light_types]
     if lacks:
         raise NotImplementedError(
             f"gradients through {', '.join(lacks)} are not ported")

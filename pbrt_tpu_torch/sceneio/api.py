@@ -8,13 +8,15 @@ and direct-lighting integrators render:
 * ``Camera "perspective"`` (with ``lensradius``/``focaldistance``), the image
   film, the box filter, the halton and sobol samplers, ``Integrator
   "path"`` and ``"directlighting"``;
-* matte, plastic, mirror and glass materials, named materials and the
-  default matte material; matte's and plastic's Kd, Ks, sigma and roughness
-  bind to textures;
+* matte, plastic, mirror, glass, metal (copper by default), substrate,
+  uber, translucent and mix materials, named materials and the default
+  matte material; Kd, Ks, matte's sigma, plastic's roughness and uber's
+  opacity bind to textures, as the JAX package binds them;
 * ``Texture``: constant, scale, mix, checkerboard (2D), uv, bilerp, fbm,
   wrinkled, windy, marble, dots and imagemap, with uv mapping;
-* point lights, infinite lights (constant or with ``mapname``) and diffuse
-  area lights on triangle meshes and spheres;
+* point, spot, distant, projection and goniometric lights, infinite
+  lights (constant or with ``mapname``) and diffuse area lights on
+  triangle meshes and spheres;
 * ``trianglemesh``, ``sphere`` and ``plymesh`` shapes;
 * ``MakeNamedMedium`` (homogeneous and heterogeneous) and
   ``MediumInterface``: in the options block it sets the camera's medium,
@@ -26,7 +28,9 @@ and direct-lighting integrators render:
 Everything else raises NotImplementedError naming what is missing:
 instancing, other shapes, lights, materials, medium types, texture classes
 and mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
-stand-in: a missing image file raises.
+stand-in: a missing image file raises, and so do a mix naming an unknown
+or a mix material, and a spot light's "from" or "to" (which the JAX
+package does not read).
 
 Output: ``RenderSetup``, everything render.py needs.
 """
@@ -475,33 +479,111 @@ class PbrtApi:
             kw["kt"] = ps.find_one_spectrum("Kt", 1.0)
             kw["eta"] = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
             kw["roughness"] = ps.find_one_float("uroughness", 0.0)
+        elif name == "metal":
+            # copper by default (metal.cpp:115-121); roughness alone, as
+            # the JAX package reads it (api.py:481-487)
+            from ..core.sampled_spectrum import copper_eta_k_rgb
+
+            mt = sc.MAT_METAL
+            cu_eta, cu_k = copper_eta_k_rgb()
+            kw["metal_eta"] = ps.find_one_spectrum("eta", tuple(cu_eta))
+            kw["metal_k"] = ps.find_one_spectrum("k", tuple(cu_k))
+            kw["roughness"] = ps.find_one_float("roughness", 0.01)
+            kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
+        elif name == "uber":
+            mt = sc.MAT_UBER
+            self._bind(ps, kw, "Kd", "kd", 0.25)
+            self._bind(ps, kw, "Ks", "ks", 0.25)
+            kw["kr"] = ps.find_one_spectrum("Kr", 0.0)
+            kw["kt"] = ps.find_one_spectrum("Kt", 0.0)
+            self._bind(ps, kw, "opacity", "opacity", 1.0)
+            kw["roughness"] = ps.find_one_float("roughness", 0.1)
+            kw["eta"] = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
+            kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
+        elif name == "substrate":
+            mt = sc.MAT_SUBSTRATE
+            self._bind(ps, kw, "Kd", "kd", 0.5)
+            self._bind(ps, kw, "Ks", "ks", 0.5)
+            kw["urough"] = ps.find_one_float("uroughness", 0.1)
+            kw["vrough"] = ps.find_one_float("vroughness", 0.1)
+            kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
+        elif name == "translucent":
+            # "reflect" and "transmit" weigh the lobes (translucent.cpp:47-76)
+            mt = sc.MAT_TRANSLUCENT
+            self._bind(ps, kw, "Kd", "kd", 0.25)
+            self._bind(ps, kw, "Ks", "ks", 0.25)
+            kw["kr"] = ps.find_one_spectrum("reflect", 0.5)
+            kw["kt"] = ps.find_one_spectrum("transmit", 0.5)
+            kw["roughness"] = ps.find_one_float("roughness", 0.1)
+            kw["remap_roughness"] = ps.find_one_bool("remaproughness", True)
+        elif name == "mix":
+            # two named materials blended by amount (mixmat.cpp:46)
+            mt = sc.MAT_MIX
+            for key, pname in (("mix_m1", "namedmaterial1"),
+                               ("mix_m2", "namedmaterial2")):
+                ref = ps.find_one_string(pname, "")
+                if ref not in self.gs.named_materials:
+                    raise ValueError(f"mix material: {pname} {ref!r} was never "
+                                     "made")
+                kw[key] = self.gs.named_materials[ref]
+            kw["mix_amount"] = ps.find_one_spectrum("amount", 0.5)
         else:
             raise NotImplementedError(
-                f"material {name!r}: the port has matte, plastic, mirror and "
-                "glass")
+                f"material {name!r}: the port has "
+                f"{', '.join(sc.SUPPORTED_MATERIALS.values())}")
         return self.setup.scene_builder.add_material(mt, **kw)
+
+    def _map_image(self, ps: ParamSet):
+        """A light's "mapname" image, read as the infinite light's map is,
+        or None without one."""
+        from ..utils.imageio import read_image
+
+        mapname = ps.find_one_string("mapname", "")
+        return read_image(self._path(mapname)) if mapname else None
 
     # ---- lights ----
     def light_source(self, name, params):
         ps = ParamSet.from_decls(params)
         b = self.setup.scene_builder
+        scale = np.asarray(ps.find_one_spectrum("scale", 1.0))
         if name == "point":
-            i = (np.asarray(ps.find_one_spectrum("I", 1.0))
-                 * np.asarray(ps.find_one_spectrum("scale", 1.0)))
+            i = np.asarray(ps.find_one_spectrum("I", 1.0)) * scale
             from_p = ps.find_one_point("from", (0, 0, 0))
             b.add_point_light(self.ctm @ tf.translate(*from_p), i)
+        elif name == "spot":
+            # the JAX package places the spot by the CTM alone (api.py:
+            # 657-665); pbrt's spot.cpp composes LookAt(from, to)
+            for pname, default in (("from", (0, 0, 0)), ("to", (0, 0, 1))):
+                if not np.array_equal(ps.find_one_point(pname, default), default):
+                    raise NotImplementedError(
+                        f'spot light "{pname}": the JAX package does not read '
+                        "it; place the spot with the CTM")
+            b.add_spot_light(self.ctm, np.asarray(ps.find_one_spectrum("I", 1.0))
+                             * scale,
+                             cone_angle_deg=ps.find_one_float("coneangle", 30.0),
+                             cone_delta_deg=ps.find_one_float("conedeltaangle", 5.0))
+        elif name == "distant":
+            from_p = ps.find_one_point("from", (0, 0, 0))
+            to_p = ps.find_one_point("to", (0, 0, 1))
+            b.add_distant_light(self.ctm.apply_vector(from_p - to_p),
+                                np.asarray(ps.find_one_spectrum("L", 1.0)) * scale)
+        elif name == "projection":
+            b.add_projection_light(
+                self.ctm, np.asarray(ps.find_one_spectrum("I", 1.0)) * scale,
+                fov_deg=ps.find_one_float("fov", 45.0), image=self._map_image(ps))
+        elif name == "goniometric":
+            b.add_gonio_light(self.ctm,
+                              np.asarray(ps.find_one_spectrum("I", 1.0)) * scale,
+                              image=self._map_image(ps))
         elif name == "infinite":
-            from ..utils.imageio import read_image
-
-            L = (np.asarray(ps.find_one_spectrum("L", 1.0))
-                 * np.asarray(ps.find_one_spectrum("scale", 1.0)))
-            mapname = ps.find_one_string("mapname", "")
-            img = read_image(self._path(mapname)) * L if mapname else None
-            b.add_infinite_light(L=L, image=img, world_to_light=self.ctm.m_inv)
+            L = np.asarray(ps.find_one_spectrum("L", 1.0)) * scale
+            img = self._map_image(ps)
+            b.add_infinite_light(L=L, image=None if img is None else img * L,
+                                 world_to_light=self.ctm.m_inv)
         else:
             raise NotImplementedError(
-                f"light {name!r}: the port has point, infinite and diffuse "
-                "area lights")
+                f"light {name!r}: the port has point, spot, distant, "
+                "projection, goniometric, infinite and diffuse area lights")
         ps.report_unused(f"LightSource {name}")
 
     def area_light_source(self, name, params):

@@ -19,6 +19,7 @@ from test_torch_scene import demo, soup
 from test_torch_traverse import (assert_hits_agree, both, camera_rays,
                                  coherent_rays, jax_traverse, tri_scene)
 from test_torch_trees import caterpillar_rays, caterpillar_tree
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 SCENES = {"tri200": tri_scene, "demo": demo, "soup": soup}
 

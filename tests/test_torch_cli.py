@@ -20,6 +20,7 @@ from pbrt_tpu_torch import __main__ as cli
 from pbrt_tpu_torch import render as trender
 from pbrt_tpu_torch.utils import imageio as timg
 from pbrt_tpu_torch.utils import stats as tst
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PARITY = ROOT / "refgold" / "parity"

@@ -7,10 +7,13 @@ card against one on the CPU, the CLI on the card against a pbrt-v3
 golden, a differentiable render step on the card against one on the
 CPU and under each BVH kernel, and the config-3 file (textures, glass, the
 infinite light), the direct-lighting integrator, the volumetric path
-integrator on d_media_volpath, and the Whitted and AO integrators on the
-card against the CPU (and under each BVH kernel), with their launch counts;
-and each kernel against its plain version on every batch of a volpath, a
-Whitted and an AO sample.
+integrator on d_media_volpath, the Whitted and AO integrators, and the
+breadth file (pbrt-v3's classic materials and lights) on the card against
+the CPU (and under each BVH kernel), with their launch counts; each kernel
+against its plain version on every batch of a volpath, a Whitted, an AO
+and a breadth sample; and the metal, substrate, uber, translucent and mix
+materials and the spot, distant, projection and goniometric lights on the
+card against the CPU, lane by lane.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -37,7 +40,8 @@ from pbrt_tpu_torch.sceneio import parse_pbrt_file
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_trees import caterpillar_rays, caterpillar_tree
-from chip_smoke import bvh_switch, write_config3_pbrt
+from chip_smoke import bvh_switch, write_breadth_pbrt, write_config3_pbrt
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -545,3 +549,108 @@ def test_whitted_and_ao_batches_kernel_equals_plain(tmp_path, integrator,
     the kernel and its plain version, bit for bit."""
     path = parity_file(tmp_path, "c4_mirror_d3", 32, 1, integrator)
     assert assert_batches_equal_plain(path, kind, per_spp) > 32 * 32
+
+
+# the spatial grid at the breadth scene's extent costs ~30 s on the CPU
+BREADTH = dict(res=(32, 32), blob=(64, 32), depth=3,
+               extra=' "string lightsamplestrategy" "uniform"')
+
+
+def test_breadth_on_card_matches_cpu_and_bvh2(tmp_path):
+    """write_breadth_pbrt at 32x32 @ 2 spp, depth 3: 2 x (1 + 3) launches,
+    the CPU at tests/test_torch_path.py:58-59's bars, bvh2 against bvh4, a
+    bit-identical repeat."""
+    path = write_breadth_pbrt(tmp_path, spp=2, **BREADTH)
+    card, n4 = file_render(path, "cuda")
+    assert n4 == (2 * 4, 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_image_bars(card, file_render(path, "cpu")[0])
+    card2, n2 = file_render(path, "cuda", "0")
+    assert n2 == (0, 2 * 4)
+    assert_image_bars(card2, card)
+    assert torch.equal(file_render(path, "cuda")[0], card)
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+def test_breadth_batches_kernel_equals_plain(tmp_path, kind):
+    """Every batch one breadth sample launches (the camera rays, then the
+    merged [shadow | MIS | extension] batches, whose shadow lanes reach the
+    spot, distant, projection and goniometric lights) through the kernel
+    and its plain version, bit for bit."""
+    path = write_breadth_pbrt(tmp_path, spp=1, **BREADTH)
+    assert assert_batches_equal_plain(path, kind, 1 + 3) > 32 * 32
+
+
+def breadth_functions_scene(device):
+    """Each new material (uber at opacity 0.5 with Kr and Kt, mix of matte
+    and metal) and each new light, with a point light."""
+    b = sc.SceneBuilder()
+    matte = b.add_material(sc.MAT_MATTE, kd=(0.2, 0.6, 0.3))
+    metal = b.add_material(sc.MAT_METAL, roughness=0.05)
+    b.add_material(sc.MAT_SUBSTRATE, kd=(0.5, 0.5, 0.7), ks=(0.3, 0.3, 0.3),
+                   urough=0.05, vrough=0.2)
+    b.add_material(sc.MAT_UBER, kd=(0.3, 0.3, 0.3), ks=(0.2, 0.2, 0.2),
+                   kr=(0.1, 0.1, 0.1), kt=(0.4, 0.5, 0.6), roughness=0.05,
+                   opacity=(0.5, 0.5, 0.5))
+    b.add_material(sc.MAT_TRANSLUCENT, kd=(0.6, 0.5, 0.4), ks=(0.2, 0.2, 0.2),
+                   kr=(0.5, 0.5, 0.5), kt=(0.5, 0.5, 0.5), roughness=0.1)
+    b.add_material(sc.MAT_MIX, mix_m1=matte, mix_m2=metal,
+                   mix_amount=(0.3, 0.3, 0.3))
+    b.add_triangle_mesh([[0, 1, 2]], [[-3, -3, 0], [3, -3, 0], [0, 3, 0]],
+                        material=matte)
+    rs = np.random.RandomState(5)
+    b.add_point_light(tf.translate(1, -2, 6), (30.0, 20.0, 10.0))
+    b.add_spot_light(tf.translate(0, 0, 7) @ tf.rotate(170, 1, 0, 0),
+                     (60.0, 50.0, 40.0), cone_angle_deg=35.0, cone_delta_deg=10.0)
+    b.add_distant_light((-1.0, -0.6, 2.0), (1.2, 1.1, 0.9))
+    b.add_projection_light(tf.translate(0, -1, 8) @ tf.rotate(180, 1, 0, 0),
+                           (80.0, 80.0, 80.0), fov_deg=50.0,
+                           image=(0.2 + 0.8 * rs.rand(24, 32, 3)).astype(np.float32))
+    b.add_gonio_light(tf.translate(-3, 2, 4), (25.0, 25.0, 25.0),
+                      image=(0.3 + rs.rand(16, 32, 3)).astype(np.float32))
+    return b.build(device=device)
+
+
+def assert_lanes_close(ref, got, what):
+    """tests/test_torch_shading.py's bars: rtol 1e-5, atol 1e-6 on 99.9% of
+    lanes, rtol 1e-3 on all; booleans exact."""
+    ref, got = ref.cpu(), got.cpu()
+    if ref.dtype == torch.bool:
+        assert torch.equal(ref, got), what
+        return
+    ok = torch.isclose(got, ref, rtol=1e-5, atol=1e-6).reshape(ref.shape[0], -1)
+    assert ok.all(-1).float().mean() >= 0.999, what
+    assert torch.allclose(got, ref, rtol=1e-3, atol=1e-6), what
+
+
+def test_breadth_materials_and_lights_on_card_match_cpu():
+    from pbrt_tpu_torch.lights import lights as lt
+    from pbrt_tpu_torch.materials import bsdf as bx
+
+    n = 4096
+    rs = np.random.RandomState(9)
+    ids = torch.as_tensor(rs.randint(1, 6, n).astype(np.int32))
+    wo, wi = (torch.as_tensor(v / np.linalg.norm(v, axis=-1, keepdims=True),
+                              dtype=torch.float32)
+              for v in (rs.randn(n, 3), rs.randn(n, 3)))
+    u = torch.as_tensor(rs.rand(n, 2).astype(np.float32))
+    lidx = torch.as_tensor(rs.randint(0, 5, n))
+    ref_p = torch.as_tensor((rs.randn(n, 3) * [3.0, 3.0, 0.5]).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        scene = breadth_functions_scene(device)
+        mt = scene.mat_types
+        m = bx.gather_material(scene.materials, ids.to(device), mat_types=mt,
+                               sub_types=scene.mix_sub_types)
+        a, b_, c, p = (x.to(device) for x in (wo, wi, u, ref_p))
+        f, pdf = bx.eval_material(m, a, b_, mt)
+        s = bx.sample_material(m, a, c, mt)
+        li = lt.sample_li(scene, lidx.to(device), p, c, scene.light_types)
+        out[device] = dict(f=f, pdf=pdf, count=bx.count_nonspecular(m),
+                           **{f"s_{k}": v for k, v in s.items()},
+                           **{f"li_{k}": v for k, v in li.items()},
+                           pdf_li=lt.pdf_li(scene, lidx.to(device), p, b_,
+                                            scene.light_types))
+    for k, ref in out["cpu"].items():
+        assert_lanes_close(ref, out["cuda"][k], k)
+    assert out["cpu"]["s_valid"].float().mean() > 0.3

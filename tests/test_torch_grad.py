@@ -43,6 +43,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.utils import stats as st
 from test_grad import RES, _camera, _plane_scene
 from test_torch_path import match_frac
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 LEAVES = ("kd", "ks", "roughness", "light_L")
 
@@ -92,18 +93,26 @@ def _seeded_values(scene, camera):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_step():
+    """The JAX package's depth-1 grad step, jitted once for both scenes:
+    the statics of the plastic scene, whose material types (matte and
+    plastic) hold the matte scene's, and whose arrays have the matte
+    scene's shapes; a type absent from a scene only adds masked lanes."""
+    pixels = jnp.asarray(make_pixel_grid(jfm.FilmConfig(full_resolution=RES)))
+    w, statics = jnp.asarray(_weights()), scene_statics(_plane_scene(True))
+    # pixels and weights as constants of the trace: XLA compiles it faster.
+    return jax.jit(lambda s, c: jdiff.render_grad_step(
+        s, c, pixels, jnp.uint32(0), w, JSampler("sobol", 4, RES),
+        JPath(max_depth=1), statics, remat=False))
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_and_port(plastic):
     """Depth-1 (L, grads) of both packages on the same parameter values."""
     js, jc = _plane_scene(plastic), _camera()
     vals = _seeded_values(js, jc)
     js2, jc2 = jdiff.apply_params(js, jc, vals)
-    pixels = jnp.asarray(make_pixel_grid(jfm.FilmConfig(full_resolution=RES)))
-    w, statics = jnp.asarray(_weights()), scene_statics(js)
-    # pixels and weights as constants of the trace: XLA compiles it faster.
-    step = jax.jit(lambda s, c: jdiff.render_grad_step(
-        s, c, pixels, jnp.uint32(0), w, JSampler("sobol", 4, RES),
-        JPath(max_depth=1), statics, remat=False))
-    jL, jg = step(js2, jc2)
+    jL, jg = _jax_step()(js2, jc2)
     jg = jax.tree_util.tree_map(np.asarray, jg)
 
     scene, camera, tpix, w, scfg, pcfg = _port(plastic, 1)

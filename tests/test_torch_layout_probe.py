@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N = 8192

@@ -21,6 +21,7 @@ from pbrt_tpu.lights import lightdistrib as jld
 from pbrt_tpu_torch import render as trender
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.lights import lightdistrib as tld
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PARITY = pathlib.Path(__file__).resolve().parent.parent / "refgold" / "parity"
 
@@ -32,11 +33,37 @@ def both(name):
     return js, ts
 
 
-@pytest.mark.parametrize("name", ["b_arealight", "c2_twolights_d2"])
-def test_distribution_matches_jax(name):
+SPATIAL = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
+           "spatial_pmf")
+
+
+@pytest.fixture(scope="module")
+def c2_setups():
+    """c2_twolights_d2 parsed by both packages, each scene built once (the
+    setups keep it) and its spatial distribution built once through the
+    package's own per-scene cache, which the render below hits again."""
+    path = str(PARITY / "c2_twolights_d2.pbrt")
+    jsetup, tsetup = jio.parse_pbrt_file(path), tio.parse_pbrt_file(path)
+    js, ts = jsetup.build_scene(), tsetup.build_scene("cpu")
+    js = jld.ensure_spatial_light_distribution(js, scene_statics(js).light_types)
+    ts = tld.ensure_spatial_light_distribution(ts)
+    return jsetup, tsetup, js, ts
+
+
+def _distributions(name, c2_setups):
+    """(the JAX package's, the port's) (grid_res, b0, diag, cdf, pmf)."""
+    if name == "c2_twolights_d2":
+        _, _, js, ts = c2_setups
+        return ([np.asarray(getattr(js, k)) for k in SPATIAL],
+                [getattr(ts, k).numpy() for k in SPATIAL])
     js, ts = both(name)
-    ref = jld.build_spatial_distribution(js, scene_statics(js).light_types)
-    got = tld.build_spatial_distribution(ts)
+    return (jld.build_spatial_distribution(js, scene_statics(js).light_types),
+            tld.build_spatial_distribution(ts))
+
+
+@pytest.mark.parametrize("name", ["b_arealight", "c2_twolights_d2"])
+def test_distribution_matches_jax(name, c2_setups):
+    ref, got = _distributions(name, c2_setups)
     for a, b in zip(ref[:3], got[:3]):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(ref[3:], got[3:]):
@@ -68,14 +95,15 @@ def test_built_once_per_scene():
     assert tld.ensure_spatial_light_distribution(a) is a
 
 
-def test_spatial_render_matches_jax():
+def test_spatial_render_matches_jax(c2_setups):
     """c2_twolights_d2 (a point light and an area light, the default
     "spatial" strategy) at 32x32, 2 spp, depth 2, rendered by both packages,
-    at test_parity_images.py's bars for that scene."""
-    path = str(PARITY / "c2_twolights_d2.pbrt")
+    at test_parity_images.py's bars for that scene; each render takes the
+    distribution c2_setups built."""
+    jsetup, tsetup = c2_setups[:2]
     kw = dict(spp_override=2, res_override=(32, 32))
-    ref, _ = jrender.render_setup(jio.parse_pbrt_file(path), **kw)
-    got, stats = trender.render_setup(tio.parse_pbrt_file(path), device="cpu", **kw)
+    ref, _ = jrender.render_setup(jsetup, **kw)
+    got, stats = trender.render_setup(tsetup, device="cpu", **kw)
     ref = np.asarray(ref)
     assert got.shape == ref.shape == (32, 32, 3)
     rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-2)

@@ -18,6 +18,7 @@ import torch
 
 from pbrt_tpu.media import media as jm
 from pbrt_tpu_torch.media import media as tm
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4096
 W2M = np.array([[0.5, 0.1, 0.0, 0.3], [0.0, 0.4, 0.1, 0.2],

@@ -15,6 +15,7 @@ from pbrt_tpu_torch.cameras import cameras as tcam
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.filters import make_filter as tmake_filter
 from pbrt_tpu_torch.samplers import samplers as tsa
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES = (16, 16)
 SPP = 4

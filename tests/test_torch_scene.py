@@ -11,6 +11,7 @@ from pbrt_tpu_torch import scene as tsc
 from pbrt_tpu_torch.accel import build as tbuild
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.ops import bvh as kb
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def demo(sc, tf):
@@ -130,9 +131,9 @@ def test_bvh4_table_covers_every_primitive_once():
 def test_refuses_what_is_not_ported():
     b = tsc.SceneBuilder()
     with pytest.raises(NotImplementedError):
-        b.add_material(4)  # metal
+        b.add_material(9)  # disney
     j = jsc.SceneBuilder()
-    m = j.add_material(jsc.MAT_METAL)
+    m = j.add_material(jsc.MAT_DISNEY)
     j.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_numpy(_jax_fields(j.build()), "cpu")

@@ -15,6 +15,7 @@ from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.sceneio import plyload as tply
 from test_sceneio import SIMPLE_SCENE
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PARITY = pathlib.Path(__file__).resolve().parent.parent / "refgold" / "parity"
 LADDER = ["a_floor_point", "c3_plastic_d1", "b_arealight", "c2_twolights_d2",
@@ -121,13 +122,13 @@ def test_include_and_plymesh_match_jax(tmp_path):
      "mapping"),
     ('Texture "t" "spectrum" "constant"\nMaterial "mirror" "texture Kr" "t"\n',
      "texture Kr"),
-    ('Material "metal"\n', "metal"),
-    ('LightSource "distant"\n', "distant"),
+    ('Material "disney"\n', "disney"),
+    ('LightSource "distant" "spectrum L" [400 1 700 1]\n', "spectrum L"),
     ('Material "matte" "spectrum Kd" [400 .5 700 .5]\n', "spectrum Kd"),
     ('ObjectBegin "o"\nObjectEnd\n', "instancing"),
     ('MakeNamedMedium "m" "string type" "cloud"\n', "cloud"),
     ('Shape "curve"\n', "curve"),
-    ('LightSource "spot"\n', "spot"),
+    ('LightSource "spot" "point from" [0 0 1]\n', "from"),
     ('Shape "cylinder"\n', "cylinder"),
     ('AreaLightSource "diffuse"\nShape "plymesh" "string filename" "x.ply"\n',
      "plymesh"),

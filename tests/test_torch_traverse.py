@@ -17,6 +17,7 @@ from pbrt_tpu_torch.accel import traverse as ttv
 from pbrt_tpu_torch.ops import bvh as kb
 from pbrt_tpu_torch.shapes import triangle as ttri
 from test_torch_scene import demo, soup
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def tri_scene(sc, tf, n_tris=200, seed=0):

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from pbrt_tpu_torch.ops import bvh as kb
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def caterpillar_tree(m):

@@ -27,6 +27,7 @@ from pbrt_tpu_torch.integrators.direct import DirectLightingConfig
 from pbrt_tpu_torch.ops import bvh as kb
 from test_torch_path import match_frac, mean_rel
 from test_torch_volpath import small_d_media
+import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 MIRROR = "refgold/parity/c4_mirror_d3.pbrt"
 
