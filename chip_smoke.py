@@ -113,6 +113,27 @@ Phases, each printing its result on a line of its own and its seconds:
      torch.profiler, its table written to FILE's name plus "_breadth"
      (ranges "layer: materials" and "layer: lights", main's beside them in
      phase 5's table);
+ 15. advanced: pbrt-v3's remaining materials through render.render_file
+     (write_advanced_pbrt): the main scene's blob in kdsubsurface, the
+     mirror sphere in subsurface "Skin1", the floor in fourier (the
+     port's copy of roughgold_alpha_0.2.bsdf), a disney and a hair sphere,
+     the wall in matte and the emissive sphere; path at 400x400 @ 8 spp,
+     depth 5, halton, spatial distribution: Mrays/s (BSSRDF probe rays
+     among the rays), the wall a spp, process CPU and set-up by phase (a
+     BSSRDF table and the .bsdf read timed alone), the bytes on the card,
+     8 x 36 bvh4 launches (the camera rays, then a bounce's NEE, 4 probe
+     segments, the exit point's NEE and the next closest hit), a
+     bit-identical repeat, PBRT_TPU_BVH4=0 with as many bvh2 launches
+     against bvh4, a 64x64 @ 1 spp copy under path and directlighting
+     "all" on the card against the CPU, each side with its own spatial
+     distribution, at tests/test_torch_path.py:58-59's bars, and each
+     kernel against its plain version bit for bit and bvh2 against bvh4
+     on one spp's camera batch, bounce 0's NEE batch, its first probe
+     segment and its next-bounce launch; with --profile FILE, one spp
+     under torch.profiler, its table written to FILE's name plus
+     "_advanced" (ranges "layer: materials / fourier", "/ disney",
+     "/ hair", "layer: subsurface / probe walk", "/ sr sampling",
+     "/ exit NEE");
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -143,6 +164,11 @@ SPP, DEPTH, RES = 8, 5, (400, 400)
 # scene (one light) 1 + 1 a bounce but the last, 1 at the last; ao 1 + 64
 CONFIG4_LAUNCHES = DEPTH * (1 + 16) + 1
 WHITTED_LAUNCHES = DEPTH * (1 + 1) + 1
+# the advanced scene (subsurface, path): the camera rays, then a bounce but
+# the last launches its NEE, PROBE_DEPTH probe segments, its exit point's
+# NEE and its next closest hit (pbrt_tpu_torch/integrators/path.py)
+PROBE_DEPTH = 4
+ADVANCED_LAUNCHES = 1 + DEPTH * (3 + PROBE_DEPTH)
 AO_SAMPLES = 64
 
 # tests/test_parity_images.py:35-49: (scene, rel-tol, min match_frac,
@@ -611,6 +637,81 @@ def write_breadth_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
     return path
 
 
+ADVANCED_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "advanced.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]{extra}
+WorldBegin
+AttributeBegin
+  Material "fourier" "string bsdffile" "roughgold_alpha_0.2.bsdf"
+  Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.8]
+  Shape "trianglemesh" "point P" [-10 6 0  10 6 0  10 6 12  -10 6 12]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+  Material "kdsubsurface" "rgb Kd" [0.8 0.55 0.45] "rgb mfp" [0.05 0.05 0.05]
+  Shape "plymesh" "string filename" "blob.ply"
+AttributeEnd
+AttributeBegin
+  Material "subsurface" "string name" "Skin1" "float scale" [40]
+  Translate 3.7 -0.5 1.2
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Material "disney" "rgb color" [0.3 0.5 0.8] "float metallic" [0.3]
+    "float clearcoat" [0.5] "float sheen" [0.3] "float spectrans" [0.2]
+    "float roughness" [0.3]
+  Translate 2.2 -3.2 0.8
+  Shape "sphere" "float radius" [0.8]
+AttributeEnd
+AttributeBegin
+  Material "hair"
+  Translate -3.4 -1.5 1.0
+  Shape "sphere" "float radius" [1.0]
+AttributeEnd
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [40 40 40]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_advanced_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
+                        depth=DEPTH, extra="") -> Path:
+    """pbrt-v3's remaining materials on the main scene: the blob (2 nu nv
+    triangles, a PLY, radius 2) in kdsubsurface, Kd (0.8, 0.55, 0.45) and a
+    mean free path of 0.05, 2.5 % of its radius; the mirror sphere
+    (radius 1.2) in subsurface "Skin1": its measured coefficients are per
+    mm, and "scale" 40 makes a scene unit 40 mm, so its mean free path of
+    0.65-1.3 mm (blue to red) is 0.016-0.032 units, 1.4-2.7 % of the
+    radius; the floor in fourier, reading the port's copy of
+    roughgold_alpha_0.2.bsdf, copied beside the file; a sphere in disney
+    (metallic 0.3, clearcoat 0.5, sheen 0.3, spectrans 0.2: every lobe
+    present) and one in hair (the eumelanin default); the wall in matte
+    and the emissive sphere.  path at `depth`, halton, the spatial
+    distribution; extra: more parameters of the Integrator line."""
+    import shutil
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(blob[0], blob[1], seed=0, center=(0.0, 0.0, 2.2),
+                       radius=2.0)
+    write_ply(out_dir / "blob.ply", idx, v)
+    shutil.copyfile(HERE / "pbrt_tpu_torch" / "data" / "roughgold_alpha_0.2.bsdf",
+                    out_dir / "roughgold_alpha_0.2.bsdf")
+    path = out_dir / "advanced.pbrt"
+    path.write_text(ADVANCED_PBRT.format(xres=res[0], yres=res[1], spp=spp,
+                                         depth=depth, extra=extra))
+    return path
+
+
 # ---------------------------------------------------------------------------
 # BVH kernels against their plain versions and against each other
 # ---------------------------------------------------------------------------
@@ -673,11 +774,15 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
     torch.cuda.synchronize()
     runs = {}
     for key, m in (("closest", zeros), ("mask", mode)):
+        if key != timed and not bool(any_mask.any()):
+            continue  # no any-hit lane: both modes are one run
         t0 = time.perf_counter()
         runs[key] = plain(*args, m, return_counts=key == timed, order=order)
         torch.cuda.synchronize()
         if key == timed:
             plain_ms = (time.perf_counter() - t0) * 1e3
+    for key, other in (("closest", "mask"), ("mask", "closest")):
+        runs.setdefault(key, runs[other])
     t_p, p_p = runs["closest"][:2]
     tm_p, pm_p = runs["mask"][:2]
     visits, tests = runs[timed][2:]
@@ -1810,8 +1915,9 @@ def breadth_phase(render, counted, card, dev, profile):
     lt, mt = scene.lights, scene.materials
     mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
           "bvh2 nodes + triangles": scene.bvh2_nodes.nbytes + scene.prim_tris.nbytes,
-          "material table": sum(getattr(mt, f.name).nbytes
-                                for f in dataclasses.fields(mt)),
+          "material table": sum(v.nbytes for v in (getattr(mt, f.name) for f in
+                                                   dataclasses.fields(mt))
+                                if isinstance(v, torch.Tensor)),
           "texture atlas (the opacity map)": scene.textures.atlas.nbytes,
           "projection slide": lt.proj_img.nbytes,
           "goniometric map": lt.gonio_img.nbytes,
@@ -1856,6 +1962,167 @@ def breadth_phase(render, counted, card, dev, profile):
     torch.cuda.empty_cache()
     split["kernel checks"] = time.perf_counter() - t0
     print("breadth phase split, s: " + json.dumps(
+        {k: round(v, 2) for k, v in split.items()}), flush=True)
+    return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"],
+            "results": results}
+
+
+def advanced_phase(render, counted, card, dev, profile):
+    """Phase 15: pbrt-v3's remaining materials through render_file on the
+    card (write_advanced_pbrt: kdsubsurface, subsurface "Skin1", fourier,
+    disney, hair), path at 400x400 @ 8 spp, depth 5, halton, spatial
+    distribution: ADVANCED_LAUNCHES a spp, a bit-identical repeat,
+    PBRT_TPU_BVH4=0 against bvh4; a 64x64 @ 1 spp copy under path and
+    directlighting "all" on the card against the CPU (each side builds its
+    spatial distribution, held equal first); each kernel against its plain
+    version and bvh2 against bvh4 on one spp's camera batch, bounce 0's NEE
+    batch, its first probe segment and its separate next-bounce launch."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import direct
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.materials import bssrdf, fourier
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.scene import BSSRDF_FIELDS
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+    from pbrt_tpu_torch.utils import stats as pstats
+
+    out_dir = SMOKE_DIR / "advanced"
+    t0 = time.perf_counter()
+    split = {}
+    path = write_advanced_pbrt(out_dir)
+    t1 = time.perf_counter()
+    bssrdf.compute_beam_diffusion_bssrdf(0.0, 1.33)
+    t2 = time.perf_counter()
+    fourier.read_bsdf(str(out_dir / "roughgold_alpha_0.2.bsdf"))
+    print(f"advanced file written in {t1 - t0:.2f} s; set-up timed alone: one "
+          f"BSSRDF table (g 0, eta 1.33) {t2 - t1:.3f} s (the file's two "
+          f"subsurface materials share it), the .bsdf read "
+          f"{time.perf_counter() - t2:.3f} s", flush=True)
+    want = SPP * ADVANCED_LAUNCHES
+    runs = []
+    for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
+        c0 = time.process_time()
+        img, st, launches = timed_render_file(render, counted, path,
+                                              out_dir / f"{kind}.pfm", dev, switch)
+        cpu = time.process_time() - c0
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == want
+              and launches[f"{other}_traverse"] == 0,
+              f"advanced ({kind}) launches {launches}, not {want} of {kind}")
+        wall = st["phases"]["Rendering"]
+        probes = int(np.asarray(st["counters"])[
+            pstats.COUNTERS.index("Intersections/BSSRDF probe rays")])
+        print(render_line(f"advanced {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+                          launches, card)
+              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              f"call {cpu:.3f} s, {probes} BSSRDF probe rays among the rays, "
+              f"image mean {float(img.mean()):.6f}", flush=True)
+        runs.append((img, launches))
+    check(np.array_equal(runs[0][0], runs[1][0]), "advanced: a repeat differs")
+    frac, mean_rel = image_bars(runs[0][0], runs[2][0])
+    print(f"advanced bvh2 against bvh4: bit-equal "
+          f"{np.array_equal(runs[0][0], runs[2][0])}, match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}", flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"advanced bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
+    split["renders"] = time.perf_counter() - t0
+
+    # the 64x64 copy under path and directlighting "all", card against CPU,
+    # each side with the spatial distribution it builds, held equal first
+    t0 = time.perf_counter()
+    small = write_advanced_pbrt(out_dir / "small", res=(64, 64), spp=1)
+    line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
+    spatial = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
+               "spatial_pmf")
+    card_scene = lightdistrib.ensure_spatial_light_distribution(
+        parse_pbrt_file(str(small)).build_scene(dev))
+    t1 = time.perf_counter()
+    cpu_scene = lightdistrib.ensure_spatial_light_distribution(
+        parse_pbrt_file(str(small)).build_scene("cpu"))
+    cpu_build = time.perf_counter() - t1
+    errs = {}
+    for k in spatial:
+        a, b = getattr(card_scene, k).cpu().numpy(), getattr(cpu_scene, k).numpy()
+        check(a.shape == b.shape, f"advanced spatial {k}: shape {a.shape} on the "
+              f"card, {b.shape} on the CPU")
+        errs[k] = float(np.abs(a - b).max())
+        check(errs[k] == 0.0 if k in spatial[:3] else errs[k] <= 1e-5,
+              f"advanced spatial {k}: the card's differs from the CPU's by {errs[k]}")
+    print(f"advanced spatial distribution, card against cpu: max abs differences "
+          f"{json.dumps(errs)}; the CPU build {cpu_build:.2f} s", flush=True)
+    del card_scene
+    for name, integ, renderer in (
+            ("path", line, ip.render),
+            ("directlighting", f'Integrator "directlighting" "integer maxdepth" '
+                               f'[{DEPTH}] "string strategy" "all"', direct.render)):
+        p = small.with_name(f"small_{name}.pbrt")
+        p.write_text(small.read_text().replace(line, integ))
+        a, _ = render.render_file(str(p), out=str(out_dir / f"small_{name}.pfm"),
+                                  device=dev)
+        t1 = time.perf_counter()
+        setup = parse_pbrt_file(str(p))
+        film_cfg, filt = setup.make_film_config()
+        b = renderer(cpu_scene, setup.make_camera(), film_cfg,
+                     setup.make_sampler_config(), setup.make_integrator_config(),
+                     filt, device="cpu").numpy()
+        frac, mean_rel = image_bars(b, a)
+        print(f"advanced {name} card against cpu (64x64 @ 1 spp): match_frac "
+              f"{frac:.4f}, mean rel {mean_rel:.3e}; the CPU "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        check(a.shape == (64, 64, 3) and bool(np.isfinite(a).all())
+              and float(a.mean()) > 0 and frac >= 0.995 and mean_rel <= 5e-3,
+              f"advanced {name} card against cpu: match_frac {frac}, "
+              f"mean rel {mean_rel}")
+    del cpu_scene
+    split["64x64 copies"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(path))
+    scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+    mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
+          "bvh2 nodes + triangles": scene.bvh2_nodes.nbytes + scene.prim_tris.nbytes,
+          "Fourier table": sum(t.nbytes for t in scene.materials.fourier),
+          "BSSRDF tables": sum(getattr(scene, k).nbytes for k in BSSRDF_FIELDS),
+          "spatial distribution": scene.spatial_cdf.nbytes + scene.spatial_pmf.nbytes}
+    print("advanced bytes on the card, MB: " + json.dumps(
+        {k: round(v / 1e6, 4) for k, v in mb.items()}), flush=True)
+    film_cfg, filt = setup.make_film_config()
+    camera = setup.make_camera()
+    cfg = setup.make_integrator_config()
+    one = SamplerConfig("halton", 1, RES)
+    if profile is not None:
+        profile_render(lambda: ip.render(scene, camera, film_cfg, one, cfg, filt,
+                                         device=dev),
+                       profile.with_name(f"{profile.stem}_advanced{profile.suffix}"),
+                       "advanced profile")
+    kernels = bvh_kernels(bvh)
+    split["set-up, bytes, profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with bvh.record_calls() as captured:
+        ip.render(scene, camera, film_cfg, one, cfg, filt, device=dev)
+    check(len(captured) == ADVANCED_LAUNCHES,
+          f"advanced: one spp launched {len(captured)} times, not "
+          f"{ADVANCED_LAUNCHES}")
+    results = {kind: {} for kind in kernels}
+    # one spp's launches: the camera rays, then a bounce's NEE, its probe
+    # segments, its exit point's NEE and its next closest hit
+    for label, i in (("camera", 0), ("nee-b0", 1), ("probe1-b0", 2),
+                     ("next-b0", 3 + PROBE_DEPTH)):
+        oc, dc, tc, mc, order = captured[i]
+        print(f"batch advanced-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live, {int((mc > 0).sum())} any-hit", flush=True)
+        for kind, k in kernels.items():
+            results[kind][label] = kernel_case(f"{kind}-advanced-{label}", k, bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order)
+        cross_check(f"advanced-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+    del captured, scene
+    torch.cuda.empty_cache()
+    split["kernel checks"] = time.perf_counter() - t0
+    print("advanced phase split, s: " + json.dumps(
         {k: round(v, 2) for k, v in split.items()}), flush=True)
     return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"],
             "results": results}
@@ -2050,6 +2317,11 @@ def run(profile: Path | None = None) -> dict:
     br = breadth_phase(render, counted, card, dev, profile)
     phase("breadth", t0)
 
+    # 15. pbrt-v3's remaining materials: disney, hair, fourier, subsurface
+    t0 = time.perf_counter()
+    adv = advanced_phase(render, counted, card, dev, profile)
+    phase("advanced", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -2062,7 +2334,8 @@ def run(profile: Path | None = None) -> dict:
         res = results[kind]
         checked = (list(res.values()) + list(c4["results"][kind].values())
                    + list(wa["results"][kind].values())
-                   + list(br["results"][kind].values()))
+                   + list(br["results"][kind].values())
+                   + list(adv["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -2081,6 +2354,10 @@ def run(profile: Path | None = None) -> dict:
             "breadth_merged_ms": br["results"][kind]["merged-b0"]["ms"],
             "breadth_merged_plain_ms": br["results"][kind]["merged-b0"]["plain_ms"],
             "breadth_merged_bound_ms": br["results"][kind]["merged-b0"]["bound_ms"],
+            "advanced_launches": adv[kind],
+            **{f"advanced_{label.replace('-', '_')}_{key}": r[key]
+               for label, r in adv["results"][kind].items()
+               for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "mismatch_frac": max(r["mismatch_frac"] for r in checked),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],

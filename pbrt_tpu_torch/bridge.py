@@ -4,8 +4,9 @@ The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
 here, so both packages render the very same arrays: the geometry, the
-material table with its glass, metal, uber opacity, mix and texture
-columns, the light table with n_samples, the spot and distant columns, the
+material table with its glass, metal, uber opacity, disney, hair, mix,
+subsurface and texture columns and its Fourier tables, the scene's BSSRDF
+tables, the light table with n_samples, the spot and distant columns, the
 projection and goniometric lights' maps and the infinite light's map,
 world-to-light matrix and Distribution2D, the texture table (rows, image atlas, pyramid offsets,
 level counts), and the medium table with each primitive's inside and
@@ -24,8 +25,10 @@ import torch
 from .cameras import CameraParams
 from .core.sampling import DISTRIBUTION_2D_FIELDS
 from .media.media import MEDIUM_FIELDS
-from .scene import (ENV_FIELDS, LIGHT_FIELDS, MAP_LIGHT_FIELDS, MATERIAL_FIELDS,
-                    MEDIUM_ID_FIELDS, SCENE_FIELDS, SceneArrays, resolve_device)
+from .materials.fourier import TABLE_FIELDS, TABLE_INTS
+from .scene import (BSSRDF_FIELDS, ENV_FIELDS, LIGHT_FIELDS, MAP_LIGHT_FIELDS,
+                    MATERIAL_FIELDS, MEDIUM_ID_FIELDS, SCENE_FIELDS,
+                    SUBSURFACE_FIELDS, SceneArrays, resolve_device)
 from .textures.textures import TEXTURE_FIELDS
 
 
@@ -37,6 +40,8 @@ def as_numpy_fields(obj) -> dict:
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
             out[f.name] = as_numpy_fields(v)
+        elif isinstance(v, tuple) and any(dataclasses.is_dataclass(x) for x in v):
+            out[f.name] = tuple(as_numpy_fields(x) for x in v)
         elif v is None or isinstance(v, (int, float, str, tuple)):
             out[f.name] = v
         else:
@@ -99,6 +104,16 @@ def _diff(out: list, what: str, ref, got, rtol: float):
         out.append(f"{what}: {np.count_nonzero(ref != got)} entries differ")
 
 
+def _diff_optional(out: list, what: str, ref: dict, got: dict, keys, rtol):
+    """Fields present on one side only with some rows (None otherwise)."""
+    for k in keys:
+        a, b = ref.get(k), got.get(k)
+        if (a is None) != (b is None):
+            out.append(f"{what}.{k}: present on one side only")
+        elif a is not None:
+            _diff(out, f"{what}.{k}", a, b, rtol)
+
+
 def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
     """Hold a RenderSetup of the JAX package against one of the port,
     parsed from the same file: camera, film, sampler, integrator and the
@@ -154,6 +169,15 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
     for k in MATERIAL_FIELDS + ("bump_tex",):
         _diff(out, f"scene.materials.{k}", ref["materials"][k],
               got["materials"][k], rtol)
+    _diff_optional(out, "scene.materials", ref["materials"], got["materials"],
+                   SUBSURFACE_FIELDS + ("fourier_id",), rtol)
+    _diff_optional(out, "scene", ref, got, BSSRDF_FIELDS, rtol)
+    rt, gt = ref["materials"]["fourier"] or (), got["materials"].get("fourier", ())
+    if len(rt) != len(gt):
+        out.append(f"scene.materials.fourier: {len(rt)} tables != {len(gt)}")
+    for i, (a, b) in enumerate(zip(rt, gt)):
+        for k in TABLE_FIELDS + TABLE_INTS + ("eta",):
+            _diff(out, f"scene.materials.fourier[{i}].{k}", a[k], b[k], rtol)
     for k in (LIGHT_FIELDS + ENV_FIELDS + MAP_LIGHT_FIELDS
               + ("env_light_idx", "proj_light_idx", "gonio_light_idx")):
         _diff(out, f"scene.lights.{k}", ref["lights"][k], got["lights"][k], rtol)

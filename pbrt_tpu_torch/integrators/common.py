@@ -18,6 +18,8 @@ gather and BSDF sample to the latter).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.profiler import record_function
 
@@ -75,7 +77,8 @@ def _cheap_hit_normal(scene, o, d, t, prim_id):
 
 def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
                     u_scattering, mask, extra_ray=None, extra_live=None,
-                    tr_fn=None, isect_tr_fn=None, bsdf_sample=None):
+                    tr_fn=None, isect_tr_fn=None, bsdf_sample=None,
+                    mat_types=None):
     """EstimateDirect (integrator.cpp:108-215), specular = false.  Returns
     (Ld [n, 3], extra_hits): with extra_ray = (o3, d3), rays traced in the
     same launch (live where extra_live), extra_hits is their (t3, prim3),
@@ -89,8 +92,11 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
 
     bsdf_sample: sample_material's result at u_scattering when the caller
     drew it already (the path integrator draws it in one call with its
-    next bounce's sample: half the host's operations of the two)."""
-    mat_types = scene.mat_types
+    next bounce's sample: half the host's operations of the two).
+
+    mat_types: the material types mat's lanes can have, the scene's by
+    default (the path integrator's BSSRDF exit point passes the adapter's)."""
+    mat_types = scene.mat_types if mat_types is None else mat_types
     light_types = scene.light_types
     ss, ts, ns = frame
     n = light_idx.shape[0]
@@ -185,13 +191,14 @@ def estimate_direct(scene, rec, frame, mat, wo_local, light_idx, u_light,
 
 def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
                      u_scattering, mask, extra_ray=None, pick=None,
-                     tr_fn=None, isect_tr_fn=None, bsdf_sample=None):
+                     tr_fn=None, isect_tr_fn=None, bsdf_sample=None,
+                     mat_types=None):
     """UniformSampleOneLight (integrator.cpp:85-106): pick one light from the
     scene's light distribution, or take the per-lane (light_idx, pmf) of the
     spatial distribution (lightdistrib.cpp:135) when `pick` is given,
     estimate direct lighting, divide by its pmf.  Returns (Ld,
-    extra_hits) as estimate_direct does; tr_fn, isect_tr_fn and
-    bsdf_sample as there."""
+    extra_hits) as estimate_direct does; tr_fn, isect_tr_fn, bsdf_sample
+    and mat_types as there."""
     if pick is not None:
         light_idx, pmf = pick
     else:
@@ -199,5 +206,105 @@ def sample_one_light(scene, rec, frame, mat, wo_local, u_select, u_light,
     ld, extra_hits = estimate_direct(
         scene, rec, frame, mat, wo_local, light_idx, u_light, u_scattering,
         mask & (pmf > 0.0), extra_ray, extra_live=mask, tr_fn=tr_fn,
-        isect_tr_fn=isect_tr_fn, bsdf_sample=bsdf_sample)
+        isect_tr_fn=isect_tr_fn, bsdf_sample=bsdf_sample, mat_types=mat_types)
     return ld / torch.clamp(pmf, min=1e-20)[:, None], extra_hits
+
+
+def sample_bssrdf_sp(scene, rec, frame, mat, u1, u2, n_probe: int = 4,
+                     live=None):
+    """SeparableBSSRDF::Sample_Sp (bssrdf.cpp:248-330): an exit point near
+    the entry point rec (common.py:331-422).  Picks the projection axis
+    (1/2 the shading normal, 1/4 each tangent) and the channel from u1, a
+    radius from u2[0] and an angle from u2[1], then walks the probe
+    segment through the surface in n_probe bounded closest-hit launches
+    (t_max = the rest of the segment times shadowEpsilon's scale),
+    collects the hits on rec's material and picks one.  pbrt's walk is
+    unbounded (bssrdf.cpp:295-320); hits past n_probe are dropped, as in
+    the JAX package.
+
+    live: the lanes to walk (all by default).  The others, and lanes whose
+    walk has ended, trace with t_max = 0 from a finite ray, so the work
+    list puts them last; the walking lanes' hits are those of the JAX
+    package's walk of every lane.  Returns dict: ok, sp [n, 3], pdf [n],
+    nfound [n] and the exit point's p, p_error, ns, ng and dpdu (read
+    where ok)."""
+    from ..materials import bssrdf as bsx
+
+    ss_ax, ts_ax, ns_ax = frame
+    n = u1.shape[0]
+    dev = u1.device
+    pick0 = (u1 < 0.5)[:, None]
+    pick1 = ((u1 >= 0.5) & (u1 < 0.75))[:, None]
+    vx = torch.where(pick0, ss_ax, torch.where(pick1, ts_ax, ns_ax))
+    vy = torch.where(pick0, ts_ax, torch.where(pick1, ns_ax, ss_ax))
+    vz = torch.where(pick0, ns_ax, torch.where(pick1, ss_ax, ts_ax))
+    u1r = torch.where(u1 < 0.5, u1 * 2.0,
+                      torch.where(u1 < 0.75, (u1 - 0.5) * 4.0, (u1 - 0.75) * 4.0))
+    ch = torch.clamp((u1r * 3.0).to(torch.int32), 0, 2)  # bssrdf.cpp:274-277
+    u1r = u1r * 3.0 - ch.to(torch.float32)
+    chl = ch.to(torch.int64)[:, None]
+    sigma_t_ch = torch.gather(mat["ss_sigma_t"], 1, chl)[:, 0]
+    rho_ch = torch.gather(mat["ss_rho"], 1, chl)[:, 0]
+    tbl = mat["ss_table"]
+    tables = (scene.bssrdf_rho_nodes, scene.bssrdf_radius_nodes,
+              scene.bssrdf_profile)
+    # the radius and the probe sphere's, r_max = Sample_Sr(0.999), in one call
+    with record_function("layer: subsurface / sr sampling"):
+        both = bsx.sample_sr(*tables, scene.bssrdf_cdf, torch.cat([tbl, tbl]),
+                             torch.cat([sigma_t_ch, sigma_t_ch]),
+                             torch.cat([rho_ch, rho_ch]),
+                             torch.cat([u2[:, 0], torch.full_like(u1, 0.999)]))
+    r, r_max = both[:n], both[n:]
+    ok = (r >= 0.0) & (r < r_max)
+    phi = 2.0 * math.pi * u2[:, 1]
+    l = 2.0 * torch.sqrt(torch.clamp(r_max * r_max - r * r, min=0.0))
+    p_start = (rec["p"] + r[:, None] * (vx * torch.cos(phi)[:, None]
+                                        + vy * torch.sin(phi)[:, None])
+               - 0.5 * l[:, None] * vz)
+    p_target = p_start + l[:, None] * vz
+
+    walking = ok if live is None else ok & live
+    safe_o = torch.where(walking[:, None], p_start, 0.0)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    cur_o = p_start
+    nfound = torch.zeros(n, dtype=torch.int32, device=dev)
+    hits = []
+    for _ in range(n_probe):
+        seg = p_target - cur_o
+        dist = torch.sqrt(torch.clamp(dot(seg, seg), min=1e-20))
+        d = seg / dist[:, None]
+        t, prim = tv.intersect_closest(
+            scene, torch.where(walking[:, None], cur_o, safe_o),
+            torch.where(walking[:, None], d, up),
+            torch.where(walking, dist * _SHADOW_EPS, 0.0))
+        hrec = tv.hit_record(scene, cur_o, d, t, prim)
+        found = hrec["hit"] & walking
+        match = found & (hrec["material"] == rec["material"])
+        hits.append((match, hrec))
+        nfound = nfound + match.to(torch.int32)
+        walking = found
+        adv = offset_ray_origin(hrec["p"], hrec["p_error"], hrec["ng"],
+                                p_target - hrec["p"])
+        cur_o = torch.where(found[:, None], adv, cur_o)
+
+    ok = ok & (nfound > 0)
+    sel = torch.minimum((u1r * nfound.to(torch.float32)).to(torch.int32),
+                        torch.clamp(nfound - 1, min=0))
+    sel = torch.clamp(sel, min=0)
+    keys = ("p", "p_error", "ns", "ng", "dpdu")
+    pi = {k: torch.zeros_like(rec[k]) for k in keys}
+    cum = torch.zeros(n, dtype=torch.int32, device=dev)
+    for match, hrec in hits:
+        use = (match & (cum == sel))[:, None]
+        for k in keys:
+            pi[k] = torch.where(use, hrec[k], pi[k])
+        cum = cum + match.to(torch.int32)
+    dist_po = torch.sqrt(torch.clamp(torch.sum((rec["p"] - pi["p"]) ** 2, -1),
+                                     min=1e-20))
+    sp = bsx.sr_eval(*tables, tbl, mat["ss_sigma_t"], mat["ss_rho"], dist_po)
+    pdf = bsx.pdf_sp(*tables, scene.bssrdf_rho_eff, tbl, mat["ss_sigma_t"],
+                     mat["ss_rho"], rec["p"], ss_ax, ts_ax, ns_ax, pi["p"],
+                     pi["ng"])
+    pdf = pdf / torch.clamp(nfound.to(torch.float32), min=1.0)
+    ok = ok & (pdf > 0.0) & torch.any(sp > 0.0, -1)
+    return dict(ok=ok, sp=sp, pdf=pdf, nfound=nfound, **pi)

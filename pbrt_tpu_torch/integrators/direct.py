@@ -127,7 +127,8 @@ def li_direct(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
 
         mat = bx.gather_material(scene.materials, rec["material"],
                                  eval_scene_textures(scene, rec),
-                                 scene.mat_types, scene.mix_sub_types)
+                                 scene.mat_types, scene.mix_sub_types,
+                                 uv=rec["uv"])
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])

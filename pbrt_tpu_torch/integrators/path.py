@@ -1,23 +1,35 @@
 """The path integrator's main loop, bounce-major over a flat ray batch.
 
 Port of pbrt_tpu/integrators/path.py (PathIntegrator::Li, path.cpp:64-188,
-and SamplerIntegrator::Render, integrator.cpp:228-339) for scenes without
-subsurface materials.  One Python loop iteration per bounce takes the place
-of the JAX package's lax.scan; both draw the same sampler dimensions.
+and SamplerIntegrator::Render, integrator.cpp:228-339).  One Python loop
+iteration per bounce takes the place of the JAX package's lax.scan (or its
+unrolled loop on a scene with subsurface materials); both draw the same
+sampler dimensions.
 
 Textures are evaluated once per bounce (eval_scene_textures).  On a scene
 with textures the camera rays carry ray differentials, which select the mip
 level at the first hit only; later bounces look up level 0 bilinearly, as
 pbrt's scattered rays carry no differentials.
 
-Dimension schedule (path.py:13-14): camera dims 0-4; from dim 5, each bounce
-b draws 5 NEE dims and 2 BSDF dims, plus 1 Russian-roulette dim after
-bounce 3.
+Dimension schedule (path.py:13-14, 185-193): camera dims 0-4; from dim 5,
+each bounce b draws 5 NEE dims and 2 BSDF dims, on a scene with a
+subsurface material 10 more for every lane (the exit point's axis,
+channel and radius, its light sample and its Sw direction), and 1 Russian-
+roulette dim after bounce 3.
 
-Traversal launches: the camera rays' closest hit is one launch; each later
-bounce's closest hit rides the previous bounce's NEE launch
-(integrators/common.py), so a sample costs 1 + max_depth launches; a grad
-step with remat (parallel/diff.py) replays max_depth of them in backward.
+Subsurface (path.cpp:152-174): a lane whose BSDF sample crossed a
+subsurface material's surface samples an exit point with the BSSRDF probe
+walk (common.sample_bssrdf_sp), takes direct lighting there through the
+SeparableBSSRDFAdapter and continues from it along a sampled Sw direction.
+
+Traversal launches: the camera rays' closest hit is one launch.  Without
+subsurface each later bounce's closest hit rides the previous bounce's NEE
+launch (integrators/common.py), so a sample costs 1 + max_depth launches;
+a grad step with remat (parallel/diff.py) replays max_depth of them in
+backward.  With subsurface, a bounce launches its NEE, ss_probe_depth
+probe segments, the exit point's NEE and then the next bounce's closest
+hit alone, after the exit point has moved its lanes' rays: 1 + max_depth
+(3 + ss_probe_depth) launches a sample.
 
 Profiler ranges named "layer: ..." mark the calls into each layer; without
 the profiler each costs a few microseconds on the host.
@@ -41,7 +53,7 @@ from ..lights import lightdistrib as ldist
 from ..lights import lights as lt
 from ..materials import bsdf as bx
 from ..samplers import samplers as sa
-from ..scene import SceneArrays, resolve_device
+from ..scene import MAT_BSSRDF_ADAPTER, MAT_SUBSURFACE, SceneArrays, resolve_device
 from ..textures.textures import evaluate_textures
 from ..utils import stats as st
 from . import common
@@ -53,10 +65,13 @@ class PathConfig:
     "spatial" picks each light from the spatial light distribution
     (lights/lightdistrib.py); "uniform" and "power" use the scene's own
     distribution (SceneBuilder.light_strategy), as in the JAX package.
-    Russian roulette applies when max(beta * etaScale) < rr_threshold."""
+    Russian roulette applies when max(beta * etaScale) < rr_threshold.
+    ss_probe_depth: the BSSRDF probe walk's segments (bssrdf.cpp:295-320
+    walks until the segment ends)."""
     max_depth: int = 5
     rr_threshold: float = 1.0
     light_strategy: str = "uniform"  # "uniform" | "power" | "spatial"
+    ss_probe_depth: int = 4
 
     def __post_init__(self):
         if self.light_strategy not in ("uniform", "power", "spatial"):
@@ -65,9 +80,14 @@ class PathConfig:
                 "uniform, power and spatial")
 
 
-def dims_per_bounce(bounce: int) -> int:
-    """5 NEE + 2 BSDF dims, +1 Russian-roulette dim after bounce 3."""
-    return 7 + (1 if bounce > 3 else 0)
+SS_DIMS = 10  # the subsurface branch's dims a bounce
+
+
+def dims_per_bounce(bounce: int, mat_types=()) -> int:
+    """5 NEE + 2 BSDF dims, +10 on a scene with a subsurface material, +1
+    Russian-roulette dim after bounce 3 (path.py:185-193)."""
+    return (7 + (SS_DIMS if MAT_SUBSURFACE in mat_types else 0)
+            + (1 if bounce > 3 else 0))
 
 
 def eval_scene_textures(scene: SceneArrays, rec, duv=None):
@@ -118,7 +138,7 @@ def li_path(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
         else:
             carry, inc = body(*carry)
         counters += inc
-        dim += dims_per_bounce(bounce)
+        dim += dims_per_bounce(bounce, scene.mat_types)
     return carry[0]
 
 
@@ -130,6 +150,7 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
     _make_bounce_body (path.py:198).  The last bounce only adds emission."""
     last = bounce == cfg.max_depth
     spatial = cfg.light_strategy == "spatial" and scene.spatial_cdf is not None
+    subsurface = MAT_SUBSURFACE in scene.mat_types
 
     def body(L, beta, alive, specular_bounce, eta_scale, o, d, t, prim):
         counters = st.zeros(o.device)
@@ -159,14 +180,16 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
         tex = eval_scene_textures(scene, rec, duv)
         with record_function("layer: materials"):
             mat = bx.gather_material(scene.materials, rec["material"], tex,
-                                     scene.mat_types, scene.mix_sub_types)
+                                     scene.mat_types, scene.mix_sub_types,
+                                     uv=rec["uv"])
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])
         has_bsdf = alive & (rec["material"] >= 0)
 
         # NEE draws (dims +0..+4), then the BSDF draw (+5, +6), taken before
-        # the NEE launch so the extension ray can ride it.
+        # the NEE launch so the extension ray can ride it (without
+        # subsurface).
         u_select = sa.get_1d(sampler_cfg, sampler_state, dim)
         u_light = sa.get_2d(sampler_cfg, sampler_state, dim + 1)
         u_scatter = sa.get_2d(sampler_cfg, sampler_state, dim + 3)
@@ -193,10 +216,10 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
         wi_world = bx.to_world(ss, ts, ns, bs["wi"])
         o_next = offset_ray_origin(rec["p"], rec["p_error"], rec["ng"], wi_world)
         with record_function("layer: NEE incl. its traversal"):
-            ld, (t_next, prim_next) = common.sample_one_light(
+            ld, next_hits = common.sample_one_light(
                 scene, rec, frame, mat, wo_local, u_select, u_light, u_scatter,
-                has_bsdf, extra_ray=(o_next, wi_world), pick=pick,
-                bsdf_sample=bs_mis)
+                has_bsdf, extra_ray=None if subsurface else (o_next, wi_world),
+                pick=pick, bsdf_sample=bs_mis)
         L = L + torch.where(has_bsdf[:, None], beta * ld, 0.0)
 
         valid = has_bsdf & bs["valid"]
@@ -216,8 +239,15 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
         o = torch.where(alive[:, None], o_next, o)
         d = torch.where(alive[:, None], wi_world, d)
 
+        if subsurface:
+            L, beta, alive, specular_bounce, o, d = _subsurface(
+                scene, cfg, rec, frame, mat, wo_local, bs, dim + 7,
+                sampler_cfg, sampler_state, counters, spatial,
+                L, beta, alive, specular_bounce, o, d)
+
         if bounce > 3:  # Russian roulette (path.cpp:176-184)
-            u_rr = sa.get_1d(sampler_cfg, sampler_state, dim + 7)
+            u_rr = sa.get_1d(sampler_cfg, sampler_state,
+                             dim + 7 + (SS_DIMS if subsurface else 0))
             rr_beta_max = spectrum.max_component(beta * eta_scale[:, None])
             q = torch.clamp(1.0 - rr_beta_max, min=0.05)
             do_rr = rr_beta_max < cfg.rr_threshold
@@ -228,10 +258,72 @@ def _make_bounce_body(scene: SceneArrays, bounce: int, dim: int, sampler_cfg,
             beta = torch.where((do_rr & ~die)[:, None],
                                beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
                                beta)
-        return (L, beta, alive, specular_bounce, eta_scale, o, d, t_next,
-                prim_next), counters
+        if subsurface:  # the next closest hit, after the exit points moved
+            next_hits = tv.intersect_closest(scene, o, d,
+                                             torch.where(alive, 1e30, 0.0))
+        return (L, beta, alive, specular_bounce, eta_scale, o, d,
+                *next_hits), counters
 
     return body
+
+
+def _subsurface(scene, cfg, rec, frame, mat, wo_local, bs, dim, sampler_cfg,
+                sampler_state, counters, spatial, L, beta, alive,
+                specular_bounce, o, d):
+    """path.cpp:152-174 (path.py:326-409): the lanes whose BSDF sample
+    crossed a subsurface material's surface re-emerge at an exit point pi
+    (common.sample_bssrdf_sp, dims +0..+2), take direct lighting there
+    through the SeparableBSSRDFAdapter with the light picked at pi (+3..+7)
+    and continue along its sampled Sw direction (+8, +9).  Every lane draws
+    the 10 dims.  Returns the updated (L, beta, alive, specular_bounce, o,
+    d)."""
+    u_ss = sa.get_1d(sampler_cfg, sampler_state, dim)
+    u_ss2 = sa.get_2d(sampler_cfg, sampler_state, dim + 1)
+    u_sel2 = sa.get_1d(sampler_cfg, sampler_state, dim + 3)
+    u_li2 = sa.get_2d(sampler_cfg, sampler_state, dim + 4)
+    u_sc2 = sa.get_2d(sampler_cfg, sampler_state, dim + 6)
+    u_bsdf2 = sa.get_2d(sampler_cfg, sampler_state, dim + 8)
+    crossed = bs["wi"][:, 2] * wo_local[:, 2] < 0.0
+    do_ss = alive & (mat["type"] == MAT_SUBSURFACE) & crossed
+    with record_function("layer: subsurface / probe walk"):
+        spr = common.sample_bssrdf_sp(scene, rec, frame, mat, u_ss, u_ss2,
+                                      n_probe=cfg.ss_probe_depth, live=do_ss)
+    ok = do_ss & spr["ok"]
+    st.bump(counters, "Intersections/BSSRDF probe rays",
+            cfg.ss_probe_depth * do_ss.to(torch.float64).sum())
+    st.bump(counters, "Intersections/Shadow ray intersection tests",
+            2.0 * ok.to(torch.float64).sum())
+    beta = torch.where(ok[:, None],
+                       beta * spr["sp"] / torch.clamp(spr["pdf"], min=1e-20)[:, None],
+                       beta)
+    alive = alive & (~do_ss | ok)  # S black or pdf 0: the path ends
+    pi_rec = {k: spr[k] for k in ("p", "p_error", "ns", "ng")}
+    pi_frame = bx.make_frame(spr["ns"], spr["dpdu"])
+    adapter = {"type": torch.where(ok, MAT_BSSRDF_ADAPTER, -1), "eta": mat["eta"]}
+    # wo at pi is the shading normal (bssrdf.cpp:243)
+    wo_pi = torch.zeros_like(wo_local)
+    wo_pi[:, 2] = 1.0
+    pick = None
+    if spatial:
+        pick = ldist.spatial_pick_light(
+            scene.spatial_grid_res, scene.spatial_b0, scene.spatial_diag,
+            scene.spatial_cdf, scene.spatial_pmf, spr["p"], u_sel2)
+    with record_function("layer: subsurface / exit NEE"):
+        ld, _ = common.sample_one_light(
+            scene, pi_rec, pi_frame, adapter, wo_pi, u_sel2, u_li2, u_sc2, ok,
+            pick=pick, mat_types=(MAT_BSSRDF_ADAPTER,))
+    L = L + torch.where(ok[:, None], beta * ld, 0.0)
+    bs2 = bx.sample_material(adapter, wo_pi, u_bsdf2, (MAT_BSSRDF_ADAPTER,))
+    wi2 = bx.to_world(*pi_frame, bs2["wi"])
+    contrib = bs2["f"] * (absdot(wi2, pi_frame[2])
+                          / torch.clamp(bs2["pdf"], min=1e-20))[:, None]
+    alive = alive & (~ok | (bs2["valid"] & torch.any(bs2["f"] > 0, -1)))
+    beta = torch.where((ok & alive)[:, None], beta * contrib, beta)
+    specular_bounce = torch.where(ok, False, specular_bounce)
+    o = torch.where(ok[:, None],
+                    offset_ray_origin(spr["p"], spr["p_error"], spr["ng"], wi2), o)
+    d = torch.where(ok[:, None], wi2, d)
+    return L, beta, alive, specular_bounce, o, d
 
 
 def _twice(mat):
@@ -248,9 +340,9 @@ def make_pixel_grid(film_cfg: fm.FilmConfig) -> np.ndarray:
     return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
 
 
-def n_path_dims(cfg: PathConfig) -> int:
-    """The sampler dims a path draws."""
-    return 5 + sum(dims_per_bounce(b) for b in range(cfg.max_depth)) + 1
+def n_path_dims(cfg: PathConfig, mat_types=()) -> int:
+    """The sampler dims a path draws on a scene of these material types."""
+    return 5 + sum(dims_per_bounce(b, mat_types) for b in range(cfg.max_depth)) + 1
 
 
 def batch_sampler_state(sampler_cfg, pixels, sample_num: int, n_dims: int):
@@ -314,7 +406,8 @@ def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
     distribution is built here, once per scene, when cfg asks for it."""
     if cfg.light_strategy == "spatial":
         scene = ldist.ensure_spatial_light_distribution(scene)
-    return render_loop(path_li(scene, sampler_cfg, cfg), n_path_dims(cfg),
+    return render_loop(path_li(scene, sampler_cfg, cfg),
+                       n_path_dims(cfg, scene.mat_types),
                        scene, camera, film_cfg, sampler_cfg, filt, count_rays,
                        stats_out, progress, device)
 

@@ -11,6 +11,9 @@ and MIS rays walk across material-less boundaries, multiplying the
 transmittance of each medium they cross (VisibilityTester::Tr,
 Scene::IntersectTr), in up to four segments, one traversal launch each.
 
+A scene with a subsurface material is refused (the JAX package's volpath
+renders its surface alone, pbrt's follows the BSSRDF).
+
 The JAX package's liberties, kept (ROADMAP.md, "not port faults"):
 delta tracking draws its first K_TRACK + 1 steps from sampler dims and
 the rest, like ratio tracking, from a counter hash; a null-material
@@ -47,7 +50,7 @@ from ..lights import lights as lt
 from ..materials import bsdf as bx
 from ..media import media as md
 from ..samplers import samplers as sa
-from ..scene import SceneArrays
+from ..scene import MAT_SUBSURFACE, SceneArrays
 from ..utils import stats as st
 from . import common
 from .path import PathConfig, eval_scene_textures, render_loop
@@ -279,7 +282,14 @@ def _surface_tr_fns(scene, cur_med, key, counters):
 
 def li_volpath(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
                cfg: PathConfig, counters):
-    """Radiance along a batch of camera rays: L [n, 3]."""
+    """Radiance along a batch of camera rays: L [n, 3].  A subsurface
+    material is refused: pbrt's volpath follows its BSSRDF (volpath.cpp),
+    the JAX package's renders only its surface BSDF."""
+    if MAT_SUBSURFACE in scene.mat_types:
+        raise NotImplementedError(
+            "volpath with a subsurface material: pbrt's volpath follows the "
+            "BSSRDF, the JAX package's volpath ignores it; render it with "
+            "path")
     n = o.shape[0]
     dev = o.device
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -351,7 +361,8 @@ def li_volpath(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
         # the surface vertex, as the path integrator's
         mat = bx.gather_material(scene.materials, rec["material"],
                                  eval_scene_textures(scene, rec),
-                                 scene.mat_types, scene.mix_sub_types)
+                                 scene.mat_types, scene.mix_sub_types,
+                                 uv=rec["uv"])
         frame = bx.frame_from_rec(rec)
         ss, ts, ns = frame
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])

@@ -63,7 +63,8 @@ def li_whitted(scene: SceneArrays, o, d, sampler_cfg, sampler_state,
 
         mat = bx.gather_material(scene.materials, rec["material"],
                                  eval_scene_textures(scene, rec),
-                                 scene.mat_types, scene.mix_sub_types)
+                                 scene.mat_types, scene.mix_sub_types,
+                                 uv=rec["uv"])
         ss, ts, ns = bx.frame_from_rec(rec)
         wo_local = bx.to_local(ss, ts, ns, rec["wo"])
         has_bsdf = alive & (rec["material"] >= 0)

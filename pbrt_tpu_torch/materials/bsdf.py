@@ -1,9 +1,13 @@
 """BSDF lobes for matte, plastic, mirror, glass, metal, substrate, uber,
-translucent and mix, with pbrt's mixture sampling.
+translucent, mix, disney, hair, fourier and subsurface, with pbrt's mixture
+sampling.
 
-Port of pbrt_tpu/materials/bsdf.py for those materials (reflection.{h,cpp},
-materials/{matte,plastic,mirror,glass,metal,substrate,uber,translucent,
-mixmat}.cpp).  Lobes work in the local shading frame (z = shading normal);
+Port of pbrt_tpu/materials/bsdf.py (reflection.{h,cpp}, materials/{matte,
+plastic,mirror,glass,metal,substrate,uber,translucent,mixmat,disney,hair,
+fourier,subsurface,kdsubsurface}.cpp); disney.py, hair.py and fourier.py
+hold those three.  A subsurface material's own surface BSDF is glass's
+(subsurface.cpp:49-92); the exit point's SeparableBSSRDFAdapter is the
+internal type MAT_BSSRDF_ADAPTER, a diffuse lobe of Sw (bssrdf.h:153-171).  Lobes work in the local shading frame (z = shading normal);
 a material is a dict of per-lane parameters gathered from the
 MaterialTable, with texture-bound parameters taken from the evaluated
 texture stack (textures/textures.py).  A mix lane carries its two
@@ -15,14 +19,17 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..core import sampling as smp
 from ..core.sampling import INV_PI
 from ..core.vecmath import (abs_cos_theta, cos_phi, coordinate_system,
                             cos_theta, cross, dot, normalize, reflect, refract,
                             safe_sqrt, same_hemisphere, sin_phi, sin_theta, vec)
-from ..scene import (MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX,
-                     MAT_PLASTIC, MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_UBER)
+from ..scene import (MAT_BSSRDF_ADAPTER, MAT_DISNEY, MAT_FOURIER, MAT_GLASS,
+                     MAT_HAIR, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX,
+                     MAT_PLASTIC, MAT_SUBSTRATE, MAT_SUBSURFACE,
+                     MAT_TRANSLUCENT, MAT_UBER)
 from ..textures.textures import gather_texture
 from . import microfacet as mf
 
@@ -298,8 +305,10 @@ def _any3(x):
 def count_nonspecular(mat):
     """BSDF::NumComponents(BSDF_ALL & ~BSDF_SPECULAR) > 0 per lane: lobes
     exist only for non-black coefficients; glass has microfacet lobes only
-    when rough (glass.cpp:59-92), uber's non-specular lobes are op * kd and
-    op * ks, and a mix has those of either material (bsdf.py:400-440)."""
+    when rough (glass.cpp:59-92), and so has subsurface's surface, uber's
+    non-specular lobes are op * kd and op * ks, disney, hair, fourier and
+    the BSSRDF adapter have some always, and a mix has those of either
+    material (bsdf.py:400-440)."""
     t = mat["type"]
     any_kd, any_ks = _any3(mat["kd"]), _any3(mat["ks"])
     out = torch.where(t == MAT_MATTE, any_kd, False)
@@ -307,7 +316,9 @@ def count_nonspecular(mat):
                       | (t == MAT_TRANSLUCENT), any_kd | any_ks, out)
     out = torch.where(t == MAT_GLASS, mat["is_rough"] & (
         _any3(mat["kr"]) | _any3(mat["kt"])), out)
-    out = torch.where(t == MAT_METAL, True, out)
+    out = torch.where(t == MAT_SUBSURFACE, mat["is_rough"], out)
+    out = torch.where((t == MAT_METAL) | (t == MAT_FOURIER) | (t == MAT_HAIR)
+                      | (t == MAT_DISNEY) | (t == MAT_BSSRDF_ADAPTER), True, out)
     op = mat["opacity"]
     out = torch.where(t == MAT_UBER, _any3(op * mat["kd"]) | _any3(op * mat["ks"]),
                       out)
@@ -385,9 +396,10 @@ def _eval_one(mat, wo, wi, mat_types):
                        + microfacet_reflection_pdf(mat["ax"], mat["ay"], wo, wi))
         f = torch.where(m[..., None], f_m, f)
         pdf = torch.where(m, pdf_m, pdf)
-    if MAT_GLASS in mat_types:
-        # Rough glass: microfacet reflection + transmission (glass.cpp:62-87).
-        m = (t == MAT_GLASS) & mat["is_rough"]
+    if MAT_GLASS in mat_types or MAT_SUBSURFACE in mat_types:
+        # Rough glass: microfacet reflection + transmission (glass.cpp:62-87),
+        # subsurface's surface too (subsurface.cpp:49-92).
+        m = ((t == MAT_GLASS) | (t == MAT_SUBSURFACE)) & mat["is_rough"]
         ax, ay, eta = mat["ax"], mat["ay"], mat["eta"]
         f_r = microfacet_reflection_f(mat["kr"], ax, ay, wo, wi,
                                       _glass_fresnel(eta))
@@ -428,7 +440,50 @@ def _eval_one(mat, wo, wi, mat_types):
         m = t == MAT_TRANSLUCENT
         f = torch.where(m[..., None], _translucent_f(mat, wo, wi), f)
         pdf = torch.where(m, _translucent_pdf(mat, wo, wi), pdf)
+    for mt, fn in _advanced_evals(mat_types):
+        m = t == mt
+        with record_function(f"layer: materials / {_RANGE[mt]}"):
+            f_m, pdf_m = fn(mat, wo, wi)
+        f = torch.where(m[..., None], f_m, f)
+        pdf = torch.where(m, pdf_m, pdf)
     return f, pdf
+
+
+# the profiler ranges of the advanced materials' calls
+_RANGE = {MAT_DISNEY: "disney", MAT_HAIR: "hair", MAT_FOURIER: "fourier",
+          MAT_BSSRDF_ADAPTER: "bssrdf adapter"}
+
+
+def _advanced_evals(mat_types):
+    """(type, eval function) of the scene's disney, hair, fourier and BSSRDF
+    adapter lanes."""
+    from . import disney, fourier, hair
+
+    fns = {MAT_DISNEY: disney.disney_eval, MAT_HAIR: hair.hair_eval,
+           MAT_FOURIER: fourier.fourier_eval, MAT_BSSRDF_ADAPTER: _adapter_eval}
+    return [(mt, fn) for mt, fn in fns.items() if mt in mat_types]
+
+
+def _adapter_f(mat, wi):
+    """SeparableBSSRDFAdapter::f = Sw(wi) eta^2 in radiance transport
+    (bssrdf.h:153-166)."""
+    from .bssrdf import sw
+
+    return (sw(mat["eta"], wi[..., 2]) * mat["eta"] ** 2)[..., None].expand(-1, 3)
+
+
+def _adapter_eval(mat, wo, wi):
+    """The adapter's diffuse reflection lobe: f, and the cosine pdf."""
+    f = torch.where(same_hemisphere(wo, wi)[..., None], _adapter_f(mat, wi), 0.0)
+    return f, cosine_pdf(wo, wi)
+
+
+def _adapter_sample(mat, wo, u):
+    """BxDF::Sample_f's cosine sample of the adapter's lobe."""
+    wi = _cosine_sample_wi(wo, u)
+    return {"wi": wi, "f": _adapter_f(mat, wi), "pdf": cosine_pdf(wo, wi),
+            "is_specular": torch.zeros(wo.shape[0], dtype=torch.bool,
+                                       device=wo.device)}
 
 
 def _metal_fresnel(mat):
@@ -516,10 +571,11 @@ def _sample_one(mat, wo, u, mat_types):
         f = torch.where(m[..., None], w_m, f)
         pdf = torch.where(m, 1.0, pdf)
         is_spec = is_spec | m
-    if MAT_GLASS in mat_types:
+    if MAT_GLASS in mat_types or MAT_SUBSURFACE in mat_types:
         # Smooth glass: FresnelSpecular (reflection.cpp:126-161), reflection
-        # with probability F, else refraction, on either side.
-        m = (t == MAT_GLASS) & ~mat["is_rough"]
+        # with probability F, else refraction, on either side; subsurface's
+        # smooth surface the same (subsurface.cpp:60-62).
+        m = ((t == MAT_GLASS) | (t == MAT_SUBSURFACE)) & ~mat["is_rough"]
         eta = mat["eta"]
         F = fresnel_dielectric(cos_theta(wo), torch.ones_like(eta), eta)
         choose_refl = u[..., 0] < F
@@ -544,7 +600,7 @@ def _sample_one(mat, wo, u, mat_types):
 
         # Rough glass: two non-specular lobes picked by halves of u0, f
         # summed, pdf averaged (glass.cpp:62-87).
-        m = (t == MAT_GLASS) & mat["is_rough"]
+        m = ((t == MAT_GLASS) | (t == MAT_SUBSURFACE)) & mat["is_rough"]
         ax, ay = mat["ax"], mat["ay"]
         pick_t = u[..., 0] >= 0.5
         u0 = torch.where(pick_t, 2.0 * (u[..., 0] - 0.5), 2.0 * u[..., 0])
@@ -583,8 +639,26 @@ def _sample_one(mat, wo, u, mat_types):
     if MAT_UBER in mat_types:
         wi, f, pdf, is_spec = _sample_uber(mat, wo, u, t == MAT_UBER, wi, f,
                                            pdf, is_spec)
+    for mt, fn in _advanced_samples(mat_types):
+        m = t == mt
+        with record_function(f"layer: materials / {_RANGE[mt]}"):
+            s = fn(mat, wo, u)
+        wi = torch.where(m[..., None], s["wi"], wi)
+        f = torch.where(m[..., None], s["f"], f)
+        pdf = torch.where(m, s["pdf"], pdf)
     valid = (pdf > 0.0) & torch.any(f != 0.0, dim=-1)
     return {"wi": wi, "f": f, "pdf": pdf, "is_specular": is_spec, "valid": valid}
+
+
+def _advanced_samples(mat_types):
+    """(type, sample function) of the scene's disney, hair, fourier and
+    BSSRDF adapter lanes; none of their lobes is specular."""
+    from . import disney, fourier, hair
+
+    fns = {MAT_DISNEY: disney.disney_sample, MAT_HAIR: hair.hair_sample,
+           MAT_FOURIER: fourier.fourier_sample,
+           MAT_BSSRDF_ADAPTER: _adapter_sample}
+    return [(mt, fn) for mt, fn in fns.items() if mt in mat_types]
 
 
 def _sample_translucent(mat, wo, u, m, wi, f, pdf):
@@ -674,7 +748,7 @@ def _sample_uber(mat, wo, u, m, wi, f, pdf, is_spec):
 
 
 def gather_material(table, mat_id, tex_values=None, mat_types=(),
-                    sub_types=None):
+                    sub_types=None, uv=None):
     """Per-lane material parameters from the MaterialTable.  tex_values:
     the evaluated texture stack [T, N, 3] (textures.evaluate_textures), or
     None; a parameter bound to a texture (its *_tex column >= 0) takes the
@@ -683,8 +757,13 @@ def gather_material(table, mat_id, tex_values=None, mat_types=(),
     amount as "mix_amount".  sub_types: the types of the mixes' materials
     (SceneArrays.mix_sub_types), required with MAT_MIX: the only types
     eval_material and sample_material run on "sub_a" and "sub_b", whose
-    other lanes they discard."""
+    other lanes they discard.  uv: the hits' (u, v) [N, 2], required with
+    MAT_HAIR in mat_types (hair's h = -1 + 2 v)."""
     mat = _gather_base(table, mat_id, tex_values)
+    if uv is not None:
+        mat["uv"] = uv
+    elif MAT_HAIR in mat_types:
+        raise ValueError("gather_material: MAT_HAIR in mat_types needs uv")
     if MAT_MIX in mat_types:
         if not sub_types:
             raise ValueError("gather_material: MAT_MIX in mat_types needs "
@@ -727,7 +806,15 @@ def _gather_base(table, mat_id, tex_values=None):
     vr = torch.where(vrough >= 0.0, vrough, rough)
     ax = torch.where(remap, mf.roughness_to_alpha(ur), torch.clamp(ur, min=1e-3))
     ay = torch.where(remap, mf.roughness_to_alpha(vr), torch.clamp(vr, min=1e-3))
+    extra = {}
+    if table.ss_sigma_t is not None:  # subsurface (bssrdf.h:117-137)
+        extra.update(ss_sigma_t=table.ss_sigma_t[mid], ss_rho=table.ss_rho[mid],
+                     ss_table=table.ss_table[mid])
+    if table.fourier:
+        extra.update(fourier_id=table.fourier_id[mid],
+                     fourier_tables=table.fourier)
     return {
+        **extra,
         "type": torch.where(mat_id >= 0, table.mat_type[mid], -1),
         "kd": kd,
         "ks": ks,
@@ -742,4 +829,7 @@ def _gather_base(table, mat_id, tex_values=None):
         "opacity": opacity,
         # rough against specular glass: the raw (pre-remap) roughness
         "is_rough": torch.maximum(ur, vr) > 0.0,
+        "raw_rough": ur,
+        "disney": table.disney[mid],
+        "hair": table.hair[mid],
     }

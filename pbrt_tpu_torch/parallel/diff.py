@@ -90,14 +90,17 @@ def apply_params(scene, camera, params):
 # materials and lights whose gradients are not held against the JAX
 # package (its diff.py differentiates them generically)
 _UNCHECKED_MATERIALS = (sc.MAT_GLASS, sc.MAT_METAL, sc.MAT_SUBSTRATE,
-                        sc.MAT_UBER, sc.MAT_TRANSLUCENT, sc.MAT_MIX)
+                        sc.MAT_UBER, sc.MAT_TRANSLUCENT, sc.MAT_MIX,
+                        sc.MAT_DISNEY, sc.MAT_HAIR, sc.MAT_FOURIER,
+                        sc.MAT_SUBSURFACE)
 _UNCHECKED_LIGHTS = (sc.LIGHT_INFINITE, sc.LIGHT_SPOT, sc.LIGHT_DISTANT,
                      sc.LIGHT_PROJECTION, sc.LIGHT_GONIO)
 
 
 def _refuse_unchecked(scene):
     """Gradients through textures, glass, metal, substrate, uber,
-    translucent and mix, and the infinite, spot, distant, projection and
+    translucent, mix, disney, hair, fourier and subsurface (kdsubsurface
+    too), and the infinite, spot, distant, projection and
     goniometric lights are not held against the JAX package; a step on
     such a scene raises instead of returning an unchecked gradient."""
     lacks = (["textures"] if scene.has_textures else [])
@@ -117,7 +120,7 @@ def render_batch_radiance(scene, camera, pixels, sample_num: int, sampler_cfg,
     (utils/stats.py) to bump, or None."""
     n = pixels.shape[0]
     state = ip.batch_sampler_state(sampler_cfg, pixels, sample_num,
-                                   ip.n_path_dims(path_cfg))
+                                   ip.n_path_dims(path_cfg, scene.mat_types))
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
     o, d, _, _ = generate_rays(camera, p_film, p_lens, time_u)
     if counters is None:

@@ -7,9 +7,10 @@ integrators:
 
 * shapes: triangle meshes and spheres;
 * materials: matte, plastic, mirror, glass (smooth and rough), metal,
-  substrate, uber (with its opacity), translucent and mix, with Kd, Ks,
-  sigma, roughness and uber's opacity bound to textures
-  (textures/textures.py);
+  substrate, uber (with its opacity), translucent, mix, disney, hair,
+  fourier (one table per .bsdf file) and subsurface (one beam-diffusion
+  table per distinct (g, eta), stacked), with Kd, Ks, sigma, roughness and
+  uber's opacity bound to textures (textures/textures.py);
 * lights: point, spot, distant, projection and goniometric lights, diffuse
   area lights on spheres and triangles, and infinite lights, constant or
   with an equirect map importance-sampled by a Distribution2D (one map a
@@ -39,6 +40,7 @@ import torch
 from .accel.build import build_bvh
 from .core import sampling as smp
 from .core import transform as tf
+from .materials.fourier import FourierTable
 from .media.media import MEDIUM_NAMES, HostMediumTable, MediumTable
 from .ops.bvh import build_bvh2_table, build_bvh4_table, build_prim_records
 from .textures.textures import HostTextureTable, TextureTable, texture_meta
@@ -62,13 +64,22 @@ MAT_METAL = 4
 MAT_SUBSTRATE = 5
 MAT_UBER = 6
 MAT_TRANSLUCENT = 7
+MAT_FOURIER = 8
+MAT_DISNEY = 9
 MAT_MIX = 10
+MAT_HAIR = 11
+MAT_SUBSURFACE = 12  # subsurface and kdsubsurface (TabulatedBSSRDF)
+# the exit point's SeparableBSSRDFAdapter (bssrdf.h:153-171): made by the
+# path integrator at a sampled exit point, never a row of the table
+MAT_BSSRDF_ADAPTER = 13
 
 SUPPORTED_MATERIALS = {MAT_MATTE: "matte", MAT_PLASTIC: "plastic",
                        MAT_MIRROR: "mirror", MAT_GLASS: "glass",
                        MAT_METAL: "metal", MAT_SUBSTRATE: "substrate",
                        MAT_UBER: "uber", MAT_TRANSLUCENT: "translucent",
-                       MAT_MIX: "mix"}
+                       MAT_FOURIER: "fourier", MAT_DISNEY: "disney",
+                       MAT_MIX: "mix", MAT_HAIR: "hair",
+                       MAT_SUBSURFACE: "subsurface"}
 SUPPORTED_LIGHTS = {LIGHT_POINT: "point", LIGHT_SPOT: "spot",
                     LIGHT_DISTANT: "distant", LIGHT_AREA: "diffuse area",
                     LIGHT_INFINITE: "infinite", LIGHT_PROJECTION: "projection",
@@ -79,8 +90,13 @@ SUPPORTED_SHAPES = {SHAPE_TRIANGLE: "triangle", SHAPE_SPHERE: "sphere"}
 TEXTURE_COLUMNS = ("kd_tex", "ks_tex", "sigma_tex", "rough_tex", "opacity_tex")
 MATERIAL_FIELDS = ("mat_type", "kd", "ks", "kr", "kt", "sigma", "roughness",
                    "urough", "vrough", "eta", "remap_roughness", "metal_eta",
-                   "metal_k", "opacity", "mix_amount", "mix_m1",
-                   "mix_m2") + TEXTURE_COLUMNS
+                   "metal_k", "opacity", "disney", "hair", "mix_amount",
+                   "mix_m1", "mix_m2") + TEXTURE_COLUMNS
+# the subsurface columns, present with a subsurface row
+SUBSURFACE_FIELDS = ("ss_sigma_t", "ss_rho", "ss_table")
+# the scene's stacked beam-diffusion tables (materials/bssrdf.py)
+BSSRDF_FIELDS = ("bssrdf_rho_nodes", "bssrdf_radius_nodes", "bssrdf_profile",
+                 "bssrdf_cdf", "bssrdf_rho_eff")
 LIGHT_FIELDS = ("light_type", "L", "pos", "dir", "cos_falloff_start",
                 "cos_falloff_end", "shape_type", "shape_idx", "two_sided",
                 "n_samples", "world_radius", "world_center")
@@ -110,11 +126,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _tensors(cls, fields: dict, device):
-    return cls(**{k: torch.as_tensor(np.asarray(fields[k]), device=device)
-                  for k in (f.name for f in dataclasses.fields(cls))})
-
-
 @dataclasses.dataclass(frozen=True)
 class MaterialTable:
     mat_type: torch.Tensor  # [M] i32
@@ -131,6 +142,10 @@ class MaterialTable:
     metal_eta: torch.Tensor  # [M, 3] metal's conductor eta
     metal_k: torch.Tensor  # [M, 3] and absorption k
     opacity: torch.Tensor  # [M, 3] uber's opacity (1 opaque)
+    # disney [M, 12]: metallic, specTint, anisotropic, sheen, sheenTint,
+    # clearcoat, clearcoatGloss, specTrans, flatness, diffTrans, thin, pad
+    disney: torch.Tensor
+    hair: torch.Tensor  # [M, 6]: sigma_a rgb, beta_m, beta_n, alpha
     mix_amount: torch.Tensor  # [M, 3] mix: the first material's weight
     mix_m1: torch.Tensor  # [M] i32 mix: the two material rows
     mix_m2: torch.Tensor
@@ -140,6 +155,25 @@ class MaterialTable:
     sigma_tex: torch.Tensor
     rough_tex: torch.Tensor
     opacity_tex: torch.Tensor
+    # subsurface (TabulatedBSSRDF, bssrdf.h:117-137), with a subsurface
+    # row: world-space sigma_t and single-scattering albedo a channel, and
+    # the row's beam-diffusion table among the scene's
+    ss_sigma_t: Optional[torch.Tensor] = None  # [M, 3]
+    ss_rho: Optional[torch.Tensor] = None  # [M, 3]
+    ss_table: Optional[torch.Tensor] = None  # [M] i32
+    # fourier (reflection.h:130), with a fourier row: its table, -1 none
+    fourier_id: Optional[torch.Tensor] = None  # [M] i32
+    fourier: tuple = ()  # FourierTable a .bsdf file
+
+    @staticmethod
+    def from_numpy(mats: dict, device) -> "MaterialTable":
+        cols = {k: torch.as_tensor(np.asarray(mats[k]), device=device)
+                for k in MATERIAL_FIELDS}
+        for k in SUBSURFACE_FIELDS + ("fourier_id",):
+            if mats.get(k) is not None:
+                cols[k] = torch.as_tensor(np.asarray(mats[k]), device=device)
+        return MaterialTable(**cols, fourier=tuple(
+            FourierTable.from_numpy(t, device) for t in mats.get("fourier") or ()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +262,13 @@ class SceneArrays:
     medium_types: tuple = ()  # types of the media some primitive or the
     #   camera uses (statics.py:58-70)
     has_media: bool = False
+    # the beam-diffusion tables of the scene's distinct (g, eta), stacked
+    # (materials/bssrdf.py), with a subsurface material
+    bssrdf_rho_nodes: Optional[torch.Tensor] = None  # [100]
+    bssrdf_radius_nodes: Optional[torch.Tensor] = None  # [64]
+    bssrdf_profile: Optional[torch.Tensor] = None  # [K * 100, 64]
+    bssrdf_cdf: Optional[torch.Tensor] = None  # [K * 100, 64]
+    bssrdf_rho_eff: Optional[torch.Tensor] = None  # [K * 100]
 
     @property
     def device(self) -> torch.device:
@@ -251,6 +292,7 @@ class SceneArrays:
                     f"material column {col}: bump mapping, which the JAX "
                     "package never applies either")
         _check_mix_rows(mats)
+        _check_mix_of_hair(mats)
         tex = fields.get("textures")
         _check_opacity_textures(mats, tex)
         tex_ids = tuple(sorted({int(i) for col in TEXTURE_COLUMNS
@@ -286,7 +328,7 @@ class SceneArrays:
             bvh4_nodes=torch.as_tensor(rows, device=device),
             bvh2_nodes=torch.as_tensor(rows2, device=device),
             prim_tris=torch.as_tensor(recs, device=device),
-            materials=_tensors(MaterialTable, mats, device),
+            materials=MaterialTable.from_numpy(mats, device),
             lights=_light_table(lights, device),
             light_distr=smp.distribution_from_numpy(fields["light_distr"],
                                                     device),
@@ -311,6 +353,8 @@ class SceneArrays:
             camera_medium=media["camera_medium"],
             medium_types=media["medium_types"],
             has_media=media["has_media"],
+            **{k: torch.as_tensor(np.asarray(fields[k]), device=device)
+               for k in BSSRDF_FIELDS if fields.get(k) is not None},
         )
 
 
@@ -347,6 +391,20 @@ def _check_mix_rows(mats: dict):
                 raise NotImplementedError(
                     f"mix material {row}: {col} is itself a mix (the JAX "
                     "package would render it as matte)")
+
+
+def _check_mix_of_hair(mats: dict):
+    """A hair material as a mix's material is refused: the JAX package
+    gathers no uv for a mix's materials, so its hair reads h = -1 there
+    (bsdf.py:985-987, hair.py:107)."""
+    types = np.asarray(mats["mat_type"])
+    rows = types == MAT_MIX
+    for col in ("mix_m1", "mix_m2"):
+        for sub in np.asarray(mats[col])[rows]:
+            if 0 <= sub < types.shape[0] and types[sub] == MAT_HAIR:
+                raise NotImplementedError(
+                    f"a mix of hair (material {int(sub)}): the JAX package "
+                    "renders its hair at h = -1")
 
 
 def _check_opacity_textures(mats: dict, tex):
@@ -438,9 +496,11 @@ class SceneBuilder:
     def add_material(self, mat_type: int = MAT_MATTE, **params) -> int:
         """params as the JAX builder's: kd, ks, kr, kt, sigma, roughness,
         urough, vrough, eta, remap_roughness, metal_eta, metal_k, opacity,
-        mix_amount, mix_m1 and mix_m2 (a mix's two material rows, checked
-        at build), and the texture ids kd_tex, ks_tex, sigma_tex,
-        roughness_tex, opacity_tex (rows of self.textures)."""
+        disney (12 values), hair (6), mix_amount, mix_m1 and mix_m2 (a mix's
+        two material rows, checked at build), the texture ids kd_tex,
+        ks_tex, sigma_tex, roughness_tex, opacity_tex (rows of
+        self.textures), fourier_file (a .bsdf path), and subsurface's ss_g,
+        ss_scale, ss_sigma_a and ss_sigma_s (mm^-1, before the scale)."""
         _refuse((mat_type,), SUPPORTED_MATERIALS, "material type")
         m = _default_material()
         unknown = set(params) - set(m)
@@ -685,20 +745,23 @@ class SceneBuilder:
         quad = prim_meta[:, 0] != SHAPE_TRIANGLE
         q_prim_id[prim_meta[quad, 1]] = np.nonzero(quad)[0]
         light_table, light_distr = self._build_lights(bmin, bmax)
+        materials, bssrdf_tables = self._build_materials()
         return dict(
+            **bssrdf_tables,
             bvh_min=bvh.nodes_min, bvh_max=bvh.nodes_max,
             bvh_offset=bvh.offset, bvh_nprims=bvh.n_prims, bvh_axis=bvh.axis,
             prim_meta=prim_meta, tri_indices=tri_indices, tri_p=tri_p,
             tri_attr=tri_attr, tri_verts=tri_verts, q_type=q_type,
             q_w2o=q_w2o, q_o2w=q_o2w, q_params=q_params, q_rev=q_rev,
             q_packed=q_packed, q_prim_id=q_prim_id,
-            materials=self._build_materials(), lights=light_table,
+            materials=materials, lights=light_table,
             light_distr=light_distr, textures=self.textures.to_numpy(),
             media=self.media.to_numpy(), camera_medium=np.int32(self.camera_medium),
             **med_ids,
         )
 
-    def _build_materials(self) -> dict:
+    def _build_materials(self) -> tuple:
+        """(the material table's numpy columns, the BSSRDF tables)."""
         mats = self.materials or [dict(_default_material(), mat_type=MAT_MATTE)]
         out = {k: np.asarray([m[k] for m in mats], np.float32)
                for k in ("kd", "ks", "kr", "kt", "sigma", "roughness",
@@ -710,7 +773,11 @@ class SceneBuilder:
         for col in TEXTURE_COLUMNS + ("mix_m1", "mix_m2", "bump_tex"):
             key = "roughness_tex" if col == "rough_tex" else col
             out[col] = np.array([int(m[key]) for m in mats], np.int32)
-        return out
+        out["disney"] = np.array([m["disney"] for m in mats], np.float32)
+        out["hair"] = np.array([m["hair"] for m in mats], np.float32)
+        tables = _subsurface_tables(mats, out)
+        _fourier_tables(mats, out)
+        return out, tables
 
     def _light_power(self, li: dict, world_radius: float) -> float:
         """Approximate emitted power for the "power" strategy
@@ -779,16 +846,75 @@ class SceneBuilder:
 
 
 def _default_material() -> dict:
-    """The JAX builder's defaults for the columns the port keeps
-    (pbrt_tpu/scene.py:299-330)."""
+    """The JAX builder's defaults (pbrt_tpu/scene.py:299-330, the
+    subsurface ones :1084-1095)."""
     return dict(kd=(0.5, 0.5, 0.5), ks=(0.25, 0.25, 0.25), kr=(0.9, 0.9, 0.9),
                 kt=(1.0, 1.0, 1.0), sigma=0.0, roughness=0.1, urough=-1.0,
                 vrough=-1.0, eta=1.5, remap_roughness=True,
                 metal_eta=(0.2004, 0.9240, 1.1022),
                 metal_k=(3.9129, 2.4528, 2.1421), opacity=(1.0, 1.0, 1.0),
+                disney=(0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0,
+                        0.0),
+                hair=(1.3, 1.3, 1.3, 0.3, 0.3, 2.0),
                 mix_amount=(0.5, 0.5, 0.5), mix_m1=-1, mix_m2=-1, kd_tex=-1,
                 ks_tex=-1, sigma_tex=-1, roughness_tex=-1, opacity_tex=-1,
-                bump_tex=-1)
+                bump_tex=-1, fourier_file="", ss_g=0.0, ss_scale=1.0,
+                ss_sigma_a=(0.0011, 0.0024, 0.014),
+                ss_sigma_s=(2.55, 3.21, 3.77))
+
+
+def _subsurface_tables(mats, out: dict) -> dict:
+    """The subsurface columns (into `out`, with a subsurface row) and the
+    scene's BSSRDF tables: one beam-diffusion table per distinct (g, eta),
+    stacked in order of first use (pbrt_tpu/scene.py:1069-1116;
+    subsurface.cpp:43-50 builds one per material)."""
+    from .materials import bssrdf as bsx
+
+    rows = [i for i, m in enumerate(mats) if m["mat_type"] == MAT_SUBSURFACE]
+    if not rows:
+        return {}
+    sigma_t = np.zeros((len(mats), 3), np.float32)
+    rho = np.zeros((len(mats), 3), np.float32)
+    table = np.zeros(len(mats), np.int32)
+    keys, tables = [], []
+    for i in rows:
+        m = mats[i]
+        g, eta = float(m["ss_g"]), float(m["eta"])
+        key = (round(g, 6), round(eta, 6))
+        if key not in keys:
+            keys.append(key)
+            tables.append(bsx.beam_diffusion_table(g, eta))
+        table[i] = keys.index(key)
+        scale = float(m["ss_scale"])
+        sig_a = scale * np.asarray(m["ss_sigma_a"], np.float32)
+        sig_s = scale * np.asarray(m["ss_sigma_s"], np.float32)
+        st = sig_a + sig_s
+        sigma_t[i] = st
+        rho[i] = np.where(st > 0, sig_s / np.maximum(st, 1e-20), 0.0)
+    out.update(ss_sigma_t=sigma_t, ss_rho=rho, ss_table=table)
+    return dict(
+        bssrdf_rho_nodes=tables[0]["rho"], bssrdf_radius_nodes=tables[0]["radius"],
+        bssrdf_profile=np.concatenate([t["profile"] for t in tables]),
+        bssrdf_cdf=np.concatenate([t["cdf"] for t in tables]),
+        bssrdf_rho_eff=np.concatenate([t["rho_eff"] for t in tables]))
+
+
+def _fourier_tables(mats, out: dict):
+    """Each distinct .bsdf file read once (materials/fourier.cpp's cache):
+    "fourier" the tables, "fourier_id" each row's, -1 none, into `out`
+    with a fourier row."""
+    from .materials.fourier import read_bsdf
+
+    paths: dict = {}
+    ids = np.full(len(mats), -1, np.int32)
+    for i, m in enumerate(mats):
+        if m["mat_type"] == MAT_FOURIER:
+            if not m["fourier_file"]:
+                raise ValueError(f"fourier material {i} names no .bsdf file")
+            ids[i] = paths.setdefault(m["fourier_file"], len(paths))
+    if paths:
+        out.update(fourier_id=ids,
+                   fourier=tuple(read_bsdf(p) for p in paths))
 
 
 def _map_light_payload(lights) -> dict:

@@ -9,9 +9,11 @@ and direct-lighting integrators render:
   film, the box filter, the halton and sobol samplers, ``Integrator
   "path"`` and ``"directlighting"``;
 * matte, plastic, mirror, glass, metal (copper by default), substrate,
-  uber, translucent and mix materials, named materials and the default
-  matte material; Kd, Ks, matte's sigma, plastic's roughness and uber's
-  opacity bind to textures, as the JAX package binds them;
+  uber, translucent, mix, disney, hair, fourier (a .bsdf file beside the
+  scene), subsurface (its own coefficients or a measured "name") and
+  kdsubsurface materials, named materials and the default matte
+  material; Kd, Ks, matte's sigma, plastic's roughness, uber's opacity
+  and disney's color bind to textures, as the JAX package binds them;
 * ``Texture``: constant, scale, mix, checkerboard (2D), uv, bilerp, fbm,
   wrinkled, windy, marble, dots and imagemap, with uv mapping;
 * point, spot, distant, projection and goniometric lights, infinite
@@ -29,8 +31,9 @@ Everything else raises NotImplementedError naming what is missing:
 instancing, other shapes, lights, materials, medium types, texture classes
 and mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
 stand-in: a missing image file raises, and so do a mix naming an unknown
-or a mix material, and a spot light's "from" or "to" (which the JAX
-package does not read).
+or a mix material, a spot light's "from" or "to" (which the JAX package
+does not read), a fourier material without "bsdffile" and a subsurface
+"name" the measured table lacks.
 
 Output: ``RenderSetup``, everything render.py needs.
 """
@@ -527,11 +530,108 @@ class PbrtApi:
                                      "made")
                 kw[key] = self.gs.named_materials[ref]
             kw["mix_amount"] = ps.find_one_spectrum("amount", 0.5)
+        elif name == "disney":
+            # disney.cpp:92-625; its microfacet takes the roughness as
+            # alpha, not remapped (api.py:527-546)
+            mt = sc.MAT_DISNEY
+            self._bind(ps, kw, "color", "kd", 0.5)
+            kw["roughness"] = ps.find_one_float("roughness", 0.5)
+            kw["eta"] = ps.find_one_float("eta", 1.5)
+            kw["remap_roughness"] = False
+            kw["disney"] = tuple(
+                ps.find_one_float(pname, default) for pname, default in (
+                    ("metallic", 0.0), ("speculartint", 0.0),
+                    ("anisotropic", 0.0), ("sheen", 0.0), ("sheentint", 0.5),
+                    ("clearcoat", 0.0), ("clearcoatgloss", 1.0),
+                    ("spectrans", 0.0), ("flatness", 0.0),
+                    ("difftrans", 1.0))) + (
+                1.0 if ps.find_one_bool("thin", False) else 0.0, 0.0)
+        elif name == "hair":
+            mt = sc.MAT_HAIR
+            kw["hair"] = self._hair_params(ps)
+            kw["eta"] = ps.find_one_float("eta", 1.55)
+        elif name in ("subsurface", "kdsubsurface"):
+            mt = sc.MAT_SUBSURFACE
+            kw.update(self._subsurface_params(name, ps))
+        elif name == "fourier":
+            # a measured BSDF from a layerlab 'SCATFUN' file
+            # (materials/fourier.cpp); the JAX package renders matte without
+            # one (api.py:626-629), the port refuses
+            mt = sc.MAT_FOURIER
+            fname = ps.find_one_string("bsdffile", "")
+            if not fname:
+                raise ValueError('fourier material without "bsdffile"')
+            kw["fourier_file"] = self._path(fname)
         else:
             raise NotImplementedError(
                 f"material {name!r}: the port has "
-                f"{', '.join(sc.SUPPORTED_MATERIALS.values())}")
+                f"{', '.join(sc.SUPPORTED_MATERIALS.values())}, kdsubsurface")
         return self.setup.scene_builder.add_material(mt, **kw)
+
+    @staticmethod
+    def _hair_params(ps: ParamSet) -> tuple:
+        """sigma_a rgb, beta_m, beta_n, alpha (hair.cpp:599-670): sigma_a
+        given, or from "color" (SigmaAFromReflectance), or from the
+        eumelanin and pheomelanin concentrations (eumelanin 1.3 by
+        default)."""
+        sig = ps.find_one_spectrum("sigma_a", None)
+        bn = ps.find_one_float("beta_n", 0.3)
+        if sig is None:
+            color = ps.find_one_spectrum("color", None)
+            if color is not None:
+                c = np.asarray(color, np.float64)
+                denom = (5.969 - 0.215 * bn + 2.532 * bn ** 2 - 10.73 * bn ** 3
+                         + 5.574 * bn ** 4 + 0.245 * bn ** 5)
+                sig = tuple((np.log(np.maximum(c, 1e-4)) / denom) ** 2)
+            else:
+                ce = ps.find_one_float("eumelanin", 1.3)
+                cp = ps.find_one_float("pheomelanin", 0.0)
+                sig = tuple(ce * np.array([0.419, 0.697, 1.37])
+                            + cp * np.array([0.187, 0.4, 1.05]))
+        return (float(sig[0]), float(sig[1]), float(sig[2]),
+                ps.find_one_float("beta_m", 0.3), bn,
+                ps.find_one_float("alpha", 2.0))
+
+    @staticmethod
+    def _subsurface_params(name, ps: ParamSet) -> dict:
+        """subsurface.cpp / kdsubsurface.cpp's parameters: the surface's
+        Kr, Kt, roughness and eta, and the medium's sigma_a and sigma_s
+        (mm^-1) before "scale": given, named in the measured table (the
+        JAX package falls back to the defaults on an unknown name,
+        api.py:600-603; the port refuses), or, for kdsubsurface, inverted
+        from Kd and the mean free path (SubsurfaceFromDiffuse)."""
+        from ..materials import bssrdf as bsx
+        from ..materials.measuredss import get_medium_scattering_properties
+
+        g = ps.find_one_float("g", 0.0)
+        eta = ps.find_one_float("eta", 1.33)
+        kw = dict(kr=ps.find_one_spectrum("Kr", 1.0),
+                  kt=ps.find_one_spectrum("Kt", 1.0), roughness=0.0,
+                  urough=ps.find_one_float("uroughness", 0.0),
+                  vrough=ps.find_one_float("vroughness", 0.0),
+                  remap_roughness=ps.find_one_bool("remaproughness", True),
+                  eta=eta, ss_scale=ps.find_one_float("scale", 1.0))
+        if name == "subsurface":
+            sig_a, sig_s = (0.0011, 0.0024, 0.014), (2.55, 3.21, 3.77)
+            named = ps.find_one_string("name", "")
+            if named:
+                props = get_medium_scattering_properties(named)
+                if props is None:
+                    raise ValueError(f"subsurface material: no measured "
+                                     f"medium named {named!r}")
+                sig_s, sig_a = props
+                g = 0.0  # the table holds reduced coefficients
+            kw["ss_sigma_a"] = ps.find_one_spectrum("sigma_a", sig_a)
+            kw["ss_sigma_s"] = ps.find_one_spectrum("sigma_s", sig_s)
+        else:
+            kd = np.asarray(ps.find_one_spectrum("Kd", 0.5), np.float64)
+            mfp = np.asarray(ps.find_one_spectrum("mfp", 1.0), np.float64)
+            sig_a, sig_s = bsx.subsurface_from_diffuse(
+                bsx.beam_diffusion_table(g, eta), kd, mfp)
+            kw["ss_sigma_a"] = tuple(sig_a.tolist())
+            kw["ss_sigma_s"] = tuple(sig_s.tolist())
+        kw["ss_g"] = g
+        return kw
 
     def _map_image(self, ps: ParamSet):
         """A light's "mapname" image, read as the infinite light's map is,

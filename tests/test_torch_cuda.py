@@ -13,7 +13,12 @@ the CPU (and under each BVH kernel), with their launch counts; each kernel
 against its plain version on every batch of a volpath, a Whitted, an AO
 and a breadth sample; and the metal, substrate, uber, translucent and mix
 materials and the spot, distant, projection and goniometric lights on the
-card against the CPU, lane by lane.
+card against the CPU, lane by lane; and the advanced file (disney, hair,
+fourier, subsurface and kdsubsurface) on the card against the CPU and
+under each BVH kernel, with its launch count, and each kernel against its
+plain version on every batch of an advanced sample (the NEE batch without
+the extension ray, the probe walk's segments, the exit point's NEE, the
+separate next-bounce launch).
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -40,7 +45,8 @@ from pbrt_tpu_torch.sceneio import parse_pbrt_file
 from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_trees import caterpillar_rays, caterpillar_tree
-from chip_smoke import bvh_switch, write_breadth_pbrt, write_config3_pbrt
+from chip_smoke import (bvh_switch, write_advanced_pbrt, write_breadth_pbrt,
+                        write_config3_pbrt)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -654,3 +660,34 @@ def test_breadth_materials_and_lights_on_card_match_cpu():
     for k, ref in out["cpu"].items():
         assert_lanes_close(ref, out["cuda"][k], k)
     assert out["cpu"]["s_valid"].float().mean() > 0.3
+
+
+# the advanced file: a sample launches the camera rays, then a bounce the
+# NEE, 4 probe segments, the exit point's NEE and the next closest hit
+ADVANCED = dict(res=(32, 32), blob=(64, 32), depth=3,
+                extra=' "string lightsamplestrategy" "uniform"')
+ADVANCED_PER_SPP = 1 + 3 * (3 + 4)
+
+
+def test_advanced_on_card_matches_cpu_and_bvh2(tmp_path):
+    """write_advanced_pbrt at 32x32 @ 2 spp, depth 3: 2 x 22 launches, the
+    CPU at tests/test_torch_path.py:58-59's bars, bvh2 against bvh4, a
+    bit-identical repeat."""
+    path = write_advanced_pbrt(tmp_path, spp=2, **ADVANCED)
+    card, n4 = file_render(path, "cuda")
+    assert n4 == (2 * ADVANCED_PER_SPP, 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert_image_bars(card, file_render(path, "cpu")[0])
+    card2, n2 = file_render(path, "cuda", "0")
+    assert n2 == (0, 2 * ADVANCED_PER_SPP)
+    assert_image_bars(card2, card)
+    assert torch.equal(file_render(path, "cuda")[0], card)
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+def test_advanced_batches_kernel_equals_plain(tmp_path, kind):
+    """Every batch one advanced sample launches through the kernel and its
+    plain version, bit for bit: the probe segments' lanes that do not walk
+    at t_max = 0 from a finite ray."""
+    path = write_advanced_pbrt(tmp_path, spp=1, **ADVANCED)
+    assert assert_batches_equal_plain(path, kind, ADVANCED_PER_SPP) > 32 * 32

@@ -131,9 +131,9 @@ def test_bvh4_table_covers_every_primitive_once():
 def test_refuses_what_is_not_ported():
     b = tsc.SceneBuilder()
     with pytest.raises(NotImplementedError):
-        b.add_material(9)  # disney
+        b.add_material(13)  # the BSSRDF adapter, never a table row
     j = jsc.SceneBuilder()
-    m = j.add_material(jsc.MAT_DISNEY)
+    m = j.add_material(jsc.MAT_BSSRDF_ADAPTER)
     j.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_numpy(_jax_fields(j.build()), "cpu")

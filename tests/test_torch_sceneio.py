@@ -122,7 +122,7 @@ def test_include_and_plymesh_match_jax(tmp_path):
      "mapping"),
     ('Texture "t" "spectrum" "constant"\nMaterial "mirror" "texture Kr" "t"\n',
      "texture Kr"),
-    ('Material "disney"\n', "disney"),
+    ('Material "velvet"\n', "velvet"),
     ('LightSource "distant" "spectrum L" [400 1 700 1]\n', "spectrum L"),
     ('Material "matte" "spectrum Kd" [400 .5 700 .5]\n', "spectrum Kd"),
     ('ObjectBegin "o"\nObjectEnd\n', "instancing"),
