@@ -134,6 +134,23 @@ Phases, each printing its result on a line of its own and its seconds:
      "_advanced" (ranges "layer: materials / fourier", "/ disney",
      "/ hair", "layer: subsurface / probe walk", "/ sr sampling",
      "/ exit NEE");
+ 16. imaging: image formation through render.render_file.  Main's file
+     with PixelFilter "gaussian" and Sampler "lowdiscrepancy" at 400x400 @
+     8 spp, depth 5, spatial distribution: the wall, the wall a spp,
+     Mrays/s, process CPU and set-up by phase, 48 bvh4 launches, a
+     bit-identical repeat, PBRT_TPU_BVH4=0 with 48 bvh2 launches against
+     bvh4; the film's time a call on a 400x400 batch under the box,
+     gaussian and sinc filters; PBRT_TPU_EXACT_SAMPLER=1 with halton on the
+     same file at 2 spp, twice, bit-identical, with the host seconds of one
+     batch's exact table; 64x64 copies on the card against the CPU
+     (the gaussian file; orthographic camera, mitchell, stratified; environment, sinc,
+     random; realistic with the built-in lens, triangle, maxmin; the exact
+     mode under stratified and zerotwosequence; directlighting "all" under
+     zerotwosequence with the light's nsamples 3, which rounds to 4); and
+     each kernel against its plain version and bvh2 against bvh4 on the
+     camera batch of the orthographic, environment and realistic cameras
+     at 400x400; with --profile FILE, one spp under torch.profiler, its
+     table written to FILE's name plus "_imaging" (range "layer: film");
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -2128,6 +2145,276 @@ def advanced_phase(render, counted, card, dev, profile):
             "results": results}
 
 
+MAIN_CAMERA = 'Camera "perspective" "float fov" [45]'
+MAIN_SAMPLER = f'Sampler "halton" "integer pixelsamples" [{SPP}]'
+# phase 16's 64x64 copies, card against CPU: (label, camera, filter,
+# sampler, integrator or None for the main file's, the exact mode)
+IMAGING_COPIES = [
+    ("gaussian, lowdiscrepancy (the full-width file)", MAIN_CAMERA,
+     'PixelFilter "gaussian"', 'Sampler "lowdiscrepancy" "integer pixelsamples" [4]',
+     None, False),
+    ("orthographic, mitchell, stratified",
+     'Camera "orthographic"', 'PixelFilter "mitchell"', 'Sampler "stratified" "integer pixelsamples" [4]',
+     None, False),
+    ("environment, sinc, random", 'Camera "environment"', 'PixelFilter "sinc"',
+     'Sampler "random" "integer pixelsamples" [2]', None, False),
+    ("realistic (built-in lens), triangle, maxmin",
+     'Camera "realistic" "float focusdistance" [8.5]', 'PixelFilter "triangle"',
+     'Sampler "maxmin" "integer pixelsamples" [2]', None, False),
+    ("exact stratified", MAIN_CAMERA, "",
+     'Sampler "stratified" "integer pixelsamples" [4]', None, True),
+    ("exact zerotwosequence", MAIN_CAMERA, "",
+     'Sampler "zerotwosequence" "integer pixelsamples" [2]', None, True),
+    ("directlighting all, zerotwosequence, nsamples 3", MAIN_CAMERA, "",
+     'Sampler "zerotwosequence" "integer pixelsamples" [2]',
+     f'Integrator "directlighting" "integer maxdepth" [{DEPTH}] '
+     '"string strategy" "all"', False),
+]
+# the camera batches phase 16 holds each kernel against its plain version on
+IMAGING_CAMERAS = {
+    "orthographic": 'Camera "orthographic"',
+    "environment": 'Camera "environment"',
+    "realistic": 'Camera "realistic" "float focusdistance" [8.5]',
+}
+
+
+@contextlib.contextmanager
+def exact_sampler(on: bool):
+    """PBRT_TPU_EXACT_SAMPLER=1 within the block when on."""
+    old = os.environ.get("PBRT_TPU_EXACT_SAMPLER")
+    if on:
+        os.environ["PBRT_TPU_EXACT_SAMPLER"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PBRT_TPU_EXACT_SAMPLER", None)
+        else:
+            os.environ["PBRT_TPU_EXACT_SAMPLER"] = old
+
+
+def imaging_file(main: Path, name: str, camera=MAIN_CAMERA, filt="",
+                 sampler=MAIN_SAMPLER, integrator=None, res=None,
+                 light_samples=None) -> Path:
+    """A copy of the main file beside it (it shares blob.ply) with its
+    camera, filter, sampler, integrator, resolution or its light's sample
+    count swapped."""
+    text = main.read_text()
+    for old in (MAIN_CAMERA, MAIN_SAMPLER):
+        check(old in text, f"the main file has no {old!r}")
+    text = text.replace(MAIN_CAMERA, camera + ("\n" + filt if filt else ""))
+    text = text.replace(MAIN_SAMPLER, sampler)
+    if integrator:
+        text = text.replace(f'Integrator "path" "integer maxdepth" [{DEPTH}]',
+                            integrator)
+    if res:
+        text = text.replace(f'"integer xresolution" [{RES[0]}] "integer '
+                            f'yresolution" [{RES[1]}]', f'"integer xresolution" '
+                            f'[{res[0]}] "integer yresolution" [{res[1]}]')
+    if light_samples:
+        text = text.replace('AreaLightSource "diffuse" "rgb L" [40 40 40]',
+                            'AreaLightSource "diffuse" "rgb L" [40 40 40] '
+                            f'"integer nsamples" [{light_samples}]')
+    path = main.with_name(f"{name}.pbrt")
+    path.write_text(text)
+    return path
+
+
+def film_times(dev) -> dict:
+    """add_samples on one sample per pixel of a 400x400 batch (the main
+    path's film call) under the box, gaussian and sinc filters: ms a call
+    (CUDA events around 10 calls; add_samples waits on the card twice a
+    call, so the host's part between its launches counts) and the
+    footprint's cells a sample."""
+    import torch
+
+    from pbrt_tpu_torch import film
+    from pbrt_tpu_torch.filters import make_filter
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    ys, xs = torch.meshgrid(torch.arange(RES[1], device=dev),
+                            torch.arange(RES[0], device=dev), indexing="ij")
+    pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32)
+    p_film = pix + torch.rand(pix.shape, generator=g, device=dev)
+    L = torch.rand((pix.shape[0], 3), generator=g, device=dev)
+    out = {}
+    for name in ("box", "gaussian", "sinc"):
+        filt = make_filter(name)
+        cfg = film.FilmConfig(full_resolution=RES, filter_radius=filt.radius)
+        state = film.make_film_state(cfg, filt, dev)
+        ms = time_cuda(lambda: film.add_samples(state, p_film, L), 10)
+        out[name] = {"ms": round(ms, 4), "footprint_cells": state.footprint ** 2}
+    return out
+
+
+def imaging_phase(render, counted, card, dev, profile):
+    """Phase 16: image formation on the card.  The main file with a
+    gaussian filter and the lowdiscrepancy sampler through render_file, at
+    400x400 @ 8 spp, depth 5, spatial distribution: (1 + DEPTH) launches a
+    spp, a bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4; the exact
+    mode (halton) on the same file at 400x400 @ 2 spp, repeated bit for bit,
+    with the host seconds of one batch's table; 64x64 copies (that file;
+    orthographic,
+    environment and realistic cameras, mitchell, sinc and triangle filters,
+    stratified, random and maxmin samplers, the exact mode under stratified
+    and zerotwosequence, directlighting "all" under zerotwosequence with a
+    light of nsamples 3) on the card against the CPU, the CPU rendering its
+    own scene; the film's device time under three filters; each kernel
+    against its plain version and bvh2 against bvh4 on the camera batch of
+    each new camera at 400x400."""
+    import torch
+
+    from pbrt_tpu_torch import film
+    from pbrt_tpu_torch.integrators import direct
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers import exact_tables
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "imaging"
+    t0 = time.perf_counter()
+    split = {}
+    main = write_main_pbrt(out_dir)
+    gauss = imaging_file(main, "gaussian", filt='PixelFilter "gaussian"',
+                         sampler=f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]')
+    want = SPP * (1 + DEPTH)
+    runs = []
+    for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
+        c0 = time.process_time()
+        img, st, launches = timed_render_file(render, counted, gauss,
+                                              out_dir / f"{kind}.pfm", dev, switch)
+        cpu = time.process_time() - c0
+        other = "bvh2" if kind == "bvh4" else "bvh4"
+        check(launches[f"{kind}_traverse"] == want
+              and launches[f"{other}_traverse"] == 0,
+              f"imaging ({kind}) launches {launches}, not {want} of {kind}")
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"imaging {RES[0]}x{RES[1]} @ {SPP} spp, gaussian, "
+                          f"lowdiscrepancy, {kind}", st, launches, card)
+              + f", wall {wall / SPP:.4f} s a spp, "
+              f"{launches[f'{kind}_traverse'] / SPP:.0f} launches a spp, process "
+              f"CPU of the whole call {cpu:.3f} s, image mean "
+              f"{float(img.mean()):.6f}", flush=True)
+        runs.append((img, launches))
+    check(np.array_equal(runs[0][0], runs[1][0]), "imaging: a repeat differs")
+    frac, mean_rel = image_bars(runs[0][0], runs[2][0])
+    print(f"imaging bvh2 against bvh4: bit-equal "
+          f"{np.array_equal(runs[0][0], runs[2][0])}, match_frac {frac:.4f}, "
+          f"mean rel {mean_rel:.3e}", flush=True)
+    check(frac >= 0.995 and mean_rel <= 5e-3,
+          f"imaging bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
+    print("imaging film, device ms of one add_samples of a 400x400 batch: "
+          + json.dumps(film_times(dev)) + f" [{card}]", flush=True)
+    split["gaussian renders"] = time.perf_counter() - t0
+
+    # the exact mode, halton, on the same file at 2 spp
+    t0 = time.perf_counter()
+    exact = imaging_file(main, "exact", filt='PixelFilter "gaussian"',
+                         sampler='Sampler "halton" "integer pixelsamples" [2]')
+    imgs = []
+    with exact_sampler(True):
+        cfg = parse_pbrt_file(str(exact)).make_sampler_config()
+        check(cfg.exact, "PBRT_TPU_EXACT_SAMPLER=1 did not turn the exact mode on")
+        for i in range(2):
+            img, st, launches = timed_render_file(render, counted, exact,
+                                                  out_dir / f"exact{i}.pfm", dev)
+            check(launches["bvh4_traverse"] == 2 * (1 + DEPTH),
+                  f"imaging exact: launches {launches}")
+            print(render_line(f"imaging exact halton {RES[0]}x{RES[1]} @ 2 spp, "
+                              "gaussian", st, launches, card), flush=True)
+            imgs.append(img)
+    check(np.array_equal(imgs[0], imgs[1]), "imaging exact: a repeat differs")
+    pix = ip.make_pixel_grid(film.FilmConfig(full_resolution=RES))
+    n_dims = ip.n_path_dims(ip.PathConfig(max_depth=DEPTH))
+    t1 = time.perf_counter()
+    exact_tables.halton_exact_table(cfg, pix, 1, n_dims)
+    print(f"imaging exact: repeat bit-identical; one batch's halton table "
+          f"({RES[0] * RES[1]} lanes x {n_dims} dims) "
+          f"{time.perf_counter() - t1:.3f} s on the host", flush=True)
+    split["exact renders"] = time.perf_counter() - t0
+
+    # the 64x64 copies, card against CPU; the CPU side renders its own
+    # build of the scene, its spatial distribution built once
+    t0 = time.perf_counter()
+    cpu_scene = None
+    for i, (label, camera, filt, sampler, integ, ex) in enumerate(IMAGING_COPIES):
+        p = imaging_file(main, f"small{i}", camera, filt, sampler, integ,
+                         res=(64, 64), light_samples=3 if integ else None)
+        with exact_sampler(ex):
+            a, _ = render.render_file(str(p), out=str(out_dir / f"small{i}.pfm"),
+                                      device=dev)
+            t1 = time.perf_counter()
+            setup = parse_pbrt_file(str(p))
+            film_cfg, filt_obj = setup.make_film_config()
+            if integ:  # its light's nsamples differs: a scene of its own
+                scene, renderer = setup.build_scene("cpu"), direct.render
+            else:
+                if cpu_scene is None:
+                    cpu_scene = lightdistrib.ensure_spatial_light_distribution(
+                        setup.build_scene("cpu"))
+                scene, renderer = cpu_scene, ip.render
+            b = renderer(scene, setup.make_camera(), film_cfg,
+                         setup.make_sampler_config(), setup.make_integrator_config(),
+                         filt_obj, device="cpu").numpy()
+        frac, mean_rel = image_bars(b, a)
+        print(f"imaging {label} card against cpu (64x64 @ "
+              f"{setup.make_sampler_config().spp} spp): match_frac {frac:.4f}, "
+              f"mean rel {mean_rel:.3e}; the CPU {time.perf_counter() - t1:.2f} s",
+              flush=True)
+        check(a.shape == (64, 64, 3) and bool(np.isfinite(a).all())
+              and float(a.mean()) > 0 and frac >= 0.995 and mean_rel <= 5e-3,
+              f"imaging {label} card against cpu: match_frac {frac}, "
+              f"mean rel {mean_rel}")
+    del cpu_scene, scene
+    split["64x64 copies"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(gauss))
+    scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+    film_cfg, filt = setup.make_film_config()
+    cfg = setup.make_integrator_config()
+    one = SamplerConfig("zerotwosequence", 1, RES)
+    fs = film.make_film_state(film_cfg, filt, dev)
+    mb = {"bvh4 nodes + triangles": scene.bvh4_nodes.nbytes + scene.prim_tris.nbytes,
+          "spatial distribution": scene.spatial_cdf.nbytes + scene.spatial_pmf.nbytes,
+          "film sums": fs.weighted_sum.nbytes + fs.weight_sum.nbytes,
+          "an exact batch's halton table": 4 * RES[0] * RES[1] * n_dims}
+    print("imaging bytes on the card, MB: " + json.dumps(
+        {k: round(v / 1e6, 4) for k, v in mb.items()}), flush=True)
+    del fs
+    if profile is not None:
+        profile_render(lambda: ip.render(scene, setup.make_camera(), film_cfg, one,
+                                         cfg, filt, device=dev),
+                       profile.with_name(f"{profile.stem}_imaging{profile.suffix}"),
+                       "imaging profile")
+    kernels = bvh_kernels(bvh)
+    results = {kind: {} for kind in kernels}
+    for label, camera in IMAGING_CAMERAS.items():
+        cam = parse_pbrt_file(str(imaging_file(main, f"kernel_{label}", camera))
+                              ).make_camera()
+        with bvh.record_calls() as captured:
+            ip.render(scene, cam, film_cfg, one, dataclasses.replace(cfg, max_depth=0),
+                      filt, device=dev)
+        oc, dc, tc, mc, order = captured[0]
+        print(f"batch imaging-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live", flush=True)
+        for kind, k in kernels.items():
+            results[kind][label] = kernel_case(f"{kind}-imaging-{label}", k, bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order)
+        cross_check(f"imaging-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+        del captured
+    del scene
+    torch.cuda.empty_cache()
+    split["set-up, profile, kernel checks"] = time.perf_counter() - t0
+    print("imaging phase split, s: " + json.dumps(
+        {k: round(v, 2) for k, v in split.items()}), flush=True)
+    return {"bvh4": runs[0][1]["bvh4_traverse"], "bvh2": runs[2][1]["bvh2_traverse"],
+            "results": results}
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -2322,6 +2609,11 @@ def run(profile: Path | None = None) -> dict:
     adv = advanced_phase(render, counted, card, dev, profile)
     phase("advanced", t0)
 
+    # 16. image formation: samplers, filters, cameras, the exact mode
+    t0 = time.perf_counter()
+    img16 = imaging_phase(render, counted, card, dev, profile)
+    phase("imaging", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -2335,7 +2627,8 @@ def run(profile: Path | None = None) -> dict:
         checked = (list(res.values()) + list(c4["results"][kind].values())
                    + list(wa["results"][kind].values())
                    + list(br["results"][kind].values())
-                   + list(adv["results"][kind].values()))
+                   + list(adv["results"][kind].values())
+                   + list(img16["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -2357,6 +2650,10 @@ def run(profile: Path | None = None) -> dict:
             "advanced_launches": adv[kind],
             **{f"advanced_{label.replace('-', '_')}_{key}": r[key]
                for label, r in adv["results"][kind].items()
+               for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
+            "imaging_launches": img16[kind],
+            **{f"imaging_{label}_camera_{key}": r[key]
+               for label, r in img16["results"][kind].items()
                for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "mismatch_frac": max(r["mismatch_frac"] for r in checked),

@@ -1,6 +1,6 @@
 """Carry the JAX package's scene and camera over to the port, as numpy.
 
-The JAX package (pbrt_tpu) builds SceneArrays and CameraParams as frozen
+The JAX package (pbrt_tpu) builds SceneArrays and cameras as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
 here, so both packages render the very same arrays: the geometry, the
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .cameras import CameraParams
+from .cameras.realistic import RealisticParams
 from .core.sampling import DISTRIBUTION_2D_FIELDS
 from .media.media import MEDIUM_FIELDS
 from .materials.fourier import TABLE_FIELDS, TABLE_INTS
@@ -56,11 +57,23 @@ def scene_from_numpy(fields: dict, device) -> SceneArrays:
     return SceneArrays.from_numpy(fields, device)
 
 
-def camera_from_numpy(fields: dict, device) -> CameraParams:
-    """The JAX package's CameraParams, as numpy fields, on `device`."""
+def camera_from_numpy(fields: dict, device):
+    """The JAX package's CameraParams (perspective, orthographic or
+    environment, by cam_type) or RealisticParams, as numpy fields, on
+    `device`."""
     device = resolve_device(device)
-    if int(fields.get("cam_type", 0)) != 0:
-        raise NotImplementedError("only the perspective camera is ported")
+    if "exit_pupil" in fields:
+        return RealisticParams(
+            camera_to_world=torch.as_tensor(
+                np.array(fields["camera_to_world"], np.float32), device=device),
+            **{k: np.array(fields[k], np.float32)
+               for k in ("curvature", "element_z", "eta", "aperture_r")},
+            exit_pupil=torch.as_tensor(np.array(fields["exit_pupil"], np.float32),
+                                       device=device),
+            **{k: float(fields[k]) for k in ("rear_z", "film_diag", "shutter_open",
+                                             "shutter_close")},
+            full_resolution=tuple(fields["full_resolution"]),
+        )
     return CameraParams(
         raster_to_camera=torch.as_tensor(
             np.array(fields["raster_to_camera"], np.float32), device=device),
@@ -71,6 +84,7 @@ def camera_from_numpy(fields: dict, device) -> CameraParams:
         shutter_open=float(fields["shutter_open"]),
         shutter_close=float(fields["shutter_close"]),
         full_resolution=tuple(fields["full_resolution"]),
+        cam_type=int(fields.get("cam_type", 0)),
     )
 
 
@@ -123,22 +137,28 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
     out: list[str] = []
     jc = as_numpy_fields(jax_setup.make_camera())
     tc = port_setup.make_camera()
-    for k in ("raster_to_camera", "camera_to_world"):
+    tensors = ("camera_to_world",) + (
+        ("exit_pupil",) if "exit_pupil" in jc else ("raster_to_camera",))
+    for k in tensors:
         _diff(out, f"camera.{k}", jc[k], getattr(tc, k).cpu().numpy(), rtol)
-    for k in ("lens_radius", "focal_distance", "shutter_open", "shutter_close",
-              "full_resolution", "cam_type"):
+    for k in (("curvature", "element_z", "eta", "aperture_r", "rear_z", "film_diag")
+              if "exit_pupil" in jc else ("lens_radius", "focal_distance", "cam_type")):
+        _diff(out, f"camera.{k}", jc[k], getattr(tc, k), rtol)
+    for k in ("shutter_open", "shutter_close", "full_resolution"):
         _diff(out, f"camera.{k}", jc[k], getattr(tc, k), rtol)
 
     (jf, jfilt), (tf, tfilt) = jax_setup.make_film_config(), port_setup.make_film_config()
-    for k in ("full_resolution", "crop_window", "scale", "max_sample_luminance"):
+    for k in ("full_resolution", "crop_window", "filter_radius", "scale",
+              "max_sample_luminance"):
         _diff(out, f"film.{k}", getattr(jf, k), getattr(tf, k), rtol)
     if jf.filter_name != tf.filter_name:
         out.append(f"film.filter_name: {jf.filter_name!r} != {tf.filter_name!r}")
     _diff(out, "film.filter_radius", jfilt.radius, tfilt.radius, rtol)
 
     js, ts = jax_setup.make_sampler_config(), port_setup.make_sampler_config()
-    if js.name != ts.name:
-        out.append(f"sampler.name: {js.name!r} != {ts.name!r}")
+    for k in ("name", "seed", "exact"):
+        if getattr(js, k) != getattr(ts, k):
+            out.append(f"sampler.{k}: {getattr(js, k)!r} != {getattr(ts, k)!r}")
     _diff(out, "sampler.spp", js.spp, ts.spp, rtol)
     _diff(out, "sampler.resolution", js.resolution, ts.resolution, rtol)
 

@@ -1,10 +1,12 @@
-"""Perspective camera ray generation.
+"""Camera ray generation.
 
-Port of the perspective camera of pbrt_tpu/cameras/cameras.py
-(cameras/perspective.cpp:43-95).  The host builds RasterToCamera once from
-numpy transforms; ``generate_rays`` maps a flat batch of film / lens / time
-samples to world-space rays, and ``generate_ray_differentials`` adds the
-rays one pixel over in x and in y.
+Port of pbrt_tpu/cameras/cameras.py: the perspective, orthographic (both
+with a thin lens) and environment cameras (cameras/perspective.cpp:43-95,
+orthographic.cpp, environment.cpp:43-57).  The host builds RasterToCamera
+once from numpy transforms; ``generate_rays`` maps a flat batch of film /
+lens / time samples to world-space rays, dispatching a RealisticParams to
+cameras/realistic.py, and ``generate_ray_differentials`` adds the rays one
+pixel over in x and in y.
 """
 from __future__ import annotations
 
@@ -18,8 +20,11 @@ import torch
 from ..core import sampling as smp
 from ..core import transform as tf
 from ..core.vecmath import normalize, xform_point, xform_vector
+from .realistic import RealisticParams, generate_rays_realistic
 
 CAM_PERSPECTIVE = 0
+CAM_ORTHOGRAPHIC = 1
+CAM_ENVIRONMENT = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +79,15 @@ def perspective_matrices(camera_to_world: tf.Transform, resolution,
                          fov_deg: float = 90.0, screen=None):
     """(raster_to_camera, camera_to_world) as float32 numpy 4x4 matrices,
     computed as the JAX package's make_perspective_camera does."""
-    aspect = resolution[0] / resolution[1]
-    screen = _screen_window(aspect, screen)
-    cam_to_screen = tf.perspective(fov_deg, 1e-2, 1000.0)
+    return _projective_matrices(tf.perspective(fov_deg, 1e-2, 1000.0),
+                                camera_to_world, resolution, screen)
+
+
+def _projective_matrices(cam_to_screen: tf.Transform,
+                         camera_to_world: tf.Transform, resolution, screen):
+    """The ProjectiveCamera ctor's RasterToCamera (camera.h), and
+    CameraToWorld, as float32 numpy 4x4 matrices."""
+    screen = _screen_window(resolution[0] / resolution[1], screen)
     raster_to_screen = _raster_to_screen(resolution, screen)
     r2c = cam_to_screen.m_inv @ raster_to_screen.m
     return np.asarray(r2c, np.float32), np.asarray(camera_to_world.m, np.float32)
@@ -126,25 +137,81 @@ def make_perspective_camera(camera_to_world: tf.Transform, resolution,
     )
 
 
-def generate_rays(cam: CameraParams, p_film, p_lens, time_u):
+def make_orthographic_camera(camera_to_world: tf.Transform, resolution,
+                             screen=None, lens_radius: float = 0.0,
+                             focal_distance: float = 1e6,
+                             shutter_open: float = 0.0,
+                             shutter_close: float = 1.0,
+                             device="cpu") -> CameraParams:
+    """OrthographicCamera (orthographic.cpp), with its thin lens."""
+    r2c, c2w = _projective_matrices(tf.orthographic(0.0, 1.0), camera_to_world,
+                                    resolution, screen)
+    return CameraParams(
+        raster_to_camera=torch.as_tensor(r2c, device=device),
+        camera_to_world=torch.as_tensor(c2w, device=device),
+        lens_radius=float(np.float32(lens_radius)),
+        focal_distance=float(np.float32(focal_distance)),
+        shutter_open=float(np.float32(shutter_open)),
+        shutter_close=float(np.float32(shutter_close)),
+        full_resolution=tuple(resolution), cam_type=CAM_ORTHOGRAPHIC,
+    )
+
+
+def make_environment_camera(camera_to_world: tf.Transform, resolution,
+                            shutter_open: float = 0.0,
+                            shutter_close: float = 1.0,
+                            device="cpu") -> CameraParams:
+    """EnvironmentCamera (environment.cpp:43): equirectangular rays from
+    the camera's origin, weight 1."""
+    return CameraParams(
+        raster_to_camera=torch.eye(4, device=device),
+        camera_to_world=torch.as_tensor(
+            np.asarray(camera_to_world.m, np.float32), device=device),
+        lens_radius=0.0, focal_distance=float(np.float32(1e6)),
+        shutter_open=float(np.float32(shutter_open)),
+        shutter_close=float(np.float32(shutter_close)),
+        full_resolution=tuple(resolution), cam_type=CAM_ENVIRONMENT,
+    )
+
+
+def generate_rays(cam, p_film, p_lens, time_u):
     """Camera::GenerateRay over a batch.  Returns (o, d, time, weight)."""
-    if cam.cam_type != CAM_PERSPECTIVE:
-        raise NotImplementedError("only the perspective camera is ported")
+    if isinstance(cam, RealisticParams):
+        return generate_rays_realistic(cam, p_film, p_lens, time_u)
     n = p_film.shape[0]
     dev = p_film.device
     time = cam.shutter_open + time_u * (cam.shutter_close - cam.shutter_open)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    if cam.cam_type == CAM_ENVIRONMENT:
+        # environment.cpp:43-57: theta and phi from the raster position.
+        xr, yr = cam.full_resolution
+        theta = math.pi * p_film[:, 1] / yr
+        phi = 2.0 * math.pi * p_film[:, 0] / xr
+        sin_t = torch.sin(theta)
+        d = torch.stack([sin_t * torch.cos(phi), torch.cos(theta),
+                         sin_t * torch.sin(phi)], -1)
+        o = xform_point(cam.camera_to_world,
+                        torch.zeros((n, 3), dtype=torch.float32, device=dev))
+        return o, xform_vector(cam.camera_to_world, d), time, ones
     p_raster = torch.cat([p_film, torch.zeros((n, 1), device=dev)], dim=-1)
     m = cam.raster_to_camera
     p_cam_h = xform_point(m, p_raster)
     w = (m[3, 0] * p_raster[:, 0] + m[3, 1] * p_raster[:, 1]
          + m[3, 2] * p_raster[:, 2] + m[3, 3])
     p_cam = p_cam_h / w[:, None]
-    o = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    d = normalize(p_cam)
+    if cam.cam_type == CAM_PERSPECTIVE:
+        o = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        d = normalize(p_cam)
+    else:
+        o = p_cam
+        d = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        d[:, 2] = 1.0
     if cam.host_lens_radius > 0.0:
-        # Thin-lens depth of field (perspective.cpp:76-95).  Without a lens
-        # the branch is not taken, and lens_radius and focal_distance get
-        # zero gradients, as the JAX package's jnp.where gives them.
+        # Thin-lens depth of field (perspective.cpp:76-95; the JAX package
+        # puts the orthographic camera's lens origin at the lens point too,
+        # cameras.py:218-228).  Without a lens the branch is not taken, and
+        # lens_radius and focal_distance get zero gradients, as the JAX
+        # package's jnp.where gives them.
         pl = cam.lens_radius * smp.concentric_sample_disk(p_lens)
         ft = cam.focal_distance / d[:, 2]
         p_focus = o + ft[:, None] * d
@@ -152,10 +219,10 @@ def generate_rays(cam: CameraParams, p_film, p_lens, time_u):
         d = normalize(p_focus - o)
     o = xform_point(cam.camera_to_world, o)
     d = xform_vector(cam.camera_to_world, d)
-    return o, d, time, torch.ones(n, dtype=torch.float32, device=dev)
+    return o, d, time, ones
 
 
-def generate_ray_differentials(cam: CameraParams, p_film, p_lens, time_u,
+def generate_ray_differentials(cam, p_film, p_lens, time_u,
                                spp: int = 1):
     """Camera::GenerateRayDifferential (camera.cpp:68-85): the rays at
     pFilm + (1, 0) and pFilm + (0, 1) with the same lens and time samples,

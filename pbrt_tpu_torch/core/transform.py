@@ -127,3 +127,8 @@ def perspective(fov_deg, znear, zfar) -> Transform:
     inv_tan = 1.0 / math.tan(math.radians(fov_deg) / 2)
     return from_matrix(scale(inv_tan, inv_tan, 1.0).m @ persp)
 
+
+
+def orthographic(znear, zfar) -> Transform:
+    """Orthographic camera->screen transform (transform.cpp:231)."""
+    return scale(1.0, 1.0, 1.0 / (zfar - znear)) @ translate(0.0, 0.0, -znear)

@@ -4,10 +4,16 @@ Port of pbrt_tpu/film.py (core/film.{h,cpp}): a dense [H, W] film updated
 with scatter-adds from flat sample batches, a 16x16 filter LUT exactly as
 pbrt discretises it (film.cpp:66-76), and RGB accumulation.
 
-The scatter is ``index_put_(accumulate=True)``.  With the box filter each
-sample lands on one pixel per batch, so the sums do not depend on the order
-in which the atomics land; wider filters overlap neighbouring samples and
-would need an ordered accumulation to stay bit-stable on the card.
+The scatter sums each pixel's contributions in one fixed order on every
+device: the order XLA:CPU's scatter adds them in the JAX package, by
+sample, then footprint row, then column, each added to the film's running
+sum.  A filter wider than the box reaches a pixel from several samples of
+a batch, and ``index_put_(accumulate=True)`` promises no order on the card,
+so ``add_samples`` sorts the contributions by pixel (a stable sort keeps
+the sample order within a pixel), numbers each pixel's contributions from
+0, and adds the k-th contribution of every pixel in the k-th of as many
+``index_add_`` calls as the most-reached pixel has contributions: within
+one call no two contributions share a pixel.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ class FilmConfig:
     full_resolution: tuple  # (xres, yres)
     crop_window: tuple = (0.0, 1.0, 0.0, 1.0)  # (x0, x1, y0, y1)
     filter_name: str = "box"
+    filter_radius: tuple = (0.5, 0.5)
     scale: float = 1.0
     max_sample_luminance: float = float("inf")
 
@@ -116,16 +123,41 @@ def add_samples(state: FilmState, p_film, L, sample_weight=None) -> FilmState:
     valid = (in_x[:, None, :] & in_y[:, :, None] & (ix >= 0) & (ix < w)
              & (iy >= 0) & (iy < h))
     wgt = torch.where(valid, wxy * sample_weight[:, None, None], 0.0)
-    flat = (torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)).reshape(-1)
-    contrib = (wgt[..., None] * L[:, None, None, :]).reshape(-1, 3)
-    state.weighted_sum.view(-1, 3).index_put_((flat,), contrib, accumulate=True)
-    state.weight_sum.view(-1).index_put_((flat,), wgt.reshape(-1),
-                                         accumulate=True)
+    # A zero weight adds zero to both sums, which changes no bit of a sum
+    # that starts at +0, so those cells are left out.
+    keep = wgt != 0.0
+    pix = (iy * w + ix).expand_as(wgt)[keep].to(torch.int32)
+    _ordered_add(state, pix, (wgt[..., None] * L[:, None, None, :])[keep],
+                 wgt[keep])
     return state
+
+
+def _ordered_add(state: FilmState, pix, contrib, wgt):
+    """Add contrib [M, 3] and wgt [M] to pixels pix [M] of the film, each
+    pixel's contributions one after another in their order in pix."""
+    if pix.numel() == 0:
+        return
+    spix, by_pix = torch.sort(pix, stable=True)
+    pos = torch.arange(spix.numel(), device=pix.device)
+    first = torch.ones_like(spix, dtype=torch.bool)
+    first[1:] = spix[1:] != spix[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    entry, target = by_pix[by_rank], spix[by_rank]
+    weighted = state.weighted_sum.view(-1, 3)
+    weights = state.weight_sum.view(-1)
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        e, t = entry[start: start + count], target[start: start + count]
+        weighted.index_add_(0, t, contrib[e])
+        weights.index_add_(0, t, wgt[e])
+        start += count
 
 
 def to_image(state: FilmState, scale: float = 1.0):
     """Film::WriteImage (film.cpp:169-254): normalise by the weight sums."""
     inv_w = torch.where(state.weight_sum > 0.0,
                         1.0 / torch.clamp(state.weight_sum, min=1e-30), 0.0)
-    return torch.clamp(state.weighted_sum * inv_w[..., None], min=0.0) * scale
+    # + 0.0 turns the -0.0 a negative filter weight sum leaves into +0.0,
+    # as the JAX package's maximum(x, 0) gives
+    return (torch.clamp(state.weighted_sum * inv_w[..., None], min=0.0) + 0.0) * scale

@@ -10,7 +10,8 @@ only through specular bounces, up to max_depth of them.  Two strategies:
   GlobalSampler sample arrays (sampler.cpp:136-196): light j's two 2-D
   arrays of n_j samples sit at dims 5 + 4j and 5 + 4j + 2, element k of
   sample s drawn at global sample index s * n_j + k; regular dims resume at
-  5 + 4 * nLights.  Sobol rounds n_j up to a power of two (RoundCount).
+  5 + 4 * nLights.  Sobol, zerotwosequence and maxmin round n_j up to a
+  power of two (RoundCount).
   Vertices past the first, where pbrt's arrays are exhausted, draw one
   regular 2-D pair per light each (integrator.cpp:66-73).
 
@@ -61,9 +62,10 @@ class DirectLightingConfig:
 
 def light_sample_counts(scene: SceneArrays, sampler_cfg) -> tuple:
     """Each light's array length n_j: its "nsamples", rounded up to a power
-    of two for sobol (Sampler::RoundCount, sobol.cpp:69)."""
+    of two for sobol, zerotwosequence and maxmin (Sampler::RoundCount,
+    sobol.cpp:69; direct.py:173-178)."""
     ns = scene.lights.n_samples.cpu().numpy().astype(int)
-    if sampler_cfg.name == "sobol":
+    if sampler_cfg.name in ("sobol", "zerotwosequence", "maxmin"):
         ns = np.array([1 << max(0, int(x - 1).bit_length()) for x in ns])
     return tuple(int(max(x, 1)) for x in ns)
 

@@ -31,6 +31,13 @@ probe segments, the exit point's NEE and then the next bounce's closest
 hit alone, after the exit point has moved its lanes' rays: 1 + max_depth
 (3 + ss_probe_depth) launches a sample.
 
+The exact sampler mode (PBRT_TPU_EXACT_SAMPLER=1, SamplerConfig.exact)
+reads a batch's dims from host tables (samplers/exact_tables.py): all of
+them for halton, the 10 array-backed dims of a PixelSampler with the rest
+drawn as the stateless sampler's get_1d draws them (path.py:612-625,
+728-760).  As in the JAX package it is the path integrator's alone; the
+other integrators' renders raise on it.
+
 Profiler ranges named "layer: ..." mark the calls into each layer; without
 the profiler each costs a few microseconds on the host.
 """
@@ -52,6 +59,7 @@ from ..filters import make_filter
 from ..lights import lightdistrib as ldist
 from ..lights import lights as lt
 from ..materials import bsdf as bx
+from ..samplers import exact_tables as xt
 from ..samplers import samplers as sa
 from ..scene import MAT_BSSRDF_ADAPTER, MAT_SUBSURFACE, SceneArrays, resolve_device
 from ..textures.textures import evaluate_textures
@@ -345,17 +353,47 @@ def n_path_dims(cfg: PathConfig, mat_types=()) -> int:
     return 5 + sum(dims_per_bounce(b, mat_types) for b in range(cfg.max_depth)) + 1
 
 
-def batch_sampler_state(sampler_cfg, pixels, sample_num: int, n_dims: int):
+def batch_sampler_state(sampler_cfg, pixels, sample_num: int, n_dims: int,
+                        table=None):
     """The sampler state of one sample per pixel; for halton, with its
-    first n_dims dims at once, one table row per dimension."""
+    first n_dims dims at once, one table row per dimension.  table: the
+    exact mode's rows of this batch, [D, N] with D <= n_dims; a shorter
+    table (a PixelSampler's) gets the rest as get_1d draws."""
     n = pixels.shape[0]
     state = sa.init_state(sampler_cfg, pixels,
                           torch.full((n,), sample_num, dtype=torch.int64,
                                      device=pixels.device))
-    if sampler_cfg.name == "halton":
+    if table is not None:
+        if table.shape[0] < n_dims:
+            table = torch.cat([table, torch.stack(
+                [sa.get_1d(sampler_cfg, state, dd)
+                 for dd in range(table.shape[0], n_dims)])])
+        state["table"] = table
+    elif sampler_cfg.name == "halton":
         with record_function("layer: sampler table"):
             state["table"] = sa.halton_table(sampler_cfg, state, n_dims)
     return state
+
+
+def exact_tables(sampler_cfg, pixels, n_dims: int):
+    """The exact mode's table of each batch, as a function of the sample
+    number: halton's [n_dims, N] computed on the host for that batch, or a
+    PixelSampler's [10, N] rows, every sample's built here at once
+    (path.py:728-760).  pixels: the render's whole pixel grid."""
+    pix = pixels.cpu().numpy()
+    name = sampler_cfg.name
+    if name == "halton":
+        return lambda s: torch.as_tensor(
+            xt.halton_exact_table(sampler_cfg, pix, s, n_dims).T.copy(),
+            device=pixels.device)
+    if name not in xt.PIXEL_EXACT_SAMPLERS:
+        raise NotImplementedError(
+            "exact-tables render mode covers halton (full-stream) and the "
+            "PixelSamplers stratified/(0,2)/maxmin (array-backed dims; "
+            "samplers/exact_tables.pixel_exact_table)")
+    tables = torch.as_tensor(xt.pixel_exact_table(name, pix, sampler_cfg.spp),
+                             device=pixels.device)
+    return lambda s: tables[s]
 
 
 def camera_rays(scene: SceneArrays, camera, p_film, p_lens, time_u, spp: int):
@@ -379,14 +417,16 @@ def path_li(scene: SceneArrays, sampler_cfg, cfg: PathConfig):
 
 
 def sample_batch(li, n_dims: int, scene: SceneArrays, camera, film_state,
-                 pixels, sample_num: int, sampler_cfg, counters):
+                 pixels, sample_num: int, sampler_cfg, counters, table=None):
     """One sample per pixel, accumulated into film_state (in place): the
-    sampler state of n_dims dims, the camera rays (with differentials on a
-    scene with textures), L = li(o, d, state, pixels, sample_num, counters,
-    ray_diffs) with non-finite and negative L zeroed (integrator.cpp:294-315),
-    into the film.  Integrators other than path ignore ray_diffs, so their
-    textures look up level 0, as the JAX package's do."""
-    state = batch_sampler_state(sampler_cfg, pixels, sample_num, n_dims)
+    sampler state of n_dims dims (from the exact mode's table when one is
+    given), the camera rays (with differentials on a scene with textures),
+    L = li(o, d, state, pixels, sample_num, counters, ray_diffs) with
+    non-finite and negative L zeroed (integrator.cpp:294-315), weighted by
+    the camera's ray weight into the film.  Integrators other than path
+    ignore ray_diffs, so their textures look up level 0, as the JAX
+    package's do."""
+    state = batch_sampler_state(sampler_cfg, pixels, sample_num, n_dims, table)
     p_film, time_u, p_lens = sa.get_camera_sample(sampler_cfg, state, pixels)
     o, d, weight, ray_diffs = camera_rays(scene, camera, p_film, p_lens,
                                           time_u, sampler_cfg.spp)
@@ -409,31 +449,39 @@ def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
     return render_loop(path_li(scene, sampler_cfg, cfg),
                        n_path_dims(cfg, scene.mat_types),
                        scene, camera, film_cfg, sampler_cfg, filt, count_rays,
-                       stats_out, progress, device)
+                       stats_out, progress, device, exact=True)
 
 
 def render_loop(li, n_dims: int, scene: SceneArrays, camera, film_cfg,
                 sampler_cfg, filt=None, count_rays: bool = False,
-                stats_out: bool = False, progress=None, device="cuda"):
+                stats_out: bool = False, progress=None, device="cuda",
+                exact: bool = False):
     """The sample loop of every integrator's render: one sample_batch per
     sample per pixel.  Runs on the card unless device="cpu"; the scene must
     already be on that device.  Returns the image [H, W, 3]; with count_rays
     also the rays traced, with stats_out also the counter vector
     (utils/stats.py).  filt: the reconstruction filter (the film's named
     one by default).  progress: a ProgressReporter updated once per spp
-    batch."""
+    batch.  exact: the integrator reads the exact mode's tables (the path
+    integrator's render); a sampler_cfg.exact render of any other raises."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
+    if sampler_cfg.exact and not exact:
+        raise NotImplementedError(
+            "the exact sampler mode covers the path integrator, as in the "
+            "JAX package")
     camera = camera.to(device)
     film_state = fm.make_film_state(
         film_cfg, filt or make_filter(film_cfg.filter_name), device)
     pixels = torch.as_tensor(make_pixel_grid(film_cfg), device=device)
+    tables = (exact_tables(sampler_cfg, pixels, n_dims) if sampler_cfg.exact
+              else lambda s: None)
     counters = st.zeros(device)
     with torch.no_grad():
         for s in range(sampler_cfg.spp):
             sample_batch(li, n_dims, scene, camera, film_state, pixels, s,
-                         sampler_cfg, counters)
+                         sampler_cfg, counters, tables(s))
             if progress is not None:
                 progress.update(s + 1)
         img = fm.to_image(film_state, scale=film_cfg.scale)

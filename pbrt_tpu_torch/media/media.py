@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.rng import mix32
 from ..core.sampling import PI
 from ..core.vecmath import coordinate_system, xform_point, xform_vector
 
@@ -152,38 +153,11 @@ def hg_sample(wo, u, g):
 # Counter-hash RNG of the tracking loops, uint32 in int64
 # ---------------------------------------------------------------------------
 
-def _mul32(x, c: int):
-    """x * c mod 2^32 for x in [0, 2^32): c split in 16-bit halves so each
-    product stays below 2^49."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & M32
-
-
-def _mix(x):
-    x = x.to(torch.int64) & M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _mix_int(x: int) -> int:
-    """_mix of one counter, on the host."""
-    x &= M32
-    x ^= x >> 16
-    x = (x * 0x7FEB352D) & M32
-    x ^= x >> 15
-    x = (x * 0x846CA68B) & M32
-    return x ^ (x >> 16)
-
-
 def _rand(key, ctr):
     """A uniform in [0, 1) from the 32-bit (key, counter) pair, ctr a
     tensor or one int shared by every lane; the u32 to f32 conversion
     rounds to nearest, as XLA's does."""
-    c = _mix_int(ctr) if isinstance(ctr, int) else _mix(ctr)
-    u = _mix(key ^ c).to(torch.float32) * _INV_2_32
+    u = mix32(key ^ mix32(ctr)).to(torch.float32) * _INV_2_32
     return torch.clamp(u, max=0.99999994)
 
 

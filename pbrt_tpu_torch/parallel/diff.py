@@ -24,7 +24,8 @@ import dataclasses
 
 import torch
 
-from ..cameras import generate_rays
+from ..cameras import CameraParams, generate_rays
+from ..cameras.cameras import CAM_PERSPECTIVE
 from ..integrators import path as ip
 from ..lights import lightdistrib as ldist
 from ..samplers import samplers as sa
@@ -97,13 +98,21 @@ _UNCHECKED_LIGHTS = (sc.LIGHT_INFINITE, sc.LIGHT_SPOT, sc.LIGHT_DISTANT,
                      sc.LIGHT_PROJECTION, sc.LIGHT_GONIO)
 
 
-def _refuse_unchecked(scene):
+def _refuse_unchecked(scene, camera, sampler_cfg):
     """Gradients through textures, glass, metal, substrate, uber,
     translucent, mix, disney, hair, fourier and subsurface (kdsubsurface
-    too), and the infinite, spot, distant, projection and
-    goniometric lights are not held against the JAX package; a step on
-    such a scene raises instead of returning an unchecked gradient."""
+    too), the infinite, spot, distant, projection and goniometric lights,
+    the orthographic, environment and realistic cameras, and the samplers
+    other than halton and sobol (random draws a stream that a replayed
+    bounce would advance again) are not held against the JAX package; a
+    step on such a scene raises instead of returning an unchecked
+    gradient."""
     lacks = (["textures"] if scene.has_textures else [])
+    if not isinstance(camera, CameraParams) or camera.cam_type != CAM_PERSPECTIVE:
+        lacks.append("cameras other than the perspective one")
+    if sampler_cfg.name not in ("halton", "sobol") or sampler_cfg.exact:
+        lacks.append(f"the {sampler_cfg.name} sampler"
+                     + (" in the exact mode" if sampler_cfg.exact else ""))
     lacks += [sc.SUPPORTED_MATERIALS[t] for t in _UNCHECKED_MATERIALS
               if t in scene.mat_types]
     lacks += [f"{sc.SUPPORTED_LIGHTS[t]} lights" for t in _UNCHECKED_LIGHTS
@@ -148,7 +157,7 @@ def render_grad_step(scene, camera, pixels, sample_num: int, grad_weights,
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, the step asked for "
                          f"{device}")
-    _refuse_unchecked(scene)
+    _refuse_unchecked(scene, camera, sampler_cfg)
     if path_cfg.light_strategy == "spatial":
         scene = ldist.ensure_spatial_light_distribution(scene)
     camera = camera.to(device)

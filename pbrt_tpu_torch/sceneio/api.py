@@ -5,9 +5,14 @@ and direct-lighting integrators render:
 
 * the options/world phases, the CTM and its stacks, named coordinate
   systems (api.cpp:899-1186);
-* ``Camera "perspective"`` (with ``lensradius``/``focaldistance``), the image
-  film, the box filter, the halton and sobol samplers, ``Integrator
-  "path"`` and ``"directlighting"``;
+* ``Camera "perspective"`` and ``"orthographic"`` (with ``lensradius``/
+  ``focaldistance``), ``"environment"`` and ``"realistic"`` (``lensfile``,
+  ``filmdiag``, ``focusdistance``; a lens file that cannot be read falls
+  back to the built-in 50 mm double Gauss with a warning, as in the JAX
+  package), the image film, the box, triangle, gaussian, mitchell and
+  sinc filters with their parameters, the halton, sobol, random,
+  stratified, zerotwosequence ("lowdiscrepancy") and maxmin samplers,
+  ``Integrator "path"`` and ``"directlighting"``;
 * matte, plastic, mirror, glass, metal (copper by default), substrate,
   uber, translucent, mix, disney, hair, fourier (a .bsdf file beside the
   scene), subsurface (its own coefficients or a measured "name") and
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 import os
 
 import numpy as np
@@ -48,6 +54,8 @@ import numpy as np
 from .. import scene as sc
 from ..core import transform as tf
 from .paramset import ParamSet
+
+log = logging.getLogger("pbrt_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -82,20 +90,40 @@ class RenderSetup:
                 p.find_one_int("yresolution", 720))
 
     def make_camera(self):
-        from ..cameras import make_perspective_camera
+        """The scene's camera: perspective, orthographic, environment or
+        realistic, with the JAX package's parameters (api.py:57-107)."""
+        from .. import cameras
 
-        if self.camera_name != "perspective":
-            raise NotImplementedError(
-                f"camera {self.camera_name!r}: the port has 'perspective' only")
         p = self.camera_params or ParamSet()
-        return make_perspective_camera(
-            self.camera_to_world or tf.identity(), self.resolution,
-            fov_deg=p.find_one_float("fov", 90.0),
-            lens_radius=p.find_one_float("lensradius", 0.0),
-            focal_distance=p.find_one_float("focaldistance", 1e6),
-            shutter_open=p.find_one_float("shutteropen", 0.0),
-            shutter_close=p.find_one_float("shutterclose", 1.0),
-        )
+        c2w = self.camera_to_world or tf.identity()
+        shutter = dict(shutter_open=p.find_one_float("shutteropen", 0.0),
+                       shutter_close=p.find_one_float("shutterclose", 1.0))
+        lens = dict(lens_radius=p.find_one_float("lensradius", 0.0),
+                    focal_distance=p.find_one_float("focaldistance", 1e6))
+        if self.camera_name == "perspective":
+            return cameras.make_perspective_camera(
+                c2w, self.resolution, fov_deg=p.find_one_float("fov", 90.0),
+                **lens, **shutter)
+        if self.camera_name == "orthographic":
+            return cameras.make_orthographic_camera(c2w, self.resolution,
+                                                    **lens, **shutter)
+        if self.camera_name == "environment":
+            return cameras.make_environment_camera(c2w, self.resolution, **shutter)
+        if self.camera_name == "realistic":
+            lens_data = None
+            lf = p.find_one_string("lensfile", "")
+            if lf:
+                try:
+                    lens_data = np.loadtxt(lf, comments="#")
+                except Exception:
+                    log.warning("lensfile %r unreadable; using 50mm dgauss", lf)
+            return cameras.make_realistic_camera(
+                c2w, self.resolution, lens_data=lens_data,
+                film_diag_mm=p.find_one_float("filmdiag", 35.0),
+                focus_distance=p.find_one_float("focusdistance", 10.0), **shutter)
+        raise NotImplementedError(
+            f"camera {self.camera_name!r}: the port has 'perspective', "
+            "'orthographic', 'environment' and 'realistic'")
 
     def make_film_config(self):
         from ..film import FilmConfig
@@ -110,6 +138,7 @@ class RenderSetup:
             full_resolution=self.resolution,
             crop_window=tuple(crop) if crop is not None else (0.0, 1.0, 0.0, 1.0),
             filter_name=self.filter_name,
+            filter_radius=filt.radius,
             scale=p.find_one_float("scale", 1.0),
             max_sample_luminance=p.find_one_float("maxsampleluminance",
                                                   float("inf")),
@@ -117,17 +146,19 @@ class RenderSetup:
         return cfg, filt
 
     def make_sampler_config(self):
+        """PBRT_TPU_EXACT_SAMPLER=1 turns on the exact tables for halton and
+        the PixelSamplers (api.py:130-151); "lowdiscrepancy" is read as
+        "zerotwosequence"."""
+        from ..samplers.exact_tables import PIXEL_EXACT_SAMPLERS
         from ..samplers.samplers import SamplerConfig
 
-        if os.environ.get("PBRT_TPU_EXACT_SAMPLER", "0") == "1":
-            raise NotImplementedError(
-                "PBRT_TPU_EXACT_SAMPLER=1: the exact host sample tables are "
-                "not ported")
         p = self.sampler_params or ParamSet()
         name = {"lowdiscrepancy": "zerotwosequence"}.get(self.sampler_name,
                                                          self.sampler_name)
+        exact = (os.environ.get("PBRT_TPU_EXACT_SAMPLER", "0") == "1"
+                 and (name == "halton" or name in PIXEL_EXACT_SAMPLERS))
         return SamplerConfig(name, p.find_one_int("pixelsamples", 16),
-                             self.resolution)
+                             self.resolution, exact=exact)
 
     def make_integrator_config(self):
         """PathConfig for "path" and "volpath", DirectLightingConfig for

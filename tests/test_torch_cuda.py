@@ -18,7 +18,10 @@ fourier, subsurface and kdsubsurface) on the card against the CPU and
 under each BVH kernel, with its launch count, and each kernel against its
 plain version on every batch of an advanced sample (the NEE batch without
 the extension ray, the probe walk's segments, the exit point's NEE, the
-separate next-bounce launch).
+separate next-bounce launch); and the film under the gaussian and sinc
+filters (repeats bit-identical, the card equal to the CPU) and the
+orthographic, environment and realistic cameras' rays on the card against
+the CPU.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -691,3 +694,70 @@ def test_advanced_batches_kernel_equals_plain(tmp_path, kind):
     at t_max = 0 from a finite ray."""
     path = write_advanced_pbrt(tmp_path, spp=1, **ADVANCED)
     assert assert_batches_equal_plain(path, kind, ADVANCED_PER_SPP) > 32 * 32
+
+
+# image formation: the ordered film under filters whose footprints overlap,
+# and the orthographic, environment and realistic cameras
+
+@pytest.mark.parametrize("filter_name", ["gaussian", "sinc"])
+def test_overlapping_film_on_card_repeats_and_matches_cpu(filter_name):
+    """Two batches of one sample per pixel of a 64x48 film and a batch of
+    20000 samples anywhere: two card films bit-identical, and equal to the
+    CPU's bit for bit (each pixel's contributions added in one order)."""
+    from pbrt_tpu_torch import film as fm
+    from pbrt_tpu_torch.filters import make_filter
+
+    res = (64, 48)
+    rs = np.random.RandomState(11)
+    pix = path.make_pixel_grid(FilmConfig(full_resolution=res)).astype(np.float32)
+    batches = [(pix + rs.rand(*pix.shape).astype(np.float32),
+                rs.rand(pix.shape[0], 3).astype(np.float32) * 2.0,
+                rs.rand(pix.shape[0]).astype(np.float32)) for _ in range(2)]
+    batches.append(((rs.rand(20000, 2) * np.array(res)).astype(np.float32),
+                    rs.rand(20000, 3).astype(np.float32),
+                    rs.rand(20000).astype(np.float32)))
+    filt = make_filter(filter_name)
+    cfg = FilmConfig(full_resolution=res, filter_name=filter_name,
+                     filter_radius=filt.radius)
+    out = []
+    for device in ("cuda", "cuda", "cpu"):
+        state = fm.make_film_state(cfg, filt, device)
+        for p, L, w in batches:
+            fm.add_samples(state, *(torch.as_tensor(x, device=device) for x in (p, L, w)))
+        out.append([x.cpu() for x in (state.weighted_sum, state.weight_sum,
+                                      fm.to_image(state))])
+    for a, b, c in zip(*out):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("kind", ["orthographic", "environment", "realistic"])
+def test_new_cameras_on_card_match_cpu(kind):
+    """Rays and weights of each new camera on the card against the CPU's
+    at tests/test_torch_imaging.py's rtol 1e-5 (sin, cos and sqrt differ
+    in the last bit between the card and the CPU), the realistic camera's
+    at rtol 1e-4: its walk through ten refracting surfaces amplifies such
+    a bit, to 4e-5 on one lane of 50,000 in the first run on the card;
+    vignetting alike but for a lane on an aperture's rim."""
+    look = tf.look_at([0, -8, 4], [0, 0, 2], [0, 0, 1])
+    res = (96, 64)
+    make = {"orthographic": lambda: cameras.make_orthographic_camera(
+                look, res, lens_radius=0.2, focal_distance=6.0),
+            "environment": lambda: cameras.make_environment_camera(look, res),
+            "realistic": lambda: cameras.make_realistic_camera(
+                look, res, focus_distance=8.0)}[kind]
+    cam = make()
+    rs = np.random.RandomState(12)
+    n = 50000
+    args = [torch.as_tensor((rs.rand(n, 2) * np.array(res)).astype(np.float32)),
+            torch.as_tensor(rs.rand(n, 2).astype(np.float32)),
+            torch.as_tensor(rs.rand(n).astype(np.float32))]
+    ref = cameras.generate_rays(cam, *args)
+    got = [x.cpu() for x in cameras.generate_rays(cam.to("cuda"),
+                                                  *(x.cuda() for x in args))]
+    # a lane on an aperture's rim may pass on one device and not the other
+    agree = (ref[3] > 0) == (got[3] > 0)
+    assert agree.float().mean() >= 0.9999 and (ref[3] > 0).float().mean() > 0.3
+    rtol = 1e-4 if kind == "realistic" else 1e-5
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b[agree].numpy(), a[agree].numpy(), rtol=rtol,
+                                   atol=1e-6)

@@ -69,8 +69,14 @@ def test_halton_table_rows_equal_get_1d():
 
 
 def test_other_samplers_refused():
-    with pytest.raises(NotImplementedError):
-        tsa.SamplerConfig("stratified", 4, RES)
+    """The samplers the JAX package renders with are ported
+    (tests/test_torch_imaging.py holds their draws); what it refuses or
+    keeps for MLT (pss) the port refuses."""
+    for name in ("random", "stratified", "zerotwosequence", "maxmin"):
+        assert tsa.SamplerConfig(name, 4, RES).name == name
+    for name in ("pss", "maxmindist"):
+        with pytest.raises(NotImplementedError):
+            tsa.SamplerConfig(name, 4, RES)
 
 
 @pytest.mark.parametrize("res,fov,lens", [((16, 16), 45.0, 0.0),
@@ -123,5 +129,7 @@ def test_crop_window_and_other_filters():
     cfg = tfm.FilmConfig(full_resolution=(20, 10), crop_window=(0.25, 0.75, 0.0, 0.5))
     assert cfg.cropped_pixel_bounds == jfm.FilmConfig(
         full_resolution=(20, 10), crop_window=(0.25, 0.75, 0.0, 0.5)).cropped_pixel_bounds
-    with pytest.raises(NotImplementedError):
-        tmake_filter("gaussian")
+    for name in ("triangle", "gaussian", "mitchell", "sinc", "lanczossinc"):
+        assert tmake_filter(name).radius == jmake_filter(name).radius
+    with pytest.raises(ValueError, match="unknown filter"):
+        tmake_filter("blackman")

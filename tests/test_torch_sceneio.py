@@ -4,6 +4,7 @@ sampler and integrator configs and the same scene arrays (bridge.
 compare_setups: integer fields exactly, float fields to 1e-6 relative, the
 tolerance of tests/test_torch_scene.py), and every directive the port does
 not render is refused."""
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -157,9 +158,8 @@ def test_media_directives_parse():
 
 
 @pytest.mark.parametrize("options,call,what", [
-    ('Camera "orthographic"', "make_camera", "orthographic"),
-    ('Sampler "stratified"', "make_sampler_config", "stratified"),
-    ('PixelFilter "gaussian"', "make_film_config", "gaussian"),
+    ('Camera "fisheye"', "make_camera", "fisheye"),
+    ('Sampler "pss"', "make_sampler_config", "pss"),
     ('Integrator "path" "string lightsamplestrategy" "spatialx"',
      "make_integrator_config", "spatialx"),
 ])
@@ -169,13 +169,75 @@ def test_option_refusals(options, call, what):
         getattr(setup, call)()
 
 
+@pytest.mark.parametrize("options", [
+    'Camera "orthographic" "float lensradius" [0.1] "float focaldistance" [3]',
+    'Camera "orthographic"',
+    'Camera "environment" "float shutterclose" [0.5]',
+    # a lens file that cannot be read: the built-in lens, with a warning
+    'Camera "realistic" "string lensfile" "missing.dat" "float filmdiag" [30] '
+    '"float focusdistance" [4]',
+    'Sampler "stratified" "integer pixelsamples" [4]',
+    'Sampler "lowdiscrepancy" "integer pixelsamples" [8]',
+    'Sampler "random"',
+    'Sampler "maxmin" "integer pixelsamples" [4]',
+    'PixelFilter "gaussian"',
+    'PixelFilter "gaussian" "float xwidth" [1.5] "float alpha" [3]',
+    'PixelFilter "mitchell" "float B" [0.5] "float C" [0.25]',
+    'PixelFilter "triangle" "float ywidth" [1]',
+    'PixelFilter "sinc" "float tau" [2]',
+])
+def test_imaging_options_match_jax(options):
+    """The cameras, filters and samplers a file names: the port's setup
+    held against the JAX package's (bridge.compare_setups: the camera, the
+    film with its filter's radius, the sampler)."""
+    text = (f'{options}\nWorldBegin\nLightSource "point" "color I" [1 1 1]\n'
+            'Shape "sphere" "float radius" [1]\nWorldEnd\n')
+    assert bridge.compare_setups(jio.parse_pbrt_string(text),
+                                 tio.parse_pbrt_string(text)) == []
+
+
 def test_kdtree_and_exact_sampler_refused(monkeypatch):
+    """The kd-tree stays refused.  PBRT_TPU_EXACT_SAMPLER=1 turns the exact
+    tables on for halton and the PixelSamplers, as in the JAX package, and
+    leaves sobol and random as they are; a render asking random or sobol
+    for the exact mode raises the JAX package's message, and so does any
+    integrator but path."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import path as tpath
+    from pbrt_tpu_torch.integrators import whitted as twhitted
+    from pbrt_tpu_torch.integrators.direct import DirectLightingConfig
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+
     with pytest.raises(NotImplementedError, match="kdtree"):
         tio.parse_pbrt_string('Accelerator "kdtree"\nWorldBegin\nWorldEnd\n')
-    setup = tio.parse_pbrt_string("WorldBegin\nWorldEnd\n")
     monkeypatch.setenv("PBRT_TPU_EXACT_SAMPLER", "1")
-    with pytest.raises(NotImplementedError, match="EXACT_SAMPLER"):
-        setup.make_sampler_config()
+    for name, exact in (("halton", True), ("stratified", True),
+                        ("lowdiscrepancy", True), ("maxmin", True),
+                        ("sobol", False), ("random", False)):
+        setup = tio.parse_pbrt_string(f'Sampler "{name}"\nWorldBegin\nWorldEnd\n')
+        assert setup.make_sampler_config().exact is exact, name
+    setup = tio.parse_pbrt_string(
+        'Sampler "halton" "integer pixelsamples" [1]\nWorldBegin\n'
+        'LightSource "point" "color I" [1 1 1]\n'
+        'Shape "sphere" "float radius" [1]\nWorldEnd\n')
+    scene = setup.build_scene("cpu")
+    film_cfg, filt = setup.make_film_config()
+    film_cfg = dataclasses.replace(film_cfg, full_resolution=(4, 4))
+    camera = setup.make_camera()
+    for name in ("random", "sobol"):
+        with pytest.raises(NotImplementedError, match="exact-tables render mode"):
+            tpath.render(scene, camera, film_cfg,
+                         SamplerConfig(name, 1, (4, 4), exact=True),
+                         tpath.PathConfig(max_depth=1), filt, device="cpu")
+    with pytest.raises(NotImplementedError, match="exact sampler mode"):
+        twhitted.render(scene, camera, film_cfg,
+                        SamplerConfig("halton", 1, (4, 4), exact=True),
+                        DirectLightingConfig(max_depth=1), filt, device="cpu")
+    img = tpath.render(scene, camera, film_cfg,
+                       SamplerConfig("halton", 1, (4, 4), exact=True),
+                       tpath.PathConfig(max_depth=1), filt, device="cpu")
+    assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 
 
 def test_missing_image_raises(tmp_path):
