@@ -151,6 +151,24 @@ Phases, each printing its result on a line of its own and its seconds:
      camera batch of the orthographic, environment and realistic cameras
      at 400x400; with --profile FILE, one spp under torch.profiler, its
      table written to FILE's name plus "_imaging" (range "layer: film");
+ 17. grad breadth: parallel.diff.render_grad_step on every family the port
+     renders, set up from the config3, breadth, advanced and imaging
+     (lowdiscrepancy, gaussian) files at 400x400, depth 5, one
+     160,000-pixel batch at sample 1: a remat step with its launches
+     recorded, a step without remat and the no_grad forward, timed (wall,
+     Mrays/s, max_memory_allocated, the step over the forward); L
+     bit-equal to the forward, every leaf finite, remat against no remat
+     within 1e-4 of each leaf's largest entry, the forward's launches
+     without remat and the forward's plus depth x (1, or 6 on advanced)
+     replayed ones with it, each replayed launch's inputs bit-equal to its
+     forward launch's; a remat step under PBRT_TPU_BVH4=0 against bvh4; a
+     64x64 copy of each file at depth 2 on the card against the CPU (1e-3
+     of each leaf's largest entry; lanes whose L differs weigh 0), and
+     64x64 steps with the orthographic (thin lens), environment and
+     realistic (material and light leaves) cameras, card against CPU;
+     with --profile FILE, one more remat step of each file under
+     torch.profiler (the gathers' backward's share of the device time),
+     its table written to FILE's name plus "_grad_<file>";
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -187,6 +205,9 @@ WHITTED_LAUNCHES = DEPTH * (1 + 1) + 1
 PROBE_DEPTH = 4
 ADVANCED_LAUNCHES = 1 + DEPTH * (3 + PROBE_DEPTH)
 AO_SAMPLES = 64
+# a scene's spatial light distribution (lights/lightdistrib.py)
+SPATIAL_FIELDS = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
+                  "spatial_pmf")
 
 # tests/test_parity_images.py:35-49: (scene, rel-tol, min match_frac,
 # max mean-rel).  c2u_uniform has no golden; killeroo_64_4spp (it includes
@@ -1216,10 +1237,12 @@ def cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev):
     return runs["bvh2"]["launches"]["bvh2_traverse"]
 
 
-def profile_grad(run_step, table_path: Path):
+def profile_grad(run_step, table_path: Path, label: str = "grad step"):
     """One grad step under torch.profiler: the device's busy time against
-    the wall and the device operations that take the most of it, the
-    profiler's table written to table_path."""
+    the wall, the share of it in the gathers' backward (the
+    indexing_backward kernels of index_put_ with accumulation, and the
+    sorts it launches) and the device operations that take the most of it,
+    the profiler's table written to table_path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1238,11 +1261,15 @@ def profile_grad(run_step, table_path: Path):
     busy_ms = sum(getattr(e, key) for e in on_card) / 1e3
     table_path.parent.mkdir(parents=True, exist_ok=True)
     table_path.write_text(events.table(sort_by=key, row_limit=40))
-    print(f"profile grad step (remat, profiler on): wall {wall_ms:.1f} ms, device "
+    gathers = sum(getattr(e, key) for e in on_card
+                  if "indexing_backward" in e.key or "RadixSort" in e.key) / 1e3
+    print(f"profile {label} (remat, profiler on): wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{sum(e.count for e in on_card)} device operations", flush=True)
+          f"{sum(e.count for e in on_card)} device operations; the gathers' "
+          f"backward (indexing_backward and radix-sort kernels) {gathers:.1f} ms, "
+          f"{gathers / max(busy_ms, 1e-9):.1%} of the busy time", flush=True)
     top = sorted(on_card, key=lambda e: -getattr(e, key))[:8]
-    print("profile grad step, top device operations: " + "; ".join(
+    print(f"profile {label}, top device operations: " + "; ".join(
         f"{e.key[:70]} {getattr(e, key) / 1e3:.2f} ms "
         f"({getattr(e, key) / 1e3 / busy_ms:.1%}, {e.count} calls)" for e in top),
         flush=True)
@@ -1278,6 +1305,18 @@ def gather_backward(scene, n: int, dev) -> dict:
     return out
 
 
+def flat_grads(g) -> dict:
+    out = {k: v for k, v in g.items() if k != "camera"}
+    out.update({f"camera.{k}": v for k, v in g.get("camera", {}).items()})
+    return out
+
+
+def leaf_rel(a: dict, b: dict) -> float:
+    """The largest |a - b| of any leaf over that leaf's largest |b|."""
+    return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+               for k in b)
+
+
 def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
                counted, card, dev, profile: Path | None = None) -> dict:
     """Phase 9: render_grad_step on the main scene (one halton batch at
@@ -1307,8 +1346,7 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
         wall = time.perf_counter() - t0
         launches = read_counts(counted)
         peak = torch.cuda.max_memory_allocated(dev)
-        leaves = {k: v for k, v in g.items() if k != "camera"}
-        leaves.update({f"camera.{k}": v for k, v in g["camera"].items()})
+        leaves = flat_grads(g)
         for k, v in leaves.items():
             check(bool(torch.isfinite(v).all()), f"grad step: leaf {k} is not finite")
         check(float(leaves["kd"].abs().sum()) > 0.0, "grad step: kd gradient is zero")
@@ -1325,11 +1363,6 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
                                            sampler, cfg)
         torch.cuda.synchronize()
         return L, time.perf_counter() - t0
-
-    def leaf_diff(a, b) -> float:
-        """The largest |a - b| of any leaf over that leaf's largest |b|."""
-        return max(float((a[k] - b[k]).abs().max())
-                   / max(float(b[k].abs().max()), 1e-30) for k in b)
 
     warm = step(0, True)
     print(f"grad warm step (sample 0, remat): {warm['wall']:.3f} s, launches "
@@ -1348,7 +1381,7 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
         check(torch.equal(on["L"], L_fwd) and torch.equal(off["L"], L_fwd),
               f"sample {sample}: the step's L differs from the no_grad forward")
         check(on["rays"] == off["rays"], "remat changed the counted rays")
-        rel = leaf_diff(on["leaves"], off["leaves"])
+        rel = leaf_rel(on["leaves"], off["leaves"])
         check(rel <= 1e-4, f"sample {sample}: remat and no-remat gradients differ "
                            f"by {rel:.3e} of a leaf's largest entry")
         for label, r in (("remat on", on), ("remat off", off)):
@@ -1376,7 +1409,7 @@ def grad_phase(diff, path, stats, sampler_cls, scene, camera, film_cfg, cfg,
     ref = remat_steps[1]
     print(f"grad step sample 1 under PBRT_TPU_BVH4=0: fwd+bwd {b2['wall']:.3f} s, "
           f"launches {b2['launches']}; gradients within "
-          f"{leaf_diff(b2['leaves'], ref['leaves']):.3e} of bvh4's, L max diff "
+          f"{leaf_rel(b2['leaves'], ref['leaves']):.3e} of bvh4's, L max diff "
           f"{float((b2['L'] - ref['L']).abs().max()):.3e} [{card}]", flush=True)
     ms = gather_backward(scene, pixels.shape[0], dev)
     print(f"grad gather backward at {pixels.shape[0]} lanes, ms by CUDA events: "
@@ -1421,7 +1454,7 @@ def render_line(what, st, launches, card):
             f"launches {launches} [{card}]")
 
 
-def config3_cross(scene, captured):
+def config3_cross(scene, captured, label="config3"):
     """Both kernels on every batch that config3's bvh2 render launched:
     hit flags and any-hit occlusion equal, and t equal on every closest-hit
     lane, so that the prims may differ only at a tie (two triangles hit at
@@ -1469,12 +1502,12 @@ def config3_cross(scene, captured):
                 if q >= 0:
                     row[f"tri {q}"] = scene.prim_tris[q].tolist()
             shown.append(row)
-    print(f"config3 bvh2 against bvh4 on the {len(captured)} batches of the bvh2 "
-          f"render: {json.dumps(tot)}", flush=True)
+    print(f"{label} bvh2 against bvh4 on the {len(captured)} batches of the bvh2 "
+          f"run: {json.dumps(tot)}", flush=True)
     for row in shown:
-        print(f"config3 differing lane: {json.dumps(row)}", flush=True)
+        print(f"{label} differing lane: {json.dumps(row)}", flush=True)
     check(tot["hit_flag"] == 0 and tot["t"] == 0 and tot["occlusion"] == 0,
-          f"config3: bvh2 and bvh4 differ other than at ties: {tot}")
+          f"{label}: bvh2 and bvh4 differ other than at ties: {tot}")
 
 
 def config3_phase(render, counted, card, dev, profile):
@@ -1878,8 +1911,6 @@ def breadth_phase(render, counted, card, dev, profile):
     t0 = time.perf_counter()
     small = write_breadth_pbrt(out_dir / "small", res=(64, 64), spp=1)
     line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
-    spatial = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
-               "spatial_pmf")
     card_scene = lightdistrib.ensure_spatial_light_distribution(
         parse_pbrt_file(str(small)).build_scene(dev))
     t1 = time.perf_counter()
@@ -1887,12 +1918,12 @@ def breadth_phase(render, counted, card, dev, profile):
         parse_pbrt_file(str(small)).build_scene("cpu"))
     cpu_build = time.perf_counter() - t1
     errs = {}
-    for k in spatial:
+    for k in SPATIAL_FIELDS:
         a, b = getattr(card_scene, k).cpu().numpy(), getattr(cpu_scene, k).numpy()
         check(a.shape == b.shape, f"breadth spatial {k}: shape {a.shape} "
               f"on the card, {b.shape} on the CPU")
         errs[k] = float(np.abs(a - b).max())
-        check(errs[k] == 0.0 if k in spatial[:3] else errs[k] <= 1e-5,
+        check(errs[k] == 0.0 if k in SPATIAL_FIELDS[:3] else errs[k] <= 1e-5,
               f"breadth spatial {k}: the card's differs from the CPU's by "
               f"{errs[k]}")
     print(f"breadth spatial distribution ({int(np.prod(b.shape[:-1]))} voxels "
@@ -2052,8 +2083,6 @@ def advanced_phase(render, counted, card, dev, profile):
     t0 = time.perf_counter()
     small = write_advanced_pbrt(out_dir / "small", res=(64, 64), spp=1)
     line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
-    spatial = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
-               "spatial_pmf")
     card_scene = lightdistrib.ensure_spatial_light_distribution(
         parse_pbrt_file(str(small)).build_scene(dev))
     t1 = time.perf_counter()
@@ -2061,12 +2090,12 @@ def advanced_phase(render, counted, card, dev, profile):
         parse_pbrt_file(str(small)).build_scene("cpu"))
     cpu_build = time.perf_counter() - t1
     errs = {}
-    for k in spatial:
+    for k in SPATIAL_FIELDS:
         a, b = getattr(card_scene, k).cpu().numpy(), getattr(cpu_scene, k).numpy()
         check(a.shape == b.shape, f"advanced spatial {k}: shape {a.shape} on the "
               f"card, {b.shape} on the CPU")
         errs[k] = float(np.abs(a - b).max())
-        check(errs[k] == 0.0 if k in spatial[:3] else errs[k] <= 1e-5,
+        check(errs[k] == 0.0 if k in SPATIAL_FIELDS[:3] else errs[k] <= 1e-5,
               f"advanced spatial {k}: the card's differs from the CPU's by {errs[k]}")
     print(f"advanced spatial distribution, card against cpu: max abs differences "
           f"{json.dumps(errs)}; the CPU build {cpu_build:.2f} s", flush=True)
@@ -2415,6 +2444,237 @@ def imaging_phase(render, counted, card, dev, profile):
             "results": results}
 
 
+# phase 17's new cameras, each on a 64x64 copy of the main file, card
+# against CPU: the orthographic camera with a thin lens, the environment
+# camera, the realistic camera (its material and light leaves only)
+GRAD_CAMERAS = {
+    "orthographic": 'Camera "orthographic" "float lensradius" [0.05] '
+                    '"float focaldistance" [8.5]',
+    "environment": 'Camera "environment"',
+    "realistic": IMAGING_CAMERAS["realistic"],
+}
+# phase 17's copies, card against CPU, at a depth cut to keep the CPU's
+# steps short (glass's inside bounce and the subsurface exit are reached)
+GRAD_SMALL, GRAD_SMALL_DEPTH = (64, 64), 2
+
+
+def grad_setup(path: Path, dev, spatial_from=None, depth=None):
+    """(scene, camera, sampler, path config, pixels, param names) of a
+    .pbrt file for a grad step, set up as render_setup sets it up; the
+    spatial light distribution built here, or taken from spatial_from (a
+    scene of the same file on another device); depth: the path's maxdepth
+    in place of the file's, or None."""
+    import torch
+
+    from pbrt_tpu_torch.cameras.realistic import RealisticParams
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.parallel import diff
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    setup = parse_pbrt_file(str(path))
+    if depth is not None:
+        setup.integrator_params.set("maxdepth", "integer", [depth])
+    scene = setup.build_scene(dev)
+    cfg = setup.make_integrator_config()
+    if cfg.light_strategy == "spatial":
+        if spatial_from is None:
+            scene = lightdistrib.ensure_spatial_light_distribution(scene)
+        else:
+            scene = dataclasses.replace(scene, **{
+                k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                for k in SPATIAL_FIELDS for v in [getattr(spatial_from, k)]})
+    camera = setup.make_camera().to(dev)
+    film_cfg, _ = setup.make_film_config()
+    pixels = torch.as_tensor(ip.make_pixel_grid(film_cfg), device=dev)
+    names = (diff.MATERIAL_PARAMS + diff.LIGHT_PARAMS
+             if isinstance(camera, RealisticParams) else diff.DEFAULT_PARAMS)
+    return scene, camera, setup.make_sampler_config(), cfg, pixels, names
+
+
+def grad_card_cpu(label, path, dev):
+    """One remat grad step at sample 1 of a small file on the card and one
+    without remat on the CPU (the CPU takes the card's spatial
+    distribution): L at tests/test_torch_path.py:58's bar, every leaf
+    finite, and each leaf within 1e-3 of the CPU leaf's largest entry
+    (tests/test_torch_cuda.py:335-341) with the weights of the lanes whose
+    L differs set to 0 on both devices: a lane whose path took another hit
+    or lobe on the other device is another path, not the same path's
+    gradient."""
+    import torch
+
+    from pbrt_tpu_torch.parallel import diff
+
+    t0 = time.perf_counter()
+    setups = [grad_setup(path, dev, depth=GRAD_SMALL_DEPTH)]
+    setups.append(grad_setup(path, "cpu", setups[0][0], GRAD_SMALL_DEPTH))
+    with torch.no_grad():
+        Ls = [diff.render_batch_radiance(scene, camera, pixels, 1, scfg, cfg).cpu()
+              for scene, camera, scfg, cfg, pixels, _ in setups]
+    rel = (Ls[0] - Ls[1]).abs() / Ls[1].abs().clamp(min=1e-2)
+    same = (rel <= 1e-3).all(-1)
+    frac = float(same.float().mean())
+    out = []
+    for (scene, camera, scfg, cfg, pixels, names), remat in zip(setups, (True, False)):
+        w = same[:, None].to(torch.float32).expand(-1, 3).to(pixels.device)
+        _, g = diff.render_grad_step(scene, camera, pixels, 1, w, scfg, cfg,
+                                     param_names=names, remat=remat,
+                                     device=pixels.device)
+        out.append({k: v.cpu() for k, v in flat_grads(g).items()})
+    ga, gb = out
+    for k, v in ga.items():
+        check(bool(torch.isfinite(v).all()) and bool(torch.isfinite(gb[k]).all()),
+              f"grad {label} card against cpu: leaf {k} not finite")
+    lr = leaf_rel(ga, gb)
+    print(f"grad {label} card against cpu ({GRAD_SMALL[0]}x{GRAD_SMALL[1]}, "
+          f"depth {GRAD_SMALL_DEPTH}, sample 1): L match_frac {frac:.4f} ({int((~same).sum())} lanes "
+          f"differ, weight 0), leaves within {lr:.3e} of the CPU leaf's "
+          f"largest entry; {time.perf_counter() - t0:.2f} s", flush=True)
+    check(frac >= 0.995 and lr <= 1e-3,
+          f"grad {label} card against cpu: match_frac {frac}, leaves {lr}")
+
+
+def grad_breadth_phase(counted, card, dev, profile):
+    """Phase 17: render_grad_step on every family the port renders, at
+    full width.  For each of the config3, breadth, advanced and imaging
+    (lowdiscrepancy, gaussian) files at 400x400, depth 5, one 160,000-pixel
+    batch at sample 1: a remat step (its launches recorded), a step
+    without remat and the no_grad forward, timed; L bit-equal to the
+    forward,
+    every leaf finite, remat against no remat within 1e-4 of each leaf's
+    largest entry, the launches (the forward's without remat, the
+    forward's and the replayed bounces' with it), each replayed launch
+    bit-equal to its forward launch; a remat step under PBRT_TPU_BVH4=0
+    against bvh4 (1e-4 of each leaf's largest entry, or, where L differs,
+    only at ties: config3_cross on its batches); a 64x64 copy at depth
+    GRAD_SMALL_DEPTH card against CPU (grad_card_cpu).  Then 64x64 steps with the orthographic (thin lens), environment
+    and realistic cameras, card against CPU.  With profile, one more remat
+    step of each file under torch.profiler, its table written to profile's
+    name plus "_grad_<file>" (the advanced one "_grad_advanced").  Returns
+    the launches of each kernel in each file's remat step."""
+    import torch
+
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.parallel import diff
+    from pbrt_tpu_torch.utils import stats
+
+    out_dir = SMOKE_DIR / "grad_breadth"
+    t_phase = time.perf_counter()
+    main = write_main_pbrt(out_dir / "imaging")
+    gauss = 'PixelFilter "gaussian"'
+    lowd = f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]'
+    files = {
+        "config3": lambda res: write_config3_pbrt(out_dir / f"config3_{res[0]}",
+                                                  res=res, spp=1),
+        "breadth": lambda res: write_breadth_pbrt(out_dir / f"breadth_{res[0]}",
+                                                  res=res, spp=1),
+        "advanced": lambda res: write_advanced_pbrt(out_dir / f"advanced_{res[0]}",
+                                                    res=res, spp=1),
+        "imaging": lambda res: imaging_file(main, f"imaging_{res[0]}", filt=gauss,
+                                            sampler=lowd, res=res),
+    }
+    launches = {"bvh4": {}, "bvh2": {}}
+    for label, write in files.items():
+        t0 = time.perf_counter()
+        path = write(RES)
+        scene, camera, scfg, cfg, pixels, names = grad_setup(path, dev)
+        w = torch.ones((pixels.shape[0], 3), device=dev)
+        per = 2 + PROBE_DEPTH if label == "advanced" else 1  # replayed a bounce
+
+        def step(remat, record=False):
+            counters = stats.zeros(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            reset_counts(counted)
+            with (bvh.record_calls() if record else contextlib.nullcontext()) as calls:
+                t1 = time.perf_counter()
+                L, g = diff.render_grad_step(scene, camera, pixels, 1, w, scfg, cfg,
+                                             param_names=names, remat=remat,
+                                             device=dev, counters=counters)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            leaves = flat_grads(g)
+            for k, v in leaves.items():
+                check(bool(torch.isfinite(v).all()),
+                      f"grad {label}: leaf {k} is not finite (remat {remat})")
+            return dict(L=L, leaves=leaves, wall=wall, launches=read_counts(counted),
+                        rays=stats.ray_total(counters), calls=calls,
+                        peak=torch.cuda.max_memory_allocated(dev) - base)
+
+        on, off = step(True, record=True), step(False)
+        reset_counts(counted)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            L_fwd = diff.render_batch_radiance(scene, camera, pixels, 1, scfg, cfg)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t1
+        fwd_launches = read_counts(counted)["bvh4_traverse"]
+        check(torch.equal(on["L"], L_fwd) and torch.equal(off["L"], L_fwd),
+              f"grad {label}: the step's L differs from the no_grad forward")
+        rel = leaf_rel(on["leaves"], off["leaves"])
+        check(rel <= 1e-4, f"grad {label}: remat and no-remat leaves differ by "
+                           f"{rel:.3e} of a leaf's largest entry")
+        n_on, n_off = (r["launches"]["bvh4_traverse"] for r in (on, off))
+        check(n_off == fwd_launches and n_on == fwd_launches + DEPTH * per
+              and on["launches"]["bvh2_traverse"] == 0,
+              f"grad {label}: launches {n_on} (remat) and {n_off}, the forward "
+              f"{fwd_launches}, not + {DEPTH * per} replayed")
+        calls = on["calls"]
+        k = (fwd_launches - 1) // DEPTH
+        replay = [calls[1 + b * k + i] for b in reversed(range(DEPTH))
+                  for i in range(per)]
+        same = all(len(a) == len(b) and all(
+            (x is None and y is None) or (x is not None and y is not None
+                                          and torch.equal(x, y))
+            for x, y in zip(a, b)) for a, b in zip(calls[fwd_launches:], replay))
+        check(len(calls) == n_on and same,
+              f"grad {label}: a replayed launch differs from its forward launch")
+        del calls, on["calls"]
+        with bvh_switch("0"), bvh.record_calls() as cap2:
+            b2 = step(True)
+        check(b2["launches"]["bvh2_traverse"] == n_on
+              and b2["launches"]["bvh4_traverse"] == 0,
+              f"grad {label}: the bvh2 step launched {b2['launches']}")
+        rel2 = leaf_rel(b2["leaves"], on["leaves"])
+        if not (torch.equal(b2["L"], on["L"]) and rel2 <= 1e-4):
+            config3_cross(scene, cap2, f"grad {label}")
+        del cap2
+        for name, r in (("remat on", on), ("remat off", off)):
+            print(f"grad {label} {RES[0]}x{RES[1]} sample 1 {name}: fwd+bwd "
+                  f"{r['wall']:.3f} s, {int(r['rays'])} forward rays, "
+                  f"{r['rays'] / r['wall'] / 1e6:.4f} Mrays/s, max_memory_allocated "
+                  f"{r['peak'] / 2**20:.1f} MiB above the step's start, "
+                  f"{r['launches']['bvh4_traverse']} bvh4 launches, step over "
+                  f"forward {r['wall'] / fwd_s:.2f}x [{card}]", flush=True)
+        print(f"grad {label}: forward (no_grad) {fwd_s:.3f} s, {fwd_launches} "
+              f"launches; L bit-equal; remat leaves within {rel:.3e}; "
+              f"{DEPTH * per} replayed launches bit-equal to their forward "
+              f"launches; bvh2 step {b2['wall']:.3f} s, L bit-equal "
+              f"{torch.equal(b2['L'], on['L'])}, leaves within {rel2:.3e} of "
+              f"bvh4's; leaves' largest |g| "
+              + json.dumps({k: float(f"{float(v.abs().max()):.4g}")
+                            for k, v in on["leaves"].items()}), flush=True)
+        launches["bvh4"][label] = n_on
+        launches["bvh2"][label] = b2["launches"]["bvh2_traverse"]
+        if profile is not None:
+            profile_grad(lambda: diff.render_grad_step(
+                scene, camera, pixels, 2, w, scfg, cfg, param_names=names,
+                device=dev),
+                profile.with_name(f"{profile.stem}_grad_{label}{profile.suffix}"),
+                f"grad {label}")
+        del scene, on, off, b2, L_fwd
+        torch.cuda.empty_cache()
+        grad_card_cpu(label, write(GRAD_SMALL), dev)
+        print(f"grad {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, camera in GRAD_CAMERAS.items():
+        grad_card_cpu(f"{label} camera", imaging_file(
+            main, f"camera_{label}", camera, res=GRAD_SMALL), dev)
+    print(f"grad breadth phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -2614,6 +2874,11 @@ def run(profile: Path | None = None) -> dict:
     img16 = imaging_phase(render, counted, card, dev, profile)
     phase("imaging", t0)
 
+    # 17. gradients through every family the port renders
+    t0 = time.perf_counter()
+    gb = grad_breadth_phase(counted, card, dev, profile)
+    phase("grad breadth", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -2652,6 +2917,7 @@ def run(profile: Path | None = None) -> dict:
                for label, r in adv["results"][kind].items()
                for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
             "imaging_launches": img16[kind],
+            "grad_breadth_launches": gb[kind],
             **{f"imaging_{label}_camera_{key}": r[key]
                for label, r in img16["results"][kind].items()
                for key in ("ms", "plain_ms", "bound_ms", "live_rays")},

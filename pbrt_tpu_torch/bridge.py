@@ -92,7 +92,9 @@ def params_from_numpy(fields: dict, device) -> dict:
     """The JAX package's extract_params output, as numpy, as the port's
     parameter dict for parallel/diff.py apply_params: float32 tensors on
     `device`, the camera's lens_radius and focal_distance as floats (the
-    camera keeps its lens radius on the host)."""
+    camera keeps its lens radius on the host).  Any subset of the keys
+    carries over: without "camera" for the realistic camera, whose step
+    takes material and light leaves only."""
     device = resolve_device(device)
     out = {}
     for k, v in fields.items():

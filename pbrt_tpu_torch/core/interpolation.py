@@ -15,7 +15,11 @@ whole-tensor operations over the lanes.  Its float32 rounding grows with
 the order, so a direct cos(k phi) or a tree sum lands outside the
 function bars on the in-repo table (a g channel that cancels, peaks of
 172 orders); with the recurrence and the ordered sum fourier_eval is bit
-for bit the JAX package's on the CPU.
+for bit the JAX package's on the CPU.  The series is one autograd function
+(_RecurrenceSeries): its forward is that recurrence and sum, and its
+backward recomputes the table and runs the recurrence's adjoint, so a
+grad step differentiates it, sample_fourier's 40 Newton steps included,
+with the forward's bits unchanged and no table held for the backward.
 
 The host (numpy) helpers build the BSSRDF tables and invert reflectance
 curves (IntegrateCatmullRom / InvertCatmullRom, interpolation.cpp:255-345).
@@ -26,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from .vecmath import safe_sqrt
 
 _NEWTON_ITERS = 40  # bisection halves [a, b]: 2^-40, well below pbrt's 1e-6
 
@@ -64,14 +70,14 @@ def catmull_rom_weights(nodes, x):
 
 
 def _chebyshev(c, prev, cur, m_max: int):
-    """([m_max, ...] f32, order-major, signs [m_max]): the double-angle
+    """[m_max, ...] f32, order-major: the double-angle
     recurrence x_{k+1} = 2 c x_k - x_{k-1} from (x_{-1}, x_0) = (prev,
     cur), each step rounded to float32 once, as the fused multiply-add
     XLA:CPU makes of the JAX package's (2 c x_k is exact in float64).  The
     table holds y_k = s_k x_k with s_k = +1, +1, -1, -1, ... so that each
     step is one addcmul, y_{k+1} = y_{k-1} + (s_{k+1} s_k 2c) y_k; rounding
-    is symmetric, so |y_k| = |x_k| bit for bit, and callers fold s_k into
-    their coefficients.  One operation an order."""
+    is symmetric, so |y_k| = |x_k| bit for bit, and callers fold s_k
+    (_chebyshev_signs) into their coefficients.  One operation an order."""
     two = (2.0 * c).to(torch.float64)
     steps = (two, -two)  # s_{k+1} s_k: +1 at even k, -1 at odd
     tab = torch.empty((m_max,) + cur.shape, dtype=torch.float32, device=c.device)
@@ -81,7 +87,7 @@ def _chebyshev(c, prev, cur, m_max: int):
         torch.addcmul(-prev.to(torch.float64), two, rows[0], out=rows[1])
     for k in range(1, m_max - 1):
         torch.addcmul(rows[k - 1], steps[k % 2], rows[k], out=rows[k + 1])
-    return tab, _chebyshev_signs(m_max, c.device)
+    return tab
 
 
 def _chebyshev_signs(m_max: int, device):
@@ -106,16 +112,66 @@ def _live(m, m_max: int, device):
     return ks.view((m_max,) + (1,) * m.dim()) < m
 
 
+class _RecurrenceSeries(torch.autograd.Function):
+    """sum_k coef_k y_k over _chebyshev's table y of (c, prev, cur), with
+    the terms masked by live and term 0 replaced by head when given.  The
+    forward is the float32 recurrence and ordered sum above, bit for bit;
+    the backward recomputes the table and runs the recurrence's adjoint
+    (a_k = g_k + t_k a_{k+1} + a_{k+2}, t_k the step's factor 2c or -2c),
+    so the table is not held for the backward pass."""
+
+    @staticmethod
+    def forward(ctx, c, prev, cur, coef, live, head):
+        tab = _chebyshev(c, prev, cur, coef.shape[0])
+        terms = coef * tab
+        if live is not None:
+            terms = torch.where(live, terms, 0.0)
+        if head is not None:
+            terms[0] = head
+        ctx.save_for_backward(c, prev, cur, coef, live, head)
+        return _series(terms)
+
+    @staticmethod
+    def backward(ctx, g):
+        c, prev, cur, coef, live, head = ctx.saved_tensors
+        m_max = coef.shape[0]
+        tab = _chebyshev(c, prev, cur, m_max)
+        g_terms = g.expand((m_max,) + g.shape)
+        if live is not None:
+            g_terms = torch.where(live, g_terms, 0.0)
+        if head is not None:
+            g_terms = torch.cat([torch.zeros_like(g_terms[:1]), g_terms[1:]])
+        g_coef = (g_terms * tab).sum_to_size(coef.shape)
+        g_tab = (g_terms * coef).sum_to_size(tab.shape)
+        # the adjoint of each row, last order first
+        two = 2.0 * c
+        steps = (two, -two)  # t_k: 2c at even k (y_1's too), -2c at odd
+        g_rows = g_tab.unbind(0)
+        adj = [None] * m_max
+        adj[m_max - 1] = g_rows[m_max - 1]
+        for k in range(m_max - 2, -1, -1):
+            rest = g_rows[k] if k + 2 >= m_max else g_rows[k] + adj[k + 2]
+            adj[k] = torch.addcmul(rest, steps[k % 2], adj[k + 1])
+        g_c = torch.zeros_like(tab[0])
+        if m_max > 1:  # d t_k / d c = 2 at even k, -2 at odd
+            sign = torch.tensor([2.0, -2.0], device=c.device).repeat(
+                m_max // 2 + 1)[:m_max - 1].view((-1,) + (1,) * tab[0].dim())
+            g_c = torch.sum(sign * torch.stack(adj[1:]) * tab[:-1], 0)
+        g_prev = -adj[1] if m_max > 1 else torch.zeros_like(adj[0])
+        return (g_c.sum_to_size(c.shape), g_prev.sum_to_size(prev.shape),
+                adj[0].sum_to_size(cur.shape), g_coef, None,
+                None if head is None else g)
+
+
 def fourier_eval(ak, cos_phi, m=None):
     """sum_k ak[..., k] cos(k phi) over k < m (interpolation.cpp:348-361).
     ak [..., m_max]; cos_phi and m (or None, all orders) broadcast against
     ak.shape[:-1]."""
     m_max = ak.shape[-1]
-    tab, signs = _chebyshev(cos_phi, cos_phi, torch.ones_like(cos_phi), m_max)
-    terms = (ak * signs).movedim(-1, 0) * tab
-    if m is not None:
-        terms = torch.where(_live(m, m_max, ak.device), terms, 0.0)
-    return _series(terms)
+    coef = (ak * _chebyshev_signs(m_max, ak.device)).movedim(-1, 0)
+    live = None if m is None else _live(m, m_max, ak.device)
+    return _RecurrenceSeries.apply(cos_phi, cos_phi, torch.ones_like(cos_phi),
+                                   coef, live, None)
 
 
 def sample_fourier(ak, u, m=None):
@@ -143,14 +199,11 @@ def sample_fourier(ak, u, m=None):
         # sin and cos by one recurrence from their values at k = -1 and 0,
         # summed in order: where the solve stops follows F's rounding
         cos_phi = torch.cos(phi.to(torch.float64)).to(torch.float32)
-        sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
-        tab, _ = _chebyshev(cos_phi[:, None],
-                            torch.stack([-sin_phi, cos_phi], -1),
-                            torch.stack([torch.zeros_like(phi),
-                                         torch.ones_like(phi)], -1), m_max)
-        terms = coef * tab
-        terms[0] = torch.stack([a0 * phi, a0], -1)
-        F, f = _series(terms).unbind(-1)
+        sin_phi = safe_sqrt(1.0 - cos_phi * cos_phi)  # 0 once cos_phi rounds to 1
+        F, f = _RecurrenceSeries.apply(
+            cos_phi[:, None], torch.stack([-sin_phi, cos_phi], -1),
+            torch.stack([torch.zeros_like(phi), torch.ones_like(phi)], -1),
+            coef, None, torch.stack([a0 * phi, a0], -1)).unbind(-1)
         return F - u * a0 * math.pi, f
 
     a = torch.zeros_like(u)
@@ -178,7 +231,7 @@ def _invert_segment_integral(f0, f1, d0, d1, u):
     Returns (t, fhat), Fhat the Horner-form antiderivative of the cubic."""
     t_lin = torch.where(
         f0 != f1,
-        (f0 - torch.sqrt(torch.clamp(f0 * f0 + 2.0 * u * (f1 - f0), min=0.0)))
+        (f0 - safe_sqrt(f0 * f0 + 2.0 * u * (f1 - f0)))
         / torch.where(f0 == f1, 1.0, f0 - f1),
         u / torch.where(f0 == 0, 1.0, f0))
 

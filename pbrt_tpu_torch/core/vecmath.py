@@ -154,6 +154,32 @@ def safe_sqrt(x):
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
+def safe_asin(x):
+    """asin of x clamped to [-1, 1], with a zero gradient at |x| >= 1: the
+    double where keeps asin'(+-1) = inf out of the backward pass, as
+    safe_sqrt does for sqrt; the values are asin(clamp(x, -1, 1))'s."""
+    inside = torch.abs(x) < 1.0
+    return torch.where(inside, torch.asin(torch.where(inside, x, 0.0)),
+                       torch.asin(torch.clamp(x, -1.0, 1.0)).detach())
+
+
+def safe_acos(x):
+    """acos of x clamped to [-1, 1], with a zero gradient at |x| >= 1
+    (acos'(+-1) = -inf), as safe_asin."""
+    inside = torch.abs(x) < 1.0
+    return torch.where(inside, torch.acos(torch.where(inside, x, 0.0)),
+                       torch.acos(torch.clamp(x, -1.0, 1.0)).detach())
+
+
+def safe_atan2(y, x):
+    """atan2 with a zero gradient at y = x = 0, where atan2's derivative is
+    0 / 0; the values are atan2's, signed zeros included."""
+    origin = (x == 0.0) & (y == 0.0)
+    return torch.where(origin, torch.atan2(y, x).detach(),
+                       torch.atan2(torch.where(origin, 0.0, y),
+                                   torch.where(origin, 1.0, x)))
+
+
 def sin_theta(w):
     return safe_sqrt(sin2_theta(w))
 
@@ -170,20 +196,24 @@ def tan2_theta(w):
     return torch.where(bad, math.inf, sin2_theta(w) / torch.where(bad, 1.0, c2))
 
 
+def _over_sin_theta(a, s):
+    """a / s for cos_phi and sin_phi: s is 0 or at least ~2.4e-4 (1 - z^2
+    in float32), so the JAX package's clamp to 1e-20 never bites; at s = 0
+    the quotient is unused and a / 1 keeps a / 1e-40 = inf out of the
+    backward pass."""
+    return a / torch.where(s == 0.0, 1.0, torch.clamp(s, min=1e-20))
+
+
 def cos_phi(w):
     s = sin_theta(w)
     return torch.where(
-        s == 0.0, 1.0,
-        torch.clamp(w[..., 0] / torch.clamp(s, min=1e-20), -1.0, 1.0),
-    )
+        s == 0.0, 1.0, torch.clamp(_over_sin_theta(w[..., 0], s), -1.0, 1.0))
 
 
 def sin_phi(w):
     s = sin_theta(w)
     return torch.where(
-        s == 0.0, 0.0,
-        torch.clamp(w[..., 1] / torch.clamp(s, min=1e-20), -1.0, 1.0),
-    )
+        s == 0.0, 0.0, torch.clamp(_over_sin_theta(w[..., 1], s), -1.0, 1.0))
 
 
 def same_hemisphere(w, wp):
@@ -202,7 +232,7 @@ def refract(wi, n, eta):
     sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     sin2_t = eta * eta * sin2_i
     ok = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = safe_sqrt(1.0 - sin2_t)  # 0, with a zero gradient, past TIR
     return ok, eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n
 
 

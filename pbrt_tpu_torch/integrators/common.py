@@ -26,7 +26,8 @@ from torch.profiler import record_function
 from .. import scene as sc
 from ..accel import traverse as tv
 from ..core import sampling as smp
-from ..core.vecmath import absdot, cross, dot, normalize, offset_ray_origin
+from ..core.vecmath import (absdot, cross, dot, normalize, offset_ray_origin,
+                            safe_sqrt)
 from ..core.vecmath import xform_vector
 from ..lights import lights as lt
 from ..materials import bsdf as bx
@@ -257,7 +258,7 @@ def sample_bssrdf_sp(scene, rec, frame, mat, u1, u2, n_probe: int = 4,
     r, r_max = both[:n], both[n:]
     ok = (r >= 0.0) & (r < r_max)
     phi = 2.0 * math.pi * u2[:, 1]
-    l = 2.0 * torch.sqrt(torch.clamp(r_max * r_max - r * r, min=0.0))
+    l = 2.0 * safe_sqrt(r_max * r_max - r * r)
     p_start = (rec["p"] + r[:, None] * (vx * torch.cos(phi)[:, None]
                                         + vy * torch.sin(phi)[:, None])
                - 0.5 * l[:, None] * vz)

@@ -29,7 +29,13 @@ a grad step with remat (parallel/diff.py) replays max_depth of them in
 backward.  With subsurface, a bounce launches its NEE, ss_probe_depth
 probe segments, the exit point's NEE and then the next bounce's closest
 hit alone, after the exit point has moved its lanes' rays: 1 + max_depth
-(3 + ss_probe_depth) launches a sample.
+(3 + ss_probe_depth) launches a sample; a remat step replays max_depth
+(2 + ss_probe_depth) of them (the non-reentrant checkpoint stops a
+bounce's replay once its backward has what it needs, before the next
+closest hit).  Every replayed launch takes its forward launch's inputs bit
+for bit: the bounce's draws are stateless hashes of (pixel, sample, dim),
+and a grad step refuses the random sampler, whose stream a replay would
+advance again, with remat.
 
 The exact sampler mode (PBRT_TPU_EXACT_SAMPLER=1, SamplerConfig.exact)
 reads a batch's dims from host tables (samplers/exact_tables.py): all of

@@ -19,8 +19,8 @@ import torch
 from .. import scene as sc
 from ..core import sampling as smp
 from ..core.vecmath import (coordinate_system, cross, distance_squared, dot,
-                            length, normalize, safe_sqrt,
-                            spherical_direction_basis)
+                            length, normalize, safe_acos, safe_atan2,
+                            safe_sqrt, spherical_direction_basis)
 from ..shapes.triangle import intersect_triangle
 
 
@@ -239,8 +239,8 @@ def _gonio_factor(lt, w_world):
     """GonioPhotometricLight::Scale (goniometric.cpp:65-75): the equirect
     map at the light-space direction's (phi, theta)."""
     wl = normalize(_apply_w2l(lt.gonio_w2l, w_world))
-    theta = torch.arccos(torch.clamp(wl[:, 2], -1.0, 1.0))
-    phi = torch.atan2(wl[:, 1], wl[:, 0])
+    theta = safe_acos(wl[:, 2])
+    phi = safe_atan2(wl[:, 1], wl[:, 0])
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     return _bilinear_img(lt.gonio_img, phi * (0.5 / math.pi), theta / math.pi)
 
@@ -269,8 +269,8 @@ def _env_lookup(lt, uv):
 def _env_dir_to_uv(lt, wi):
     """World direction to equirect (u, v) in light space, and theta."""
     w_l = normalize(wi @ lt.env_w2l[:3, :3].T)
-    theta = torch.arccos(torch.clamp(w_l[:, 2], -1.0, 1.0))
-    phi = torch.atan2(w_l[:, 1], w_l[:, 0])
+    theta = safe_acos(w_l[:, 2])
+    phi = safe_atan2(w_l[:, 1], w_l[:, 0])
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     return torch.stack([phi / (2.0 * math.pi), theta / math.pi], -1), theta
 

@@ -38,7 +38,7 @@ from . import microfacet as mf
 
 def make_frame(ns, dpdu):
     """BSDF ctor (reflection.h:166): ss = normalize(dpdu), ts = ns x ss."""
-    ss_len = torch.sqrt(dot(dpdu, dpdu))[..., None]
+    ss_len = safe_sqrt(dot(dpdu, dpdu))[..., None]  # dpdu 0: no probe hit
     fb, _ = coordinate_system(ns)
     ss = torch.where(ss_len > 1e-12, dpdu / torch.clamp(ss_len, min=1e-20), fb)
     return ss, cross(ns, ss), ns

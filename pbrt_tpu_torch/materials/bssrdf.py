@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import interpolation as itp
+from ..core.vecmath import safe_sqrt
 
 N_RHO = 100
 N_RADIUS = 64
@@ -233,15 +234,16 @@ def pdf_sr(rho_nodes, radius_nodes, profile, rho_eff, table_id, sigma_t, rho,
 
 def _fr_dielectric(cos_i, eta_i, eta_t):
     """FrDielectric (reflection.cpp:47-64), as the JAX package's bssrdf
-    module writes it."""
+    module writes it, its square roots guarded (safe_sqrt: the same values,
+    a zero gradient at total internal reflection)."""
     cos_i = torch.clamp(cos_i, -1.0, 1.0)
     swap = cos_i <= 0.0
     ei = torch.where(swap, eta_t, eta_i)
     et = torch.where(swap, eta_i, eta_t)
     cos_i = torch.abs(cos_i)
-    sin_t = ei / et * torch.sqrt(torch.clamp(1.0 - cos_i * cos_i, min=0.0))
+    sin_t = ei / et * safe_sqrt(1.0 - cos_i * cos_i)
     tir = sin_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    cos_t = safe_sqrt(1.0 - sin_t * sin_t)
     r_par = (et * cos_i - ei * cos_t) / torch.clamp(et * cos_i + ei * cos_t,
                                                      min=1e-20)
     r_perp = (ei * cos_i - et * cos_t) / torch.clamp(ei * cos_i + et * cos_t,
@@ -264,9 +266,10 @@ def pdf_sp(rho_nodes, radius_nodes, profile, rho_eff, table_id, sigma_t, rho,
     frame = (frame_ss, frame_ts, frame_ns)
     dl = [torch.sum(a * d, -1) for a in frame]
     nl = [torch.sum(a * pi_ng, -1) for a in frame]
-    r_proj = (torch.sqrt(dl[1] ** 2 + dl[2] ** 2),
-              torch.sqrt(dl[2] ** 2 + dl[0] ** 2),
-              torch.sqrt(dl[0] ** 2 + dl[1] ** 2))
+    # safe_sqrt: a lane whose probe found no exit point has d = 0
+    r_proj = (safe_sqrt(dl[1] ** 2 + dl[2] ** 2),
+              safe_sqrt(dl[2] ** 2 + dl[0] ** 2),
+              safe_sqrt(dl[0] ** 2 + dl[1] ** 2))
     # the three axes' Pdf_Sr in one call over the lanes three times
     p_axes = pdf_sr(rho_nodes, radius_nodes, profile, rho_eff,
                     table_id.repeat(3), sigma_t.repeat(3, 1), rho.repeat(3, 1),

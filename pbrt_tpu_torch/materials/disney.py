@@ -22,7 +22,7 @@ import torch
 
 from ..core.sampling import INV_PI
 from ..core.vecmath import (abs_cos_theta, cos_theta, dot, normalize, reflect,
-                            same_hemisphere, tan2_theta)
+                            safe_sqrt, same_hemisphere, tan2_theta)
 from . import bsdf as bx
 from . import microfacet as mf
 
@@ -157,7 +157,7 @@ def _eval_lobes(p, wo, wi):
 
     # specular transmission T = specTrans sqrt(c) (disney.cpp:586-603);
     # thin lanes take the roughness-scaled distribution
-    t_spec = p["spec_trans"][:, None] * torch.sqrt(torch.abs(c))
+    t_spec = p["spec_trans"][:, None] * safe_sqrt(torch.abs(c))
     ax_t, ay_t = _thin_alphas(p)
     f_mt = bx.microfacet_transmission_f(t_spec, ax_t, ay_t, p["eta"], wo, wi)
     f_mt = torch.where((n_st > 0)[:, None], f_mt, 0.0)
@@ -223,8 +223,8 @@ def disney_sample(mat, wo, u):
     a2 = _cc_alpha(p) ** 2
     ct2 = torch.clamp((1.0 - torch.pow(a2, 1.0 - u_re[:, 0])) / (1.0 - a2), 0.0,
                       1.0)
-    ct = torch.sqrt(ct2)
-    st = torch.sqrt(torch.clamp(1.0 - ct2, min=0.0))
+    ct = safe_sqrt(ct2)
+    st = safe_sqrt(1.0 - ct2)
     phi = 2.0 * math.pi * u_re[:, 1]
     wh_cc = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
     wh_cc = torch.where(same_hemisphere(wo, wh_cc)[:, None], wh_cc, -wh_cc)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import interpolation as itp
+from ..core.vecmath import safe_sqrt
 
 TABLE_FIELDS = ("mu", "cdf", "a0", "m", "a_offset", "a")
 TABLE_INTS = ("n_mu", "m_max", "n_channels")
@@ -178,7 +179,7 @@ def table_sample(tbl: FourierTable, wo, u, radiance: bool = True):
     pdf = torch.clamp(pdf_phi * pdf_mu, min=0.0)
     sin2_i = torch.clamp(1.0 - mu_i * mu_i, min=0.0)
     sin2_o = torch.clamp(1.0 - mu_o * mu_o, min=0.0)
-    norm = torch.sqrt(sin2_i / torch.clamp(sin2_o, min=1e-20))
+    norm = safe_sqrt(sin2_i / torch.clamp(sin2_o, min=1e-20))
     norm = torch.where(sin2_o <= 0.0, 0.0, norm)
     phi64 = phi.to(torch.float64)  # correctly rounded, as XLA's mostly are
     sp, cp = torch.sin(phi64).to(torch.float32), torch.cos(phi64).to(torch.float32)

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..core.vecmath import safe_asin, safe_atan2, safe_sqrt
 from . import bsdf as bx
 
 P_MAX = 3
@@ -110,22 +111,22 @@ def _geometry(mat, wo):
                           + 5.372 * beta_n ** 22)  # hair.cpp:282
     # the scales' tilt, sin and cos of 2^k alpha (hair.cpp:287-293)
     sin2k = [torch.sin(alpha)]
-    cos2k = [torch.sqrt(torch.clamp(1.0 - sin2k[0] ** 2, min=0.0))]
+    cos2k = [safe_sqrt(1.0 - sin2k[0] ** 2)]
     for i in range(1, 3):
         sin2k.append(2.0 * cos2k[i - 1] * sin2k[i - 1])
         cos2k.append(cos2k[i - 1] ** 2 - sin2k[i - 1] ** 2)
     sin_to = wo[:, 0]
-    cos_to = torch.sqrt(torch.clamp(1.0 - sin_to * sin_to, min=0.0))
-    phi_o = torch.atan2(wo[:, 2], wo[:, 1])
-    gamma_o = torch.asin(torch.clamp(h, -1.0, 1.0))
+    cos_to = safe_sqrt(1.0 - sin_to * sin_to)
+    phi_o = safe_atan2(wo[:, 2], wo[:, 1])
+    gamma_o = safe_asin(h)
     # the refracted ray (hair.cpp:359-372)
     sin_tt = sin_to / eta
-    cos_tt = torch.sqrt(torch.clamp(1.0 - sin_tt * sin_tt, min=0.0))
+    cos_tt = safe_sqrt(1.0 - sin_tt * sin_tt)
     etap = (torch.sqrt(torch.clamp(eta * eta - sin_to * sin_to, min=1e-12))
             / torch.clamp(cos_to, min=1e-6))
     sin_gt = h / etap
-    cos_gt = torch.sqrt(torch.clamp(1.0 - sin_gt * sin_gt, min=0.0))
-    gamma_t = torch.asin(torch.clamp(sin_gt, -1.0, 1.0))
+    cos_gt = safe_sqrt(1.0 - sin_gt * sin_gt)
+    gamma_t = safe_asin(sin_gt)
     # the transmittance through the fiber (hair.cpp:373)
     T = torch.exp(-sigma_a * (2.0 * cos_gt / torch.clamp(cos_tt, min=1e-6))[:, None])
     return dict(eta=eta, v=v, s=s, sin2k=sin2k, cos2k=cos2k, sin_to=sin_to,
@@ -173,8 +174,8 @@ def hair_eval(mat, wo, wi):
     """HairBSDF::f and ::Pdf (hair.cpp:340-430, 625-664)."""
     g = _geometry(mat, wo)
     sin_ti = wi[:, 0]
-    cos_ti = torch.sqrt(torch.clamp(1.0 - sin_ti * sin_ti, min=0.0))
-    phi = torch.atan2(wi[:, 2], wi[:, 1]) - g["phi_o"]
+    cos_ti = safe_sqrt(1.0 - sin_ti * sin_ti)
+    phi = safe_atan2(wi[:, 2], wi[:, 1]) - g["phi_o"]
     ap = _ap(g)
     lums = [_lum(a) for a in ap]
     lum_sum = sum(lums)
@@ -226,10 +227,10 @@ def hair_sample(mat, wo, u2):
         vs = torch.where(m, g["v"][p], vs)
     cos_theta = 1.0 + vs * torch.log(
         torch.clamp(u_theta + (1.0 - u_theta) * torch.exp(-2.0 / vs), min=1e-30))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta ** 2, min=0.0))
+    sin_theta = safe_sqrt(1.0 - cos_theta ** 2)
     cos_phi_r = torch.cos(2.0 * math.pi * torch.remainder(u_phi * 7.0, 1.0))
     sin_ti = -cos_theta * sin_top + sin_theta * cos_phi_r * cos_top
-    cos_ti = torch.sqrt(torch.clamp(1.0 - sin_ti * sin_ti, min=0.0))
+    cos_ti = safe_sqrt(1.0 - sin_ti * sin_ti)
 
     # Np (hair.cpp:560-570)
     dphi_lobe = torch.zeros_like(u0)

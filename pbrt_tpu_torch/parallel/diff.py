@@ -4,14 +4,28 @@ lights and the camera, through torch autograd.
 Port of pbrt_tpu/parallel/diff.py, with its estimator: the discrete events
 (hit ids, traversal t, lobe choices, Russian-roulette decisions, light
 picks) are detached, and gradients flow through every continuous factor
-(BSDF f, cosines, Le, pdfs, camera rays) of the same paths.  The traversal
-kernels run under no_grad (accel/traverse.py), and hit_record re-derives the
-hit differentiably for the fixed prim id, so the gradient is the exact
-derivative of the render at a fixed sample sequence.
+(BSDF f, cosines, Le, pdfs, texture lookups, camera rays) of the same
+paths.  The traversal kernels run under no_grad (accel/traverse.py), and
+hit_record re-derives the hit differentiably for the fixed prim id, so the
+gradient is the exact derivative of the render at a fixed sample sequence.
+
+The step runs on every material, light, texture, camera and sampler the
+port renders, each held against the JAX package's step on the CPU
+(tests/test_torch_grad_*.py).  It refuses the three steps the JAX package
+cannot take (_refuse_unchecked): the realistic camera's camera leaves, the
+random sampler with remat, and the exact sampler mode.  As in the JAX
+package it passes no ray differentials, so textures are looked up at level
+0, and the parameter set is kd, ks, roughness, light_L and the camera:
+textures, env maps, media and Fourier tables get no gradient, nor does kd
+through kdsubsurface's coefficients (inverted from Kd on the host).  Where
+the JAX package's gradient is NaN (a square root, asin, acos or atan2 at
+its domain edge, or a quotient by a clamped 0, behind a where) the port's
+guards (core/vecmath.py safe_*) give the plain formula's value and a finite
+derivative; no gradient is zeroed or clamped after the fact.
 
 Backward memory: render_grad_step(remat=True) checkpoints each bounce but
 the last (integrators/path.py li_path), so the backward pass replays each
-bounce, its traversal launch included, from the bounce's carry instead of
+bounce, its traversal launches included, from the bounce's carry instead of
 holding every bounce's activations.
 
 The spatial light distribution, when the path config asks for it, is built
@@ -24,12 +38,11 @@ import dataclasses
 
 import torch
 
-from ..cameras import CameraParams, generate_rays
-from ..cameras.cameras import CAM_PERSPECTIVE
+from ..cameras import generate_rays
+from ..cameras.realistic import RealisticParams
 from ..integrators import path as ip
 from ..lights import lightdistrib as ldist
 from ..samplers import samplers as sa
-from .. import scene as sc
 from ..scene import resolve_device
 from ..utils import stats as st
 
@@ -88,38 +101,34 @@ def apply_params(scene, camera, params):
     return scene, camera
 
 
-# materials and lights whose gradients are not held against the JAX
-# package (its diff.py differentiates them generically)
-_UNCHECKED_MATERIALS = (sc.MAT_GLASS, sc.MAT_METAL, sc.MAT_SUBSTRATE,
-                        sc.MAT_UBER, sc.MAT_TRANSLUCENT, sc.MAT_MIX,
-                        sc.MAT_DISNEY, sc.MAT_HAIR, sc.MAT_FOURIER,
-                        sc.MAT_SUBSURFACE)
-_UNCHECKED_LIGHTS = (sc.LIGHT_INFINITE, sc.LIGHT_SPOT, sc.LIGHT_DISTANT,
-                     sc.LIGHT_PROJECTION, sc.LIGHT_GONIO)
+def _refuse_unchecked(camera, sampler_cfg, param_names, remat: bool):
+    """The three steps the JAX package's render_grad_step cannot take,
+    refused with a message that names each; every other material, light,
+    texture, camera and sampler the port renders is held against it.
 
-
-def _refuse_unchecked(scene, camera, sampler_cfg):
-    """Gradients through textures, glass, metal, substrate, uber,
-    translucent, mix, disney, hair, fourier and subsurface (kdsubsurface
-    too), the infinite, spot, distant, projection and goniometric lights,
-    the orthographic, environment and realistic cameras, and the samplers
-    other than halton and sobol (random draws a stream that a replayed
-    bounce would advance again) are not held against the JAX package; a
-    step on such a scene raises instead of returning an unchecked
-    gradient."""
-    lacks = (["textures"] if scene.has_textures else [])
-    if not isinstance(camera, CameraParams) or camera.cam_type != CAM_PERSPECTIVE:
-        lacks.append("cameras other than the perspective one")
-    if sampler_cfg.name not in ("halton", "sobol") or sampler_cfg.exact:
-        lacks.append(f"the {sampler_cfg.name} sampler"
-                     + (" in the exact mode" if sampler_cfg.exact else ""))
-    lacks += [sc.SUPPORTED_MATERIALS[t] for t in _UNCHECKED_MATERIALS
-              if t in scene.mat_types]
-    lacks += [f"{sc.SUPPORTED_LIGHTS[t]} lights" for t in _UNCHECKED_LIGHTS
-              if t in scene.light_types]
+    * the realistic camera with "camera" among param_names: its parameters
+      have no raster_to_camera, lens_radius or focal_distance, and the JAX
+      package's extract_params raises AttributeError on them.  Its material
+      and light leaves run.
+    * the random sampler with remat: its PCG32 stream is advanced by every
+      draw, so a replayed bounce would redraw other numbers (the JAX
+      package raises UnexpectedTracerError: the stream escapes its
+      jax.checkpoint).  remat=False runs.
+    * the exact sampler mode: the JAX package's step draws the plain stream
+      whatever SamplerConfig.exact says, and the port refuses to ignore it,
+      as its other integrators do."""
+    lacks = []
+    if isinstance(camera, RealisticParams) and "camera" in param_names:
+        lacks.append('the realistic camera\'s "camera" leaves (it has no '
+                     "raster_to_camera, lens_radius or focal_distance)")
+    if sampler_cfg.name == "random" and remat:
+        lacks.append("the random sampler with remat (a replayed bounce would "
+                     "advance its stream again; pass remat=False)")
+    if sampler_cfg.exact:
+        lacks.append("the exact sampler mode")
     if lacks:
         raise NotImplementedError(
-            f"gradients through {', '.join(lacks)} are not ported")
+            f"gradients through {'; '.join(lacks)} are not supported")
 
 
 def render_batch_radiance(scene, camera, pixels, sample_num: int, sampler_cfg,
@@ -152,12 +161,15 @@ def render_grad_step(scene, camera, pixels, sample_num: int, grad_weights,
     "camera" a dict of the camera_to_world, raster_to_camera, lens_radius
     and focal_distance gradients.  Runs on the card unless device="cpu";
     scene, pixels and grad_weights must be on that device.  counters: a
-    stats vector to bump with the forward's rays, or None."""
+    stats vector to bump with the forward's rays, or None.  Raises
+    NotImplementedError on the three steps the JAX package cannot take
+    (_refuse_unchecked); runs on every other scene, camera and sampler the
+    port renders."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, the step asked for "
                          f"{device}")
-    _refuse_unchecked(scene, camera, sampler_cfg)
+    _refuse_unchecked(camera, sampler_cfg, param_names, remat)
     if path_cfg.light_strategy == "spatial":
         scene = ldist.ensure_spatial_light_distribution(scene)
     camera = camera.to(device)

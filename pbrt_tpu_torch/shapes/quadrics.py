@@ -13,8 +13,8 @@ import math
 import torch
 
 from ..core import dsfloat as ds
-from ..core.vecmath import (dot, gamma, length, normalize, xform_normal_w2o,
-                            xform_point, xform_vector)
+from ..core.vecmath import (dot, gamma, length, normalize, safe_acos,
+                            xform_normal_w2o, xform_point, xform_vector)
 
 
 def _quadratic(a, b, c):
@@ -92,7 +92,7 @@ def intersect_sphere(o, d, t_max, w2o, o2w, radius, z_min, z_max, phi_max):
     phi = torch.where(valid0, phi0, phi1)
 
     u = phi / phi_max
-    theta = torch.acos(torch.clamp(p_hit[..., 2] / radius, -1.0, 1.0))
+    theta = safe_acos(p_hit[..., 2] / radius)  # the poles: acos' = -inf
     theta_min = torch.acos(torch.clamp(z_max / radius, -1.0, 1.0))
     theta_max = torch.acos(torch.clamp(z_min / radius, -1.0, 1.0))
     v = (theta - theta_min) / torch.clamp(theta_max - theta_min, min=1e-20)

@@ -17,8 +17,8 @@ emissive sphere) at 32x32 and a 16x8 blob.
 * the refusals of the JAX package's liberties: a nested or dangling mix, a
   spot light's "from" and "to", a second projection or goniometric light
   with its own map, a map that does not load, an opacity map that no Kd,
-  Ks, sigma or roughness binding reaches, bump_tex, and gradients
-  through the new materials and lights.
+  Ks, sigma or roughness binding reaches, and bump_tex; and the grad step
+  on a one-triangle scene of each new material and light.
 
 Bars: tests/test_torch_path.py:58-60's, at least 99.5% of pixels within
 rel 1e-3 and image means within 5e-3.  The two JAX renders are the costly
@@ -30,7 +30,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 from chip_smoke import blob_mesh, write_breadth_pbrt
 from pbrt_tpu import film as jfm
@@ -49,7 +48,6 @@ from pbrt_tpu_torch import scene as tsc
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.integrators import direct as tdirect
-from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.textures import textures as ttx
 from pbrt_tpu_torch.utils.imageio import read_image, write_pfm
@@ -295,6 +293,11 @@ def test_builder_mix_rows_and_bump_tex_raise():
                                   "mix", "spot lights", "distant lights",
                                   "projection lights", "goniometric lights"])
 def test_grad_step_refuses_the_new_types(what):
+    """A one-triangle scene of one classic material or light: the step,
+    held against the JAX package's in tests/test_torch_grad_classic.py,
+    runs, L is the no-grad forward's and every leaf is finite."""
+    from test_torch_grad_groups import assert_step_runs
+
     b = tsc.SceneBuilder()
     mt = {"metal": tsc.MAT_METAL, "substrate": tsc.MAT_SUBSTRATE,
           "uber": tsc.MAT_UBER, "translucent": tsc.MAT_TRANSLUCENT}.get(what)
@@ -317,8 +320,4 @@ def test_grad_step_refuses_the_new_types(what):
     res = (4, 4)
     camera = make_perspective_camera(ttf.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
                                      res)
-    pixels = torch.as_tensor(tpath.make_pixel_grid(tfm.FilmConfig(full_resolution=res)))
-    with pytest.raises(NotImplementedError, match=what):
-        diff.render_grad_step(b.build(device="cpu"), camera, pixels, 0,
-                              torch.ones((16, 3)), TSampler("halton", 1, res),
-                              tpath.PathConfig(max_depth=1), device="cpu")
+    assert_step_runs(b.build(device="cpu"), camera, res)

@@ -761,3 +761,45 @@ def test_new_cameras_on_card_match_cpu(kind):
     for a, b in zip(ref, got):
         np.testing.assert_allclose(b[agree].numpy(), a[agree].numpy(), rtol=rtol,
                                    atol=1e-6)
+
+
+# ---- the grad step on every family (tests/test_torch_grad_groups.py) ----
+
+GRAD_GROUPS = [("config3", "perspective", "halton"),
+               ("classic", "perspective", "halton"),
+               ("advanced", "perspective", "halton"),
+               ("imaging", "orthographic", "stratified"),
+               ("imaging", "environment", "zerotwosequence"),
+               ("imaging", "realistic", "maxmin"),
+               ("imaging", "orthographic", "random")]
+
+
+@pytest.mark.parametrize("case", GRAD_GROUPS, ids="-".join)
+def test_grad_group_on_card_matches_cpu(case):
+    """Each group's step (12x12, depth 2, sample 1; the random sampler
+    without remat) on the card against the CPU: L at
+    tests/test_torch_path.py:58's bar, each leaf within 1e-3 of the CPU
+    leaf's largest entry, every leaf finite."""
+    from test_torch_grad_groups import device_step
+
+    remat = case[2] != "random"
+    L_c, g_c = device_step(case, "cuda", remat)
+    L_h, g_h = device_step(case, "cpu", remat)
+    rel = (L_c - L_h).abs() / L_h.abs().clamp(min=1e-2)
+    assert (rel <= 1e-3).all(-1).float().mean() >= 0.995
+    assert_leaves_close(g_c, g_h, 1e-3)
+
+
+@pytest.mark.parametrize("case", GRAD_GROUPS[:4], ids="-".join)
+def test_grad_group_bvh2_matches_bvh4(monkeypatch, case):
+    """Each group's remat step under PBRT_TPU_BVH4=0 against bvh4, each
+    leaf within 1e-4 of bvh4's largest entry."""
+    from test_torch_grad_groups import device_step
+
+    monkeypatch.setenv("PBRT_TPU_BVH4", "1")
+    L4, g4 = device_step(case, "cuda")
+    monkeypatch.setenv("PBRT_TPU_BVH4", "0")
+    kb.bvh2_traverse.launches = 0
+    L2, g2 = device_step(case, "cuda")
+    assert kb.bvh2_traverse.launches > 0
+    assert_leaves_close(g2, g4, 1e-4)

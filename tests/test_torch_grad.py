@@ -11,7 +11,9 @@ sphere behind the camera, 24x24, sobol, sample 0, the same seeded weights.
 * path replay (remat) against no remat, finite and non-zero leaves at depth
   3, the counted rays of a grad step, and the device rule;
 * the gradient guards at their edges, and the input that showed the cone
-  pdf's fault.
+  pdf's fault;
+* the step on a one-triangle scene with a texture, glass or an infinite
+  light, and its three refusals (the steps the JAX package cannot take).
 """
 import dataclasses
 import functools
@@ -357,10 +359,12 @@ def test_apply_params_lens_radius_sets_the_thin_lens_branch():
 
 @pytest.mark.parametrize("what", ["textures", "glass", "infinite lights"])
 def test_grad_step_refuses_what_it_does_not_check(what):
-    """Gradients through textures, glass and the infinite light are not held
-    against the JAX package, so a step on such a scene raises and names
-    what it lacks."""
+    """A one-triangle scene with a checkerboard texture, glass or an
+    infinite light: the JAX package's step differentiates each, and the
+    port's, held against it in tests/test_torch_grad_config3.py, runs here
+    too: L is the no-grad forward's and every leaf is finite."""
     from pbrt_tpu_torch.textures import textures as ttx
+    from test_torch_grad_groups import assert_step_runs
 
     b = tsc.SceneBuilder()
     kw = {}
@@ -376,8 +380,45 @@ def test_grad_step_refuses_what_it_does_not_check(what):
     res = (4, 4)
     camera = make_perspective_camera(ttf.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
                                      res)
-    pixels = torch.as_tensor(tpath.make_pixel_grid(tfm.FilmConfig(full_resolution=res)))
-    with pytest.raises(NotImplementedError, match=what):
-        diff.render_grad_step(b.build(device="cpu"), camera, pixels, 0,
-                              torch.ones((16, 3)), TSampler("halton", 1, res),
-                              tpath.PathConfig(max_depth=1), device="cpu")
+    assert_step_runs(b.build(device="cpu"), camera, res)
+
+
+@pytest.mark.parametrize("case", ["realistic camera leaves", "random with remat",
+                                  "exact mode"])
+def test_grad_step_refuses_what_the_jax_step_cannot_take(case):
+    """The three steps left refused, each named in the message:
+    * the realistic camera with "camera" among the leaves: the JAX
+      package's extract_params raises AttributeError (RealisticParams has
+      no raster_to_camera, lens_radius or focal_distance);
+    * the random sampler with remat: the JAX package raises
+      UnexpectedTracerError (the PCG32 stream written inside jax.checkpoint
+      escapes it); the port's replay would redraw other numbers;
+    * the exact sampler mode: the JAX package's step ignores it and draws
+      the plain stream, which the port does not do silently.
+    The same steps without those leaves, without remat or without the exact
+    mode run."""
+    import dataclasses as dc
+
+    from pbrt_tpu_torch.cameras.realistic import make_realistic_camera
+
+    scene, camera, pixels, w, scfg, pcfg = _port()
+    kw, ok_kw = {}, {}
+    if case == "realistic camera leaves":
+        camera = make_realistic_camera(ttf.look_at([0, -10, 6], [0, 4, 0], [0, 0, 1]),
+                                       RES, focus_distance=10.0)
+        ok_kw = dict(param_names=diff.MATERIAL_PARAMS + diff.LIGHT_PARAMS)
+        match = "realistic camera"
+    elif case == "random with remat":
+        scfg = TSampler("random", 4, RES)
+        ok_kw = dict(remat=False)
+        match = "random sampler with remat"
+    else:
+        scfg = dc.replace(scfg, exact=True)
+        match = "exact sampler mode"
+    with pytest.raises(NotImplementedError, match=match):
+        diff.render_grad_step(scene, camera, pixels, 0, w, scfg, pcfg,
+                              device="cpu", **kw)
+    if ok_kw:
+        _, g = diff.render_grad_step(scene, camera, pixels, 0, w, scfg, pcfg,
+                                     device="cpu", **ok_kw)
+        assert torch.isfinite(g["kd"]).all()

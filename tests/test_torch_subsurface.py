@@ -17,8 +17,9 @@ depth 3, a 16x8 blob and the "uniform" light strategy.
 * directlighting "all" (maxdepth 1, 24x24, 1 spp), subsurface as its
   surface BSDF, against the JAX package's;
 * the refusals: a fourier without "bsdffile", an unknown measured
-  subsurface name, volpath with subsurface, a mix of hair, and gradients
-  through each of disney, hair, fourier, subsurface and kdsubsurface.
+  subsurface name, volpath with subsurface and a mix of hair; and the
+  grad step on a one-triangle scene of each of disney, hair, fourier,
+  subsurface and kdsubsurface.
 
 Bars: tests/test_torch_path.py:58-60's, at least 99.5% of pixels within
 rel 1e-3 and image means within 5e-3.  The JAX renders run without the
@@ -40,7 +41,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 from chip_smoke import blob_mesh, write_advanced_pbrt
 from pbrt_tpu import film as jfm
@@ -64,7 +64,6 @@ from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.integrators import volpath as tvolpath
 from pbrt_tpu_torch.materials import bssrdf as tbs
 from pbrt_tpu_torch.materials.measuredss import get_medium_scattering_properties
-from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.utils.imageio import read_image
 from pbrt_tpu_torch.utils.stats import COUNTERS
@@ -293,13 +292,14 @@ def test_volpath_refuses_subsurface():
 @pytest.mark.parametrize("what", ["disney", "hair", "fourier", "subsurface",
                                   "kdsubsurface"])
 def test_grad_step_refuses_the_new_types(what):
+    """A one-triangle scene of disney, hair, fourier, subsurface or
+    kdsubsurface: the step, held against the JAX package's in
+    tests/test_torch_grad_advanced.py, runs, L is the no-grad forward's
+    and every leaf is finite."""
+    from test_torch_grad_groups import assert_step_runs
+
     scene = _one_material_scene(what, None)
     res = (4, 4)
     camera = make_perspective_camera(ttf.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
                                      res)
-    pixels = torch.as_tensor(tpath.make_pixel_grid(tfm.FilmConfig(full_resolution=res)))
-    name = "subsurface" if what == "kdsubsurface" else what
-    with pytest.raises(NotImplementedError, match=name):
-        diff.render_grad_step(scene, camera, pixels, 0, torch.ones((16, 3)),
-                              TSampler("halton", 1, res),
-                              tpath.PathConfig(max_depth=1), device="cpu")
+    assert_step_runs(scene, camera, res)
