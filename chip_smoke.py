@@ -5,8 +5,9 @@
 
 Phases, each printing its result on a line of its own and its seconds:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/bvh4_traverse.cu and csrc/bvh2_traverse.cu (one nvcc each,
-     sm_90a) and the host BVH builder (g++), all compilers started together,
+  2. build: csrc/bvh4_traverse.cu (its triangle-only and typed builds) and
+     csrc/bvh2_traverse.cu (one nvcc each, sm_90a) and the host BVH builder
+     (g++), all compilers started together,
      into build/, with ptxas's registers, shared memory and spills of each
      kernel; then the layout probe's Triton kernel, compiled once;
   3. BVH kernels: bvh4_traverse and bvh2_traverse each held against its
@@ -30,7 +31,7 @@ Phases, each printing its result on a line of its own and its seconds:
      non-zero, 8 x (1 + 5) kernel launches, and a bit-identical repeat;
      with --profile FILE, one more sample under torch.profiler, its table
      of device operations written to FILE, the traversal's device time
-     split into the kernel, the key and argsort, the sphere pass and the
+     split into the kernel, the key and argsort, the quadric pass and the
      rest;
   6. card against CPU: a small scene rendered on the card and on the CPU
      (the plain versions) at depth 1 (per pixel) and depth 3 (image mean);
@@ -55,11 +56,11 @@ Phases, each printing its result on a line of its own and its seconds:
      torch.profiler, its table written to FILE's name plus "_grad";
  10. config3: BASELINE config 3's features through render.render_file on
      the main scene's blob (an EWA imagemap on the blob, a checkerboard
-     floor, a smooth and a rough glass sphere, an env map; 400x400 @ 64
-     spp, depth 5, spatial distribution): Mrays/s, wall, process CPU and
-     set-up by phase (the pyramid and the env CDF timed alone too), 384
-     bvh4 launches, a bit-identical repeat, PBRT_TPU_BVH4=0 with 384 bvh2
-     launches at tests/test_torch_path.py:58-59's bars against bvh4, and a
+     floor, a smooth and a rough glass sphere, an env map; 400x400 @ 16
+     spp (cut from 64 at PR 12), depth 5, spatial distribution): Mrays/s,
+     wall, process CPU and set-up by phase (the pyramid and the env CDF
+     timed alone too), 96 bvh4 launches, a bit-identical repeat,
+     PBRT_TPU_BVH4=0 with 96 bvh2 launches at tests/test_torch_path.py:58-59's bars against bvh4, and a
      64x64 @ 2 spp copy on the card against the CPU at the same bars; with
      --profile FILE, one spp under torch.profiler, its table written to
      FILE's name plus "_config3";
@@ -73,10 +74,11 @@ Phases, each printing its result on a line of its own and its seconds:
      sphere and a point light, a material-less sphere of homogeneous fog
      in the mirror's place and a material-less box beside the blob holding
      a seeded 128^3 density grid (8.4 MB); volpath, 400x400 @ 8 spp, depth
-     5, halton, spatial distribution: Mrays/s (live traversal lanes over
-     the render's wall), the wall a spp, process CPU and set-up by phase,
-     the bytes on the card, 688 bvh4 launches (86 a spp), a bit-identical
-     repeat, PBRT_TPU_BVH4=0 with 688 bvh2 launches against bvh4 and a
+     3 (cut from 5 at PR 12), halton, spatial distribution: Mrays/s (live
+     traversal lanes over the render's wall), the wall a spp, process CPU
+     and set-up by phase, the bytes on the card, 416 bvh4 launches (52 a
+     spp), a bit-identical repeat, PBRT_TPU_BVH4=0 with 416 bvh2 launches
+     against bvh4 and a
      64x64 @ 2 spp copy on the card against the CPU, both at
      tests/test_torch_path.py:58-59's bars, and each kernel against its
      plain version and bvh2 against bvh4 on the camera batch and the first
@@ -118,10 +120,11 @@ Phases, each printing its result on a line of its own and its seconds:
      mirror sphere in subsurface "Skin1", the floor in fourier (the
      port's copy of roughgold_alpha_0.2.bsdf), a disney and a hair sphere,
      the wall in matte and the emissive sphere; path at 400x400 @ 8 spp,
-     depth 5, halton, spatial distribution: Mrays/s (BSSRDF probe rays
-     among the rays), the wall a spp, process CPU and set-up by phase (a
-     BSSRDF table and the .bsdf read timed alone), the bytes on the card,
-     8 x 36 bvh4 launches (the camera rays, then a bounce's NEE, 4 probe
+     depth 3 (cut from 5 at PR 12), halton, spatial distribution: Mrays/s
+     (BSSRDF probe rays among the rays), the wall a spp, process CPU and
+     set-up by phase (a BSSRDF table and the .bsdf read timed alone), the
+     bytes on the card, 8 x 22 bvh4 launches (the camera rays, then a
+     bounce's NEE, 4 probe
      segments, the exit point's NEE and the next closest hit), a
      bit-identical repeat, PBRT_TPU_BVH4=0 with as many bvh2 launches
      against bvh4, a 64x64 @ 1 spp copy under path and directlighting
@@ -169,6 +172,20 @@ Phases, each printing its result on a line of its own and its seconds:
      with --profile FILE, one more remat step of each file under
      torch.profiler (the gathers' backward's share of the device time),
      its table written to FILE's name plus "_grad_<file>";
+ 18. geometry: pbrt-v3's remaining shapes through render.render_file
+     (geometry_phase): write_geometry_pbrt (a 512x512 heightfield, a
+     loopsubdiv body of 327,680 triangles, a 16x16 NURBS panel, the six
+     quadrics, a "blackbody I" point light, spectrum Kd pairs and an .spd
+     file; inside the JAX package's gate: bvh4 and the quadric pass) and
+     write_instances_pbrt (16 instances of a 65,536-triangle blob, 256
+     instanced quadrics, 4,096 hair curves; past the gate: the typed
+     build), each at 400x400 @ 8 spp, depth 5, spatial: 48 launches of the
+     one build, a bit-identical repeat, the geometry file bit-equal to its
+     SceneBuilder scene, a 64x64 depth-2 copy card against CPU, each
+     kernel against its plain version on one spp's batches, a remat grad
+     step (11 launches, 5 replayed bit for bit), the instances refused
+     under PBRT_TPU_BVH4=0; with --profile FILE, one spp of each profiled
+     (FILE's name plus "_geometry", "_instances");
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
@@ -194,16 +211,24 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 SLAB_FLOPS = 27  # one box's slab test
 TRI_FLOPS = 45  # per Moller-Trumbore test
 SPP, DEPTH, RES = 8, 5, (400, 400)
+# phase 10's samples a pixel: BASELINE config 3 asks 64; cut to keep the
+# script inside its time as phases were added (each of its three renders
+# is host-bound, its wall in proportion)
+CONFIG3_SPP = 16
 # traversal launches a spp at DEPTH: config4 (volpath with media) 1 + 16
 # walk segments a bounce but the last, 1 at the last; whitted on the main
 # scene (one light) 1 + 1 a bounce but the last, 1 at the last; ao 1 + 64
-CONFIG4_LAUNCHES = DEPTH * (1 + 16) + 1
+# phases 12 and 15 render at path depth 3 (cut from 5 at PR 12 to keep the
+# script inside its time as phases were added; the walks, the medium
+# vertex and the BSSRDF exit still occur at every bounce but the last)
+CONFIG4_DEPTH = ADVANCED_DEPTH = 3
+CONFIG4_LAUNCHES = CONFIG4_DEPTH * (1 + 16) + 1
 WHITTED_LAUNCHES = DEPTH * (1 + 1) + 1
 # the advanced scene (subsurface, path): the camera rays, then a bounce but
 # the last launches its NEE, PROBE_DEPTH probe segments, its exit point's
 # NEE and its next closest hit (pbrt_tpu_torch/integrators/path.py)
 PROBE_DEPTH = 4
-ADVANCED_LAUNCHES = 1 + DEPTH * (3 + PROBE_DEPTH)
+ADVANCED_LAUNCHES = 1 + ADVANCED_DEPTH * (3 + PROBE_DEPTH)
 AO_SAMPLES = 64
 # a scene's spatial light distribution (lights/lightdistrib.py)
 SPATIAL_FIELDS = ("spatial_grid_res", "spatial_b0", "spatial_diag", "spatial_cdf",
@@ -540,14 +565,14 @@ def smoke_density(n: int, seed: int = 7) -> np.ndarray:
 
 
 def write_config4_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
-                       grid=128) -> Path:
+                       grid=128, depth=DEPTH) -> Path:
     """BASELINE config 4 on the main scene: the blob (2 nu nv triangles, a
     PLY) in plastic, the matte floor and back wall, the emissive sphere and
     a point light; the mirror sphere's place holds a material-less sphere
     of homogeneous fog (d_media_volpath's coefficients), and beside the
     blob a material-less box holds a heterogeneous medium whose seeded
     grid^3 density (smoke_density) fills it through p0/p1.  volpath at
-    depth 5, halton, the spatial distribution."""
+    `depth`, halton, the spatial distribution."""
     out_dir.mkdir(parents=True, exist_ok=True)
     idx, v = blob_mesh(blob[0], blob[1], seed=0, center=(0.0, 0.0, 2.2),
                        radius=2.0)
@@ -557,7 +582,7 @@ def write_config4_pbrt(out_dir: Path, res=RES, spp=SPP, blob=(512, 256),
                for (x, y) in ((lo[0], lo[1]), (hi[0], lo[1]), (hi[0], hi[1]),
                               (lo[0], hi[1]))]
     text = CONFIG4_PBRT.format(
-        xres=res[0], yres=res[1], spp=spp, depth=DEPTH, n=grid,
+        xres=res[0], yres=res[1], spp=spp, depth=depth, n=grid,
         p0=" ".join(map(str, lo)), p1=" ".join(map(str, hi)),
         box="  ".join(" ".join(map(str, c)) for c in corners),
         density=" ".join(f"{x:.5g}" for x in smoke_density(grid).ravel()))
@@ -784,7 +809,7 @@ def time_cuda(fn, reps: int) -> float:
 
 
 def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
-                order=None):
+                order=None, both_modes=True):
     """Hold one kernel against its plain version on one ray batch (with and
     without the any-hit mask), bit for bit; returns its measurements.
     timed = "mask" times and counts the launch with the any-hit mask (as
@@ -794,7 +819,9 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
     gathered into that order beforehand with no work list (ms_gathered),
     and the four gathers and two scatters such a launch needs around it are
     timed alone (glue_ms): what the work list read inside the kernel costs
-    and saves."""
+    and saves.  both_modes=False holds the kernel against its plain version
+    in the timed mode alone (the mode the batch was launched in); the any-
+    hit checks then read the kernel's own run of the other mode."""
     import torch
 
     n = o.shape[0]
@@ -812,13 +839,16 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
     torch.cuda.synchronize()
     runs = {}
     for key, m in (("closest", zeros), ("mask", mode)):
-        if key != timed and not bool(any_mask.any()):
+        if key != timed and (not bool(any_mask.any()) or not both_modes):
             continue  # no any-hit lane: both modes are one run
         t0 = time.perf_counter()
         runs[key] = plain(*args, m, return_counts=key == timed, order=order)
         torch.cuda.synchronize()
         if key == timed:
             plain_ms = (time.perf_counter() - t0) * 1e3
+    if not both_modes and bool(any_mask.any()):  # the untimed mode's kernel run
+        other = "mask" if timed == "closest" else "closest"
+        runs[other] = {"closest": (t_k, p_k), "mask": (tm_k, pm_k)}[other]
     for key, other in (("closest", "mask"), ("mask", "closest")):
         runs.setdefault(key, runs[other])
     t_p, p_p = runs["closest"][:2]
@@ -865,15 +895,25 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
     check(occ_ok, f"{name}: any-hit occlusion differs from the closest hit")
     check(free_ok, f"{name}: unflagged lanes changed under the any-hit mask")
     node_v = int(visits.sum())
-    prim_t = int(tests.sum())
+    by_type = {}
+    if tests.dim() == 2:  # the typed build: tests by record type, windows
+        per = [int(x) for x in tests.sum(0).tolist()]
+        prim_t = sum(per[:9])
+        test_ops = sum(c * f for c, f in zip(per, k["test_flops"]))
+        test_bytes = sum(c * b for c, b in zip(per, k["test_bytes"]))
+        by_type = {"tests_by_type": per[:9], "curve_windows": per[9]}
+    else:
+        prim_t = int(tests.sum())
+        test_ops, test_bytes = prim_t * TRI_FLOPS, prim_t * bvh.PRIM_BYTES
     # Two floors.  bound_ms: each input read once and each output written
-    # once (the node and triangle tables, 40 B per ray), against the
-    # operations this run's visits need.  visit_bound_ms: every node visit
-    # and triangle test read from device memory, as if nothing stayed in L2.
-    table_bytes = nodes.nbytes + scene.prim_tris.nbytes
+    # once (the node, record and typed tables, 40 B per ray), against the
+    # operations this run's visits and tests need.  visit_bound_ms: every
+    # node visit and record test read from device memory, as if nothing
+    # stayed in L2.
+    table_bytes = nodes.nbytes + scene.prim_tris.nbytes + k.get("extra_bytes", 0)
     t_bytes = (table_bytes + n * bvh.RAY_BYTES) / H100_BYTES_PER_S * 1e3
-    t_ops = (node_v * k["node_flops"] + prim_t * TRI_FLOPS) / H100_F32_FLOPS * 1e3
-    visit_bytes = node_v * k["node_bytes"] + prim_t * bvh.PRIM_BYTES + n * bvh.RAY_BYTES
+    t_ops = (node_v * k["node_flops"] + test_ops) / H100_F32_FLOPS * 1e3
+    visit_bytes = node_v * k["node_bytes"] + test_bytes + n * bvh.RAY_BYTES
     out = dict(case=name, rays=n, live_rays=int((t_max > 0).sum()), timed=timed,
                hit_agree=hit_agree,
                prim_agree=prim_agree, t_rel_err=t_rel, max_abs_err=max_abs,
@@ -884,7 +924,8 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
                visit_mb=visit_bytes / 1e6,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3, **extra)
+               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3, **extra,
+               **by_type)
     print(f"kernel-check {json.dumps(out)}", flush=True)
     return out
 
@@ -983,10 +1024,10 @@ def profile_render(render_one, table_path: Path, label: str = "profile"):
     # range is the lane set-up (t_max, mode, the launch counter).
     glue = device_ms.get("layer: traversal incl. kernel", 0.0)
     key_ms = device_ms.get("layer: traversal / key and argsort", 0.0)
-    sphere_ms = device_ms.get("layer: traversal / sphere pass", 0.0)
+    quad_ms = device_ms.get("layer: traversal / quadric pass", 0.0)
     print(f"{label} traversal split (device ms, 1 spp): kernel {kern_ms:.3f}, key "
-          f"and argsort {key_ms:.3f}, sphere pass {sphere_ms:.3f}, rest "
-          f"{glue - key_ms - sphere_ms:.3f}; in all {kern_ms + glue:.3f}", flush=True)
+          f"and argsort {key_ms:.3f}, quadric pass {quad_ms:.3f}, rest "
+          f"{glue - key_ms - quad_ms:.3f}; in all {kern_ms + glue:.3f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1513,7 +1554,8 @@ def config3_cross(scene, captured, label="config3"):
 def config3_phase(render, counted, card, dev, profile):
     """Phase 10: BASELINE config 3's features through render_file on the
     card: the main scene's 262,144-triangle blob textured, the checkerboard
-    floor, smooth and rough glass, the env map; 400x400 @ 64 spp, depth 5,
+    floor, smooth and rough glass, the env map; 400x400 @ CONFIG3_SPP spp,
+    depth 5,
     halton, spatial light distribution.  A bit-identical repeat, the same
     image under PBRT_TPU_BVH4=0 with bvh2 launches only, and a 64x64 @ 2
     spp copy on the card against the CPU."""
@@ -1525,7 +1567,7 @@ def config3_phase(render, counted, card, dev, profile):
     from pbrt_tpu_torch.utils.imageio import read_pfm
 
     out_dir = SMOKE_DIR / "config3"
-    spp = 64
+    spp = CONFIG3_SPP
     path = write_config3_pbrt(out_dir, spp=spp)
     # the set-up inside parse and build, timed alone on the same images
     skin, env = read_pfm(str(out_dir / "skin.pfm")), read_pfm(str(out_dir / "env.pfm"))
@@ -1666,7 +1708,8 @@ def direct_phase(render, read_pfm, counted, card, dev):
 def config4_phase(render, counted, card, dev, profile):
     """Phase 12: BASELINE config 4 through render_file on the card: the
     main scene's blob with a homogeneous fog sphere and a 128^3 density
-    grid, volpath at 400x400 @ 8 spp, depth 5.  86 launches a spp; a
+    grid, volpath at 400x400 @ 8 spp, depth CONFIG4_DEPTH (3).
+    CONFIG4_LAUNCHES (52) launches a spp; a
     bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4 and a 64x64 @ 2
     spp copy on the card against the CPU at tests/test_torch_path.py:58-59's
     bars, and each kernel held against its plain version on the walk
@@ -1679,7 +1722,7 @@ def config4_phase(render, counted, card, dev, profile):
 
     out_dir = SMOKE_DIR / "config4"
     t0 = time.perf_counter()
-    path = write_config4_pbrt(out_dir)
+    path = write_config4_pbrt(out_dir, depth=CONFIG4_DEPTH)
     print(f"config4 file: {path.stat().st_size / 1e6:.1f} MB written in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     want = SPP * CONFIG4_LAUNCHES
@@ -1707,7 +1750,8 @@ def config4_phase(render, counted, card, dev, profile):
     check(frac >= 0.995 and mean_rel <= 5e-3,
           f"config4 bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
 
-    small = write_config4_pbrt(out_dir / "small", res=(64, 64), spp=2)
+    small = write_config4_pbrt(out_dir / "small", res=(64, 64), spp=2,
+                               depth=CONFIG4_DEPTH)
     a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
                               device=dev)
     t0 = time.perf_counter()
@@ -2018,8 +2062,9 @@ def breadth_phase(render, counted, card, dev, profile):
 def advanced_phase(render, counted, card, dev, profile):
     """Phase 15: pbrt-v3's remaining materials through render_file on the
     card (write_advanced_pbrt: kdsubsurface, subsurface "Skin1", fourier,
-    disney, hair), path at 400x400 @ 8 spp, depth 5, halton, spatial
-    distribution: ADVANCED_LAUNCHES a spp, a bit-identical repeat,
+    disney, hair), path at 400x400 @ 8 spp, depth ADVANCED_DEPTH (3),
+    halton, spatial distribution: ADVANCED_LAUNCHES a spp, a bit-identical
+    repeat,
     PBRT_TPU_BVH4=0 against bvh4; a 64x64 @ 1 spp copy under path and
     directlighting "all" on the card against the CPU (each side builds its
     spatial distribution, held equal first); each kernel against its plain
@@ -2040,7 +2085,7 @@ def advanced_phase(render, counted, card, dev, profile):
     out_dir = SMOKE_DIR / "advanced"
     t0 = time.perf_counter()
     split = {}
-    path = write_advanced_pbrt(out_dir)
+    path = write_advanced_pbrt(out_dir, depth=ADVANCED_DEPTH)
     t1 = time.perf_counter()
     bssrdf.compute_beam_diffusion_bssrdf(0.0, 1.33)
     t2 = time.perf_counter()
@@ -2081,8 +2126,9 @@ def advanced_phase(render, counted, card, dev, profile):
     # the 64x64 copy under path and directlighting "all", card against CPU,
     # each side with the spatial distribution it builds, held equal first
     t0 = time.perf_counter()
-    small = write_advanced_pbrt(out_dir / "small", res=(64, 64), spp=1)
-    line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
+    small = write_advanced_pbrt(out_dir / "small", res=(64, 64), spp=1,
+                                depth=ADVANCED_DEPTH)
+    line = f'Integrator "path" "integer maxdepth" [{ADVANCED_DEPTH}]'
     card_scene = lightdistrib.ensure_spatial_light_distribution(
         parse_pbrt_file(str(small)).build_scene(dev))
     t1 = time.perf_counter()
@@ -2103,7 +2149,8 @@ def advanced_phase(render, counted, card, dev, profile):
     for name, integ, renderer in (
             ("path", line, ip.render),
             ("directlighting", f'Integrator "directlighting" "integer maxdepth" '
-                               f'[{DEPTH}] "string strategy" "all"', direct.render)):
+                               f'[{ADVANCED_DEPTH}] "string strategy" "all"',
+             direct.render)):
         p = small.with_name(f"small_{name}.pbrt")
         p.write_text(small.read_text().replace(line, integ))
         a, _ = render.render_file(str(p), out=str(out_dir / f"small_{name}.pfm"),
@@ -2174,6 +2221,357 @@ def advanced_phase(render, counted, card, dev, profile):
             "results": results}
 
 
+def icosphere(levels: int):
+    """(indices, unit vertices) of an icosahedron split `levels` times:
+    20 * 4^levels faces, closed and consistently wound."""
+    t = (1 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+         (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    v = [np.asarray(x, np.float64) / np.linalg.norm(x) for x in v]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+         (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+         (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+         (8, 6, 7), (9, 8, 1)]
+    for _ in range(levels):
+        mids, out = {}, []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = v[a] + v[b]
+                v.append(m / np.linalg.norm(m))
+                mids[key] = len(v) - 1
+            return mids[key]
+
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            out += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = out
+    return np.asarray(f, np.int32), np.asarray(v, np.float64)
+
+
+# phase 18's quadrics: (shape, parameters, transform, reversed); the disk
+# is small: its hits carry no error bound (disk.cpp), so its shadow rays'
+# self-intersection flips with the last bit of the hit point
+GEOMETRY_QUADRICS = [
+    ("disk", '"float radius" [0.35] "float innerradius" [0.15] "float phimax" [300]',
+     "Translate -3.2 -3.0 0.9 Rotate 50 1 0 0", False),
+    ("cylinder", '"float radius" [0.45] "float zmin" [-0.6] "float zmax" [0.7]',
+     "Translate 3.2 -1.2 1.4 Rotate 25 1 0 0", False),
+    ("cone", '"float radius" [0.6] "float height" [1.3] "float phimax" [320]',
+     "Translate -4.2 0.8 0.4", True),
+    ("paraboloid", '"float radius" [0.55] "float zmin" [0.05] "float zmax" [1.1]',
+     "Translate 4.3 1.2 0.5", False),
+    ("hyperboloid", '"point p1" [0.3 0 -0.6] "point p2" [0.65 0.25 0.7] '
+                    '"float phimax" [340]', "Translate 2.4 -3.2 1.2", True),
+    ("sphere", '"float radius" [0.7] "float phimax" [270]',
+     "Translate -2.2 -2.4 2.2 Rotate 30 0 0 1", False),
+]
+
+GEOMETRY_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "geometry.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]
+WorldBegin
+LightSource "point" "blackbody I" [6500 1] "rgb scale" [60 60 60]
+  "point from" [-3 -4 7]
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [20 20 20]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  Material "matte" "spectrum Kd" [400 0.25 480 0.45 560 0.6 640 0.35 700 0.3]
+  Translate -10 -8 -0.6
+  Scale 20 18 1.2
+  Shape "heightfield" "integer nu" [{hf}] "integer nv" [{hf}] "float Pz" [{pz}]
+AttributeEnd
+AttributeBegin
+  Material "plastic" "spectrum Kd" "kd.spd" "rgb Ks" [0.4 0.4 0.4]
+    "float roughness" [0.05]
+  Shape "loopsubdiv" "integer levels" [{levels}] "integer indices" [{li}]
+    "point P" [{lp}]
+AttributeEnd
+AttributeBegin
+  Material "substrate" "rgb Kd" [0.3 0.35 0.5] "rgb Ks" [0.2 0.2 0.2]
+  Translate -5 4.5 0.2
+  Scale 10 1 6
+  Shape "nurbs" "integer nu" [16] "integer nv" [16] "integer uorder" [4]
+    "integer vorder" [4] "float uknots" [{knots}] "float vknots" [{knots}]
+    "point P" [{np}]
+AttributeEnd
+AttributeBegin
+  Material "metal" "float roughness" [0.08]
+{quadrics}
+AttributeEnd
+WorldEnd
+"""
+
+
+def _floats(a) -> str:
+    return " ".join(f"{x:.7g}" for x in np.asarray(a).ravel())
+
+
+def geometry_parts(hf: int = 512, levels: int = 4):
+    """Phase 18's seeded geometry: the heightfield's heights [hf * hf], the
+    coarse closed mesh of the loop body (1,280 faces: an icosphere split 3
+    times, radius 1.8 at (0, 0, 2.2), seeded bumps), the 16 x 16 NURBS
+    control net (a seeded wave), its clamped uniform knots."""
+    rs = np.random.RandomState(18)
+    x, y = np.meshgrid(np.linspace(0, 1, hf), np.linspace(0, 1, hf))
+    pz = 0.3 * np.sin(6.0 * x + 1.0) * np.cos(5.0 * y) + 0.15 * rs.rand(hf, hf)
+    idx, v = icosphere(3)
+    r = 1.8 * (1.0 + 0.08 * rs.randn(v.shape[0]).clip(-2, 2))
+    lp = v * r[:, None] + np.array([0.0, 0.0, 2.2])
+    u, w = np.meshgrid(np.linspace(0, 1, 16), np.linspace(0, 1, 16))
+    npts = np.stack([u, np.zeros_like(u) + 0.3 * np.sin(7 * u) * np.cos(5 * w)
+                     + 0.1 * rs.rand(16, 16), w], -1)
+    knots = np.concatenate([[0.0] * 4, np.linspace(0, 1, 14)[1:-1], [1.0] * 4])
+    return dict(pz=pz.astype(np.float32), li=idx, lp=lp.astype(np.float32),
+                np=npts.astype(np.float32), knots=knots, levels=levels, hf=hf)
+
+
+def write_geometry_pbrt(out_dir: Path, res=RES, spp=SPP, depth=DEPTH, hf=512,
+                        levels=4) -> Path:
+    """Phase 18's first file, inside the JAX package's gate: a hf x hf
+    heightfield terrain (2 (hf-1)^2 triangles), a loopsubdiv body (1,280
+    faces at `levels`: 327,680 triangles at 4), a 16 x 16 NURBS panel, one
+    each of the disk (inner radius), cylinder, cone, paraboloid, hyperboloid
+    and a sphere with phimax 270 (two of them reversed), matte, plastic,
+    substrate and metal; a point light given as "blackbody I" and the
+    emissive sphere; one Kd as inline spectrum pairs, one from an .spd file
+    written beside the scene.  path at `depth`, halton, spatial."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    g = geometry_parts(hf, levels)
+    (out_dir / "kd.spd").write_text(
+        "# seeded reflectance\n" + "\n".join(
+            f"{lam:.1f} {val:.5f}" for lam, val in zip(
+                np.linspace(380, 720, 18),
+                0.2 + 0.5 * np.random.RandomState(19).rand(18))) + "\n")
+    quads = "\n".join(
+        f"  AttributeBegin\n    {xf}\n" + ("    ReverseOrientation\n" if rev else "")
+        + f'    Shape "{name}" {params}\n  AttributeEnd'
+        for name, params, xf, rev in GEOMETRY_QUADRICS)
+    path = out_dir / "geometry.pbrt"
+    path.write_text(GEOMETRY_PBRT.format(
+        xres=res[0], yres=res[1], spp=spp, depth=depth, hf=hf,
+        pz=_floats(g["pz"]), levels=levels, li=_floats(g["li"]),
+        lp=_floats(g["lp"]), knots=_floats(g["knots"]), np=_floats(g["np"]),
+        quadrics=quads))
+    return path
+
+
+def _text_floats(a) -> np.ndarray:
+    """a as the scene file holds it (_floats) and its reader reads it back:
+    float() of each token, then float32."""
+    return np.asarray([float(x) for x in _floats(a).split()], np.float32)
+
+
+def _transform(tf, statements: str):
+    """The CTM of a line of Translate / Rotate / Scale statements."""
+    toks = statements.split()
+    m = tf.identity()
+    i = 0
+    while i < len(toks):
+        n = {"Translate": 3, "Rotate": 4, "Scale": 3}[toks[i]]
+        args = [float(x) for x in toks[i + 1:i + 1 + n]]
+        m = m @ getattr(tf, toks[i].lower())(*args)
+        i += 1 + n
+    return m
+
+
+def geometry_builder(path: Path):
+    """The scene of write_geometry_pbrt's file made with SceneBuilder calls,
+    as its reader makes it: the reader's default material first, then a
+    row for each Material statement, the lights and shapes in the file's
+    order, the mesh shapes through shapes/ and heightfield_mesh, the
+    spectra through core/sampled_spectrum.py."""
+    from pbrt_tpu_torch import scene as sc
+    from pbrt_tpu_torch.core import sampled_spectrum as ss
+    from pbrt_tpu_torch.core import transform as tf
+    from pbrt_tpu_torch.sceneio.api import heightfield_mesh
+    from pbrt_tpu_torch.shapes.loopsubdiv import loop_subdivide
+    from pbrt_tpu_torch.shapes.nurbs import tessellate_nurbs
+
+    text = path.read_text()
+    hf = int(text.split('"integer nu" [')[1].split("]")[0])
+    levels = int(text.split('"integer levels" [')[1].split("]")[0])
+    g = geometry_parts(hf, levels)
+    b = sc.SceneBuilder()
+    f32 = np.float32
+    b.add_material(sc.MAT_MATTE, kd=np.full(3, 0.5, f32))  # the default
+    b.add_point_light(tf.identity() @ tf.translate(-3.0, -4.0, 7.0),
+                      ss.blackbody_rgb_normalized(6500.0) * 1.0
+                      * np.full(3, 60.0, f32))
+    b.add_emissive_sphere(tf.identity() @ tf.translate(0.0, 5.0, 8.0), 0.5,
+                          np.full(3, 20.0, f32) * np.ones(3, f32), material=0)
+    kd = ss.spd_to_rgb(np.array([400, 480, 560, 640, 700], np.float64),
+                       np.array([0.25, 0.45, 0.6, 0.35, 0.3]))
+    m = b.add_material(sc.MAT_MATTE, kd=kd, sigma=0.0)
+    idx, p, uv = heightfield_mesh(hf, hf, _text_floats(g["pz"]))
+    b.add_triangle_mesh(idx, p, uv=uv, material=m, object_to_world=_transform(
+        tf, "Translate -10 -8 -0.6 Scale 20 18 1.2"))
+    lam, val = ss.read_spd_file(str(path.parent / "kd.spd"))
+    m = b.add_material(sc.MAT_PLASTIC, kd=ss.spd_to_rgb(lam, val),
+                       ks=np.full(3, 0.4, f32), roughness=0.05, remap_roughness=True)
+    idx, p, n = loop_subdivide(_text_floats(g["li"]).astype(np.int64).astype(np.int32),
+                               _text_floats(g["lp"]).reshape(-1, 3), levels)
+    b.add_triangle_mesh(idx, p, n=n, object_to_world=tf.identity(), material=m)
+    m = b.add_material(sc.MAT_SUBSTRATE, kd=np.array([0.3, 0.35, 0.5], f32),
+                       ks=np.full(3, 0.2, f32), urough=0.1, vrough=0.1,
+                       remap_roughness=True)
+    knots = _text_floats(g["knots"])
+    pw = np.concatenate([_text_floats(g["np"]).reshape(16, 16, 3),
+                         np.ones((16, 16, 1), f32)], -1)
+    idx, p, uv = tessellate_nurbs(16, 16, 4, 4, knots, knots, pw)
+    b.add_triangle_mesh(idx, p, uv=uv, material=m, object_to_world=_transform(
+        tf, "Translate -5 4.5 0.2 Scale 10 1 6"))
+    cu_eta, cu_k = ss.copper_eta_k_rgb()
+    m = b.add_material(sc.MAT_METAL, metal_eta=np.asarray(tuple(cu_eta), f32),
+                       metal_k=np.asarray(tuple(cu_k), f32), roughness=0.08,
+                       remap_roughness=True)
+    for name, params, xf, rev in GEOMETRY_QUADRICS:
+        o2w = _transform(tf, xf)
+        vals = {}
+        for decl, v in zip(params.split('"')[1::2], params.split("[")[1:]):
+            vals[decl.split()[1]] = [float(x) for x in v.split("]")[0].split()]
+        one = {k: v[0] for k, v in vals.items()}
+        if name == "disk":
+            b.add_quadric(sc.SHAPE_DISK, o2w, (one["radius"], one["innerradius"],
+                                               0.0, np.deg2rad(one["phimax"])),
+                          m, -1, rev)
+        elif name == "cylinder":
+            b.add_quadric(sc.SHAPE_CYLINDER, o2w, (one["radius"], one["zmin"],
+                                                   one["zmax"], np.deg2rad(360.0)),
+                          m, -1, rev)
+        elif name == "cone":
+            b.add_cone(o2w, one["radius"], one["height"], material=m,
+                       phimax_deg=one["phimax"], reverse_orientation=rev)
+        elif name == "paraboloid":
+            b.add_paraboloid(o2w, one["radius"], one["zmin"], one["zmax"],
+                             material=m, phimax_deg=360.0, reverse_orientation=rev)
+        elif name == "hyperboloid":
+            b.add_hyperboloid(o2w, np.asarray(vals["p1"], f32),
+                              np.asarray(vals["p2"], f32), material=m,
+                              phimax_deg=one["phimax"], reverse_orientation=rev)
+        else:
+            r = one["radius"]
+            b.add_sphere(o2w, r, material=m, zmin=-r, zmax=r,
+                         phimax_deg=one["phimax"], reverse_orientation=rev)
+    return b
+
+
+INSTANCES_PBRT = """LookAt 0 -8 4  0 0 2  0 0 1
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+  "string filename" "instances.pfm"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{depth}]
+WorldBegin
+LightSource "point" "blackbody I" [5000 1] "rgb scale" [50 50 50]
+  "point from" [3 -5 7]
+AttributeBegin
+  Translate 0 5 8
+  AreaLightSource "diffuse" "rgb L" [20 20 20]
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+Material "matte" "rgb Kd" [0.5 0.5 0.8]
+Shape "trianglemesh" "point P" [-10 -10 0  10 -10 0  10 10 0  -10 10 0]
+  "integer indices" [0 1 2 2 3 0]
+ObjectBegin "blob"
+  Material "plastic" "rgb Kd" [0.4 0.2 0.2] "rgb Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  Shape "plymesh" "string filename" "blob.ply"
+ObjectEnd
+ObjectBegin "quadrics"
+  Material "metal" "float roughness" [0.05]
+{quadrics}
+ObjectEnd
+{instances}
+AttributeBegin
+  Material "hair"
+{curves}
+AttributeEnd
+WorldEnd
+"""
+
+# phase 18's quadric object: 8 quadrics, instanced 32 times
+INSTANCE_QUADRICS = [
+    ("sphere", '"float radius" [0.12]', "Translate 0 0 0.12"),
+    ("cylinder", '"float radius" [0.06] "float zmin" [0] "float zmax" [0.3]',
+     "Translate 0.3 0 0"),
+    ("disk", '"float radius" [0.12] "float innerradius" [0.04]',
+     "Translate -0.3 0 0.02"),
+    ("cone", '"float radius" [0.1] "float height" [0.25]', "Translate 0 0.3 0"),
+    ("paraboloid", '"float radius" [0.1] "float zmin" [0] "float zmax" [0.2]',
+     "Translate 0 -0.3 0"),
+    ("hyperboloid", '"point p1" [0.06 0 0] "point p2" [0.1 0.04 0.25]',
+     "Translate 0.3 0.3 0"),
+    ("sphere", '"float radius" [0.08] "float phimax" [200]',
+     "Translate -0.3 -0.3 0.1"),
+    ("cone", '"float radius" [0.08] "float height" [0.2] "float phimax" [270]',
+     "Translate -0.3 0.3 0"),
+]
+
+
+def write_instances_pbrt(out_dir: Path, res=RES, spp=SPP, depth=DEPTH,
+                         blob=(256, 128), n_blobs=16, n_quads=32,
+                         n_curves=4096) -> Path:
+    """Phase 18's second file, past the JAX package's gate: n_blobs
+    ObjectInstances of a seeded blob (2 nu nv triangles, a PLY inside the
+    object; 16 x 65,536 = 1,048,576 instanced triangles), n_quads instances
+    of an object of 8 quadrics of all six types (256 quadrics), and a hair
+    patch of n_curves cubic curves, flat, ribbon (two normals) and
+    cylinder in turn, chains of 1-3 segments, splitdepth 2, under the hair
+    material; the point light given as "blackbody I" and the emissive
+    sphere.  path at `depth`, halton, spatial."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(blob[0], blob[1], seed=3, center=(0.0, 0.0, 0.0),
+                       radius=0.55)
+    write_ply(out_dir / "blob.ply", idx, v)
+    rs = np.random.RandomState(20)
+    side = int(np.ceil(np.sqrt(n_blobs)))
+    inst = []
+    for k in range(n_blobs):
+        x, y = -4.2 + 8.4 * (k % side) / max(side - 1, 1), -1.0 + 4.0 * (k // side) / max(side - 1, 1)
+        inst.append(f"AttributeBegin\n  Translate {x:.4f} {y:.4f} 0.6\n"
+                    f"  Rotate {rs.uniform(0, 360):.3f} 0 0 1\n"
+                    f"  Scale {rs.uniform(0.8, 1.2):.4f} {rs.uniform(0.8, 1.2):.4f} "
+                    f"{rs.uniform(0.8, 1.2):.4f}\n  ObjectInstance \"blob\"\nAttributeEnd")
+    for k in range(n_quads):
+        inst.append(f"AttributeBegin\n  Translate {rs.uniform(-5, 5):.4f} "
+                    f"{rs.uniform(-3.5, -1.6):.4f} 0\n  Rotate "
+                    f"{rs.uniform(0, 360):.3f} 0 0 1\n  ObjectInstance \"quadrics\"\n"
+                    "AttributeEnd")
+    quads = "\n".join(f"  AttributeBegin\n    {xf}\n    Shape \"{name}\" {params}\n"
+                      "  AttributeEnd" for name, params, xf in INSTANCE_QUADRICS)
+    curves = []
+    kinds = ("flat", "ribbon", "cylinder")
+    for k in range(n_curves):
+        n_seg = 1 + k % 3
+        base = np.array([rs.uniform(-2.5, 2.5), rs.uniform(-4.8, -3.2), 0.0])
+        steps = np.cumsum(rs.normal(0, 0.05, (3 * n_seg, 3))
+                          + np.array([0.0, 0.0, 0.6 / (3 * n_seg)]), 0)
+        pts = np.concatenate([base[None], base + steps])
+        kind = kinds[k % 3]
+        extra = ""
+        if kind == "ribbon":
+            nrm = rs.normal(0, 1, (2, 3)) + np.array([0.0, -1.0, 0.0])
+            extra = f' "normal N" [{_floats(nrm)}]'
+        curves.append(f'  Shape "curve" "point P" [{_floats(pts)}] "string type" '
+                      f'"{kind}" "float width0" [0.02] "float width1" [0.004] '
+                      f'"integer splitdepth" [2]{extra}')
+    path = out_dir / "instances.pbrt"
+    path.write_text(INSTANCES_PBRT.format(
+        xres=res[0], yres=res[1], spp=spp, depth=depth, quadrics=quads,
+        instances="\n".join(inst), curves="\n".join(curves)))
+    return path
+
+
+MAIN_CAMERA = 'Camera "perspective" "float fov" [45]'
+MAIN_SAMPLER = f'Sampler "halton" "integer pixelsamples" [{SPP}]'
 MAIN_CAMERA = 'Camera "perspective" "float fov" [45]'
 MAIN_SAMPLER = f'Sampler "halton" "integer pixelsamples" [{SPP}]'
 # phase 16's 64x64 copies, card against CPU: (label, camera, filter,
@@ -2675,6 +3073,355 @@ def grad_breadth_phase(counted, card, dev, profile):
     return launches
 
 
+# the scene arrays phase 18 holds between the geometry file and its
+# SceneBuilder scene
+SCENE_ARRAYS = ("prim_meta", "tri_indices", "tri_attr", "tri_verts", "q_packed",
+                "q_prim_id", "bvh_min", "bvh_max", "bvh_offset", "bvh_nprims")
+
+# the typed build's float operations a test (column of the plain version's
+# per-type counts, ops/bvh.py _leaf_tests): a triangle's Moller-Trumbore;
+# an instanced triangle's plus the ray's move to object space (33); a
+# quadric's move (33), coefficients, double-single discriminant and root
+# (~80) and two clips with their atan2 (~2 x 55); a curve's ray frame and
+# control points (~170), and ~335 a window (12 blossoms, the leaf test,
+# 3 Bezier evaluations)
+TYPED_FLOPS = (TRI_FLOPS,) + (230,) * 6 + (170, TRI_FLOPS + 33, 335)
+# the bytes a test reads: the 48-byte record, plus its q_packed row (96),
+# curve_packed row (112) or inst_xf w2i (48)
+TYPED_BYTES = (48,) + (48 + 96,) * 6 + (48 + 112, 48 + 48, 0)
+
+
+class _TypedWrapper:
+    """bvh4_traverse_typed with the scene's typed tables bound, called as
+    kernel_case calls a wrapper; `launches` is the typed build's count."""
+
+    def __init__(self, bvh, scene):
+        self.bvh = bvh
+        self.tables = bvh.typed_tables(scene)
+
+    def __call__(self, nodes, tris, o, d, t_max, mode, depth, order=None):
+        return self.bvh.bvh4_traverse_typed(nodes, tris, *self.tables, o, d,
+                                            t_max, mode, depth, order)
+
+    @property
+    def launches(self):
+        return self.bvh.bvh4_traverse_typed.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.bvh.bvh4_traverse_typed.launches = value
+
+
+def typed_kernel(bvh, scene) -> dict:
+    """kernel_case's entry for the typed build of bvh4 on `scene`."""
+    import functools
+
+    wrapper = _TypedWrapper(bvh, scene)
+    return dict(wrapper=wrapper,
+                plain=functools.partial(bvh.bvh4_traverse_plain,
+                                        typed=wrapper.tables),
+                nodes="bvh4_nodes", depth="bvh4_depth", node_bytes=bvh.NODE_BYTES,
+                node_flops=4 * SLAB_FLOPS, test_flops=TYPED_FLOPS,
+                test_bytes=TYPED_BYTES,
+                extra_bytes=sum(t.nbytes for t in wrapper.tables))
+
+
+def geometry_checks(label, scene, camera, film_cfg, cfg, filt, bvh, ip, kernels, dev):
+    """Each kernel of `kernels` against its plain version, bit for bit, on
+    every batch that one spp of the file launched (the camera rays and
+    each bounce's merged NEE batch)."""
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+
+    with bvh.record_calls() as captured:
+        ip.render(scene, camera, film_cfg, SamplerConfig("halton", 1, RES), cfg,
+                  filt, device=dev)
+    check(len(captured) == 1 + DEPTH,
+          f"{label}: one spp launched {len(captured)} times, not {1 + DEPTH}")
+    results = {kind: {} for kind in kernels}
+    for i, (oc, dc, tc, mc, order) in enumerate(captured):
+        batch = "camera" if i == 0 else f"merged-b{i - 1}"
+        print(f"batch {label}-{batch}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live, {int((mc > 0).sum())} any-hit", flush=True)
+        for kind, k in kernels.items():
+            results[kind][batch] = kernel_case(f"{kind}-{label}-{batch}", k, bvh,
+                                               scene, oc, dc, tc, mc > 0, "mask",
+                                               order, both_modes=kind != "typed")
+    return results
+
+
+def geometry_grad(label, scene, camera, film_cfg, cfg, counted, kernel, dev):
+    """One render_grad_step at RES, sample 1, remat on, every DEFAULT_PARAMS
+    leaf, weights of ones: L bit-equal to the no_grad forward, every leaf
+    finite, 1 + DEPTH forward launches and DEPTH replayed ones, each
+    replayed launch's inputs bit-equal to its forward launch's."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.parallel import diff
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+
+    pixels = torch.as_tensor(ip.make_pixel_grid(film_cfg), device=dev)
+    scfg = SamplerConfig("halton", SPP, RES)
+    w = torch.ones((pixels.shape[0], 3), device=dev)
+    reset_counts(counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with bvh.record_calls() as calls:
+        t0 = time.perf_counter()
+        L, g = diff.render_grad_step(scene, camera, pixels, 1, w, scfg, cfg,
+                                     remat=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_step = read_counts(counted)[kernel]
+    leaves = flat_grads(g)
+    for k, v in leaves.items():
+        check(bool(torch.isfinite(v).all()), f"grad {label}: leaf {k} not finite")
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        L_fwd = diff.render_batch_radiance(scene, camera, pixels, 1, scfg, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    n_fwd = read_counts(counted)[kernel]
+    check(torch.equal(L, L_fwd), f"grad {label}: L differs from the forward")
+    check(n_fwd == 1 + DEPTH and n_step == n_fwd + DEPTH and len(calls) == n_step,
+          f"grad {label}: launches {n_step} (step), {n_fwd} (forward)")
+    replay = [calls[1 + b] for b in reversed(range(DEPTH))]
+    same = all(all((x is None and y is None) or (x is not None and y is not None
+                                                 and torch.equal(x, y))
+                   for x, y in zip(a, b)) for a, b in zip(calls[n_fwd:], replay))
+    check(same, f"grad {label}: a replayed launch differs from its forward launch")
+    print(f"grad {label} {RES[0]}x{RES[1]} sample 1, remat: fwd+bwd {wall:.3f} s, "
+          f"forward {fwd_s:.3f} s, step over forward {wall / fwd_s:.2f}x, "
+          f"max_memory_allocated {peak / 2**20:.1f} MiB above the step's start, "
+          f"{n_step} {kernel} launches ({DEPTH} replayed, bit-equal); L bit-equal "
+          f"to the forward; every leaf finite, largest |g| "
+          + json.dumps({k: float(f"{float(v.abs().max()):.4g}")
+                        for k, v in leaves.items()}) + f" [{card_name()}]", flush=True)
+    return n_step
+
+
+def card_name() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
+
+
+def table_bytes(scene) -> dict:
+    """The scene's tables on the card, MB."""
+    names = ("bvh4_nodes", "bvh2_nodes", "prim_tris", "prim_meta", "tri_attr",
+             "tri_verts", "q_packed", "curve_packed", "inst_xf", "inst_tri",
+             "spatial_cdf", "spatial_pmf")
+    return {k: round(getattr(scene, k).nbytes / 1e6, 4) for k in names
+            if getattr(scene, k) is not None}
+
+
+def blob_alone(bvh, dev, n_blobs=16, blob=(256, 128)) -> dict:
+    """The typed build against the triangle-only build on one BVH: the
+    instances file's 16 blob instances as instanced triangles, and the same
+    1,048,576 triangles flattened into world space (the same world bounds,
+    so the same tree and record order), each traced by its build on one
+    400x400 batch of camera rays, timed with CUDA events; the two must find
+    the same prims."""
+    import torch
+
+    from pbrt_tpu_torch import cameras
+    from pbrt_tpu_torch import scene as sc
+    from pbrt_tpu_torch.core import transform as tf
+
+    idx, v = blob_mesh(blob[0], blob[1], seed=3, center=(0.0, 0.0, 0.0),
+                       radius=0.55)
+    rs = np.random.RandomState(21)
+    side = int(np.ceil(np.sqrt(n_blobs)))
+    xfs = [tf.translate(-4.2 + 8.4 * (k % side) / (side - 1),
+                        -1.0 + 4.0 * (k // side) / (side - 1), 0.6)
+           @ tf.rotate(rs.uniform(0, 360), 0, 0, 1) for k in range(n_blobs)]
+    inst, flat = sc.SceneBuilder(), sc.SceneBuilder()
+    inst.begin_mesh_template()
+    inst.add_triangle_mesh(idx, v)
+    t = inst.end_mesh_template()
+    for xf in xfs:
+        inst.add_mesh_instance(t, xf)
+        flat.add_triangle_mesh(idx, xf.apply_point(v).astype(np.float32))
+    s_inst, s_flat = inst.build(device=dev), flat.build(device=dev)
+    check(torch.equal(s_inst.bvh4_nodes.view(torch.int32),
+                      s_flat.bvh4_nodes.view(torch.int32)),
+          "blob alone: the instanced and flattened trees differ")
+    cam = camera_for(cameras, tf, RES)
+    from pbrt_tpu_torch.cameras import generate_rays
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.film import FilmConfig
+
+    px = torch.as_tensor(ip.make_pixel_grid(FilmConfig(full_resolution=RES)),
+                         device=dev).to(torch.float32) + 0.5
+    o, d = generate_rays(cam.to(dev), px, torch.full_like(px, 0.5),
+                         torch.zeros(px.shape[0], device=dev))[:2]
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    tm = torch.full((n,), 1e30, device=dev)
+    zeros = torch.zeros(n, device=dev)
+    key = bvh.sort_rays_key(s_flat.bvh_min[0], s_flat.bvh_max[0], o, d, tm)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    saved = (bvh.bvh4_traverse.launches, bvh.bvh4_traverse_typed.launches)
+    typed = bvh.typed_tables(s_inst)
+    run_t = lambda: bvh.bvh4_traverse_typed(s_inst.bvh4_nodes, s_inst.prim_tris, *typed,
+                                            o, d, tm, zeros, s_inst.bvh4_depth, order)
+    run_f = lambda: bvh.bvh4_traverse(s_flat.bvh4_nodes, s_flat.prim_tris, o, d, tm,
+                                      zeros, s_flat.bvh4_depth, order)
+    (tt, pt), (tf_, pf) = run_t(), run_f()
+    agree = float((pt == pf).float().mean())
+    ms = {"flat_ms": time_cuda(run_f, 10), "typed_ms": time_cuda(run_t, 10)}
+    ms["flat_ms_2"], ms["typed_ms_2"] = time_cuda(run_f, 10), time_cuda(run_t, 10)
+    bvh.bvh4_traverse.launches, bvh.bvh4_traverse_typed.launches = saved
+    check(agree >= 0.999, f"blob alone: the builds agree on {agree} of the prims")
+    out = dict(rays=n, prims=int(s_inst.prim_meta.shape[0]), prim_agree=agree,
+               hit_frac=float((pf >= 0).float().mean()), **ms,
+               typed_over_flat=(ms["typed_ms"] + ms["typed_ms_2"])
+               / (ms["flat_ms"] + ms["flat_ms_2"]))
+    print("blob alone (typed instanced against triangle-only flattened, one tree, "
+          f"a 400x400 camera batch): {json.dumps(out)}", flush=True)
+    return out
+
+
+def geometry_phase(render, counted, card, dev, profile):
+    """Phase 18: pbrt-v3's remaining shapes through render.render_file on
+    the card.  write_geometry_pbrt (inside the JAX package's gate: the
+    triangle-only bvh4 and the six-type quadric pass) and
+    write_instances_pbrt (past it: the typed build of bvh4), each at
+    400x400 @ 8 spp, path depth 5, halton, spatial: the launches of each
+    build, the wall a spp beside the process CPU, Mrays/s, set-up seconds
+    by phase, the bytes on the card by table, a bit-identical repeat; the
+    geometry file against the same scene made with SceneBuilder calls (bit
+    for bit); a 64x64 copy at depth 2 on the card against the CPU at
+    tests/test_torch_path.py:58-59's bars; each kernel against its plain
+    version on every batch of one spp; one remat render_grad_step at
+    400x400; the instances scene refused under PBRT_TPU_BVH4=0.  With
+    profile, one spp of each under torch.profiler ("_geometry",
+    "_instances")."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import path as ip
+    from pbrt_tpu_torch.lights import lightdistrib
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "geometry"
+    out = {"launches": {}, "grad": {}, "results": {}}
+    for label, write, kernel in (
+            ("geometry", write_geometry_pbrt, "bvh4_traverse"),
+            ("instances", write_instances_pbrt, "bvh4_traverse_typed")):
+        split = {}
+        t0 = time.perf_counter()
+        path = write(out_dir / label)
+        split["file written"] = time.perf_counter() - t0
+        # the user's entry point, counted
+        t0 = time.perf_counter()
+        c0 = time.process_time()
+        img, st, launches = timed_render_file(render, counted, path,
+                                              out_dir / f"{label}.pfm", dev)
+        cpu = time.process_time() - c0
+        want = SPP * (1 + DEPTH)
+        check(launches[kernel] == want
+              and all(v == 0 for k, v in launches.items() if k != kernel),
+              f"{label}: launches {launches}, not {want} of {kernel} alone")
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"{label} {RES[0]}x{RES[1]} @ {SPP} spp", st, launches, card)
+              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole call "
+              f"{cpu:.3f} s; set-up split, s: "
+              + json.dumps({k: round(v, 3) for k, v in st["setup_split"].items()})
+              + f"; image mean {float(img.mean()):.6f}", flush=True)
+        out["launches"][label] = launches
+        split["render_file"] = time.perf_counter() - t0
+        # the repeat: the instances file from a second parse; the geometry
+        # file as the same scene made with SceneBuilder calls, whose arrays
+        # are the file's bit for bit (the same render, through the builder)
+        t0 = time.perf_counter()
+        setup = parse_pbrt_file(str(path))
+        if label == "geometry":
+            own = dataclasses.replace(setup, scene_builder=geometry_builder(path),
+                                      _scene_cache=None)
+            a, b = setup.scene_builder.build_numpy(), own.scene_builder.build_numpy()
+            same = [k for k in SCENE_ARRAYS if np.array_equal(a[k], b[k])]
+            check(len(same) == len(SCENE_ARRAYS), "geometry: the SceneBuilder "
+                  f"scene's arrays differ: {set(SCENE_ARRAYS) - set(same)}")
+            img2, _ = render.render_setup(own, device=dev)
+            check(np.array_equal(img, img2),
+                  "geometry: the .pbrt render differs from the SceneBuilder render")
+            del own, a, b
+        else:
+            img2, _ = render.render_setup(setup, device=dev)
+            check(np.array_equal(img, img2), f"{label}: a repeat differs")
+        scene = lightdistrib.ensure_spatial_light_distribution(setup.build_scene(dev))
+        print(f"{label} bytes on the card, MB: " + json.dumps(table_bytes(scene))
+              + f"; {int(scene.prim_meta.shape[0])} primitives; repeat bit-identical"
+              + (" (the SceneBuilder scene: arrays and render bit-equal to the "
+                 "file's)" if label == "geometry" else ""), flush=True)
+        split["repeat"] = time.perf_counter() - t0
+        if label != "geometry":
+            with bvh_switch("0"):
+                try:
+                    render.render_setup(setup, spp_override=1, device=dev)
+                    refused = False
+                except NotImplementedError as e:
+                    refused = "PBRT_TPU_BVH4" in str(e)
+            check(refused, "instances: PBRT_TPU_BVH4=0 was not refused")
+            print("instances: refused under PBRT_TPU_BVH4=0", flush=True)
+            out["blob_alone"] = blob_alone(bvh, dev)
+        film_cfg, filt = setup.make_film_config()
+        camera = setup.make_camera()
+        cfg = setup.make_integrator_config()
+        if profile is not None:
+            from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+
+            profile_render(lambda: ip.render(scene, camera, film_cfg,
+                                             SamplerConfig("halton", 1, RES), cfg,
+                                             filt, device=dev),
+                           profile.with_name(f"{profile.stem}_{label}{profile.suffix}"),
+                           f"{label} profile")
+        t0 = time.perf_counter()
+        kernels = ({"bvh4": bvh_kernels(bvh)["bvh4"]} if label == "geometry"
+                   else {"typed": typed_kernel(bvh, scene)})
+        out["results"].update(geometry_checks(label, scene, camera, film_cfg, cfg,
+                                              filt, bvh, ip, kernels, dev))
+        split["kernel checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["grad"][label] = geometry_grad(label, scene, camera, film_cfg, cfg,
+                                           counted, kernel, dev)
+        split["grad step"] = time.perf_counter() - t0
+        del scene, setup
+        torch.cuda.empty_cache()
+        # the 64x64 copy at depth 2, card against CPU (the CPU takes the
+        # card's spatial distribution)
+        t0 = time.perf_counter()
+        small = parse_pbrt_file(str(path))
+        small.integrator_params.set("maxdepth", "integer", [2])
+        a, _ = render.render_setup(small, spp_override=1, res_override=(64, 64),
+                                   device=dev)
+        card_scene = small._scene_cache
+        cpu_scene = small.scene_builder.build(device="cpu")
+        spatial = lightdistrib.ensure_spatial_light_distribution(card_scene)
+        cpu_scene = dataclasses.replace(cpu_scene, **{
+            k: getattr(spatial, k).cpu() for k in SPATIAL_FIELDS})
+        small._scene_cache = cpu_scene
+        b, _ = render.render_setup(small, spp_override=1, res_override=(64, 64),
+                                   device="cpu")
+        frac, mean_rel = image_bars(b, a)
+        print(f"{label} card against cpu (64x64 @ 1 spp, depth 2): match_frac "
+              f"{frac:.4f}, mean rel {mean_rel:.3e}", flush=True)
+        check(a.shape == (64, 64, 3) and bool(np.isfinite(a).all())
+              and float(a.mean()) > 0 and frac >= 0.995 and mean_rel <= 5e-3,
+              f"{label} card against cpu: match_frac {frac}, mean rel {mean_rel}")
+        del small, card_scene, cpu_scene, spatial
+        split["64x64 card against cpu"] = time.perf_counter() - t0
+        print(f"{label} phase split, s: " + json.dumps(
+            {k: round(v, 2) for k, v in split.items()}), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The run
 # ---------------------------------------------------------------------------
@@ -2702,6 +3449,7 @@ def run(profile: Path | None = None) -> dict:
 
     counted = {"bvh4_traverse": bvh.bvh4_traverse,
                "bvh2_traverse": bvh.bvh2_traverse,
+               "bvh4_traverse_typed": bvh.bvh4_traverse_typed,
                "chain_fused": bp.chain_fused}
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2764,7 +3512,8 @@ def run(profile: Path | None = None) -> dict:
     check(launches["bvh4_traverse"] == SPP * (1 + DEPTH),
           f"main path launched bvh4 {launches['bvh4_traverse']} times, not "
           f"{SPP * (1 + DEPTH)}")
-    check(launches["bvh2_traverse"] == 0, "main path launched bvh2")
+    check(launches["bvh2_traverse"] == 0 and launches["bvh4_traverse_typed"] == 0,
+          "main path launched bvh2 or the typed build")
     check(tuple(img.shape) == (RES[1], RES[0], 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(float(img.mean()) > 0.0, "image is black")
@@ -2879,6 +3628,12 @@ def run(profile: Path | None = None) -> dict:
     gb = grad_breadth_phase(counted, card, dev, profile)
     phase("grad breadth", t0)
 
+    # 18. pbrt-v3's remaining shapes: the quadrics, heightfield, loop
+    # subdivision, NURBS, instancing and curves, the typed build of bvh4
+    t0 = time.perf_counter()
+    geo = geometry_phase(render, counted, card, dev, profile)
+    phase("geometry", t0)
+
     # the kernels line
     entries = []
     for kind, src, replaces, n_launch in (
@@ -2893,7 +3648,8 @@ def run(profile: Path | None = None) -> dict:
                    + list(wa["results"][kind].values())
                    + list(br["results"][kind].values())
                    + list(adv["results"][kind].values())
-                   + list(img16["results"][kind].values()))
+                   + list(img16["results"][kind].values())
+                   + list(geo["results"].get(kind, {}).values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -2935,6 +3691,34 @@ def run(profile: Path | None = None) -> dict:
             "ms_gathered_per_spp": per_spp[kind]["ms_gathered"],
             "glue_ms_per_spp": per_spp[kind]["glue_ms"],
         })
+    entries[0]["geometry_launches"] = geo["launches"]["geometry"]["bvh4_traverse"]
+    entries[0]["geometry_grad_launches"] = geo["grad"]["geometry"]
+    for label, r in geo["results"]["bvh4"].items():
+        for key in ("ms", "plain_ms", "bound_ms", "live_rays"):
+            entries[0][f"geometry_{label.replace('-', '_')}_{key}"] = r[key]
+    typed = geo["results"]["typed"]
+    tn = typed["merged-b0"]
+    entries.append({
+        "name": "bvh4_traverse_typed", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
+        "replaces": "pbrt_tpu/ops/pallas_bvh.py:382 (_make_kernel4, pallas_call "
+                    "at :632), with the leaf tests of pbrt_tpu/accel/traverse.py:41-131 "
+                    "that the JAX package runs past its gate",
+        "launches": geo["launches"]["instances"]["bvh4_traverse_typed"],
+        "grad_launches": geo["grad"]["instances"],
+        "max_abs_err": max(r["max_abs_err"] for r in typed.values()),
+        "mismatch_frac": max(r["mismatch_frac"] for r in typed.values()),
+        "ms": tn["ms"], "plain_ms": tn["plain_ms"], "bound_ms": tn["bound_ms"],
+        "bound_by": tn["bound_by"], "library_ms": None,
+        "visit_bound_ms": tn["visit_bound_ms"],
+        **{f"instances_{label.replace('-', '_')}_{key}": r[key]
+           for label, r in typed.items()
+           for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
+        "ms_per_spp": sum(r["ms"] for r in typed.values()),
+        "tests_by_type_b0": tn["tests_by_type"],
+        "shape": f"{tn['rays']} rays (the instances file's bounce-0 merged "
+                 "NEE batch, any-hit shadow lanes as launched)",
+    })
     entries[0]["direct_one_launches"] = dl["one"]
     entries[0]["direct_all_launches"] = dl["all"]
     entries[0]["whitted_launches"] = wa["whitted"]

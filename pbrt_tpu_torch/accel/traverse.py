@@ -1,16 +1,21 @@
 """Ray queries over the scene and the hit record.
 
-Port of pbrt_tpu/accel/traverse.py for triangles and spheres:
+Port of pbrt_tpu/accel/traverse.py for every shape type: triangles, the
+six quadrics, procedural curves and instanced triangles.
 
 * ``intersect_closest`` / ``intersect_any`` dispatch to the BVH kernel path
-  (ops/bvh.py: the 4-wide kernel, or the binary one under PBRT_TPU_BVH4=0;
-  the CUDA kernel on the card, its plain version on the CPU) behind the
-  ``kernel_supported`` gate;
+  (ops/bvh.py: the CUDA kernel on the card, its plain version on the CPU):
+  a scene inside the JAX package's gate (``kernel_supported``) takes the
+  4-wide kernel, or the binary one under PBRT_TPU_BVH4=0, with the
+  brute-force quadric pass; a scene past it takes the typed build of the
+  4-wide kernel, which tests every record type in the leaves;
 * ``_traverse`` is the watertight oracle over the binary BVH, the JAX
   package's lockstep "if-if" walk (one node visit or one primitive test per
   ray per step), kept for the tests;
 * ``hit_record`` re-derives the full surface interaction for a hit prim id
-  with the watertight test, bounded by t * 1.0001 + 1e-6 (traverse.py:382).
+  with the watertight test, bounded by t * 1.0001 + 1e-6 (traverse.py:382);
+  an instanced triangle's is built in object space and carried to world
+  space by its instance's i2w (transform.cpp:415-440).
 
 Traversal carries no gradient here, as in the JAX package (traverse.py:
 288-297).
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -27,6 +33,7 @@ from ..core import vecmath as vm
 from ..core.vecmath import coordinate_system, cross, gamma
 from ..ops import bvh as kb
 from ..shapes import quadrics as quad
+from ..shapes.curve import curve_intersect
 from ..shapes.triangle import intersect_triangle, triangle_geometry
 
 STACK_DEPTH = 64  # the oracle's stack, pbrt's todo[64] (bvh.cpp:671)
@@ -44,26 +51,61 @@ def _slab_test(nmin, nmax, o, inv_d, t_best):
     return (t_near <= t_far) & (t_far > 0.0) & (t_near < t_best)
 
 
-def _test_prim(scene, prim_id, o, d, t_best):
-    """One primitive per lane; returns (hit, t)."""
+def _test_prim(scene, prim_id, o, d, t_best, lanes=None):
+    """One primitive per lane; returns (hit, t) (traverse.py:41-131).  Each
+    shape type is tested on the lanes whose primitive has that type (and,
+    given `lanes` [n] bool, that are in a leaf): the other lanes' answers
+    are never read."""
     meta = scene.prim_meta[prim_id]
     ptype = meta[:, 0]
-    pidx = meta[:, 1]
-    v9 = scene.tri_verts[torch.clamp(pidx, 0, scene.tri_verts.shape[0] - 1)]
-    tri = intersect_triangle(o, d, t_best, v9[:, 0:3], v9[:, 3:6], v9[:, 6:9])
-    hit = (ptype == sc.SHAPE_TRIANGLE) & tri["hit"]
-    t = torch.where(hit, tri["t"], math.inf)
-    if sc.SHAPE_SPHERE in scene.quadric_types:
-        qp = scene.q_packed[torch.clamp(pidx, 0, scene.q_packed.shape[0] - 1)]
-        w2o = qp[:, :12].view(-1, 3, 4)
-        par = qp[:, 12:16]
-        s = quad.intersect_sphere_object(
-            vm.xform_point(w2o, o), vm.xform_vector(w2o, d), t_best,
-            par[:, 0], par[:, 1], par[:, 2], par[:, 3])
-        m = (ptype == sc.SHAPE_SPHERE) & s["hit"]
-        t = torch.where(m & (s["t"] < t), s["t"], t)
-        hit = hit | m
+    pidx = meta[:, 1].to(torch.int64)
+    n = prim_id.shape[0]
+    hit = torch.zeros(n, dtype=torch.bool, device=o.device)
+    t = torch.full((n,), math.inf, dtype=torch.float32, device=o.device)
+    live = torch.ones_like(hit) if lanes is None else lanes
+
+    def pick(kind):
+        return torch.nonzero(live & (ptype == kind))[:, 0]
+
+    def put(idx, res):
+        h = res["hit"]
+        hit[idx] = h
+        t[idx] = torch.where(h, res["t"], math.inf)
+
+    idx = pick(sc.SHAPE_TRIANGLE)
+    v9 = scene.tri_verts[pidx[idx]]
+    put(idx, intersect_triangle(o[idx], d[idx], t_best[idx], v9[:, 0:3],
+                                v9[:, 3:6], v9[:, 6:9]))
+    for qt in scene.quadric_types:
+        idx = pick(qt)
+        if not idx.numel():
+            continue
+        if qt in sc.QUADRIC_SHAPES:
+            qp = scene.q_packed[pidx[idx]]
+            w2o = qp[:, :12].view(-1, 3, 4)
+            put(idx, quad.intersect_object(
+                qt, vm.xform_point(w2o, o[idx]), vm.xform_vector(w2o, d[idx]),
+                t_best[idx], qp[:, 12:24]))
+        elif qt == sc.SHAPE_CURVE:
+            put(idx, curve_intersect(o[idx], d[idx], t_best[idx],
+                                     scene.curve_packed[pidx[idx]]))
+        else:
+            # TransformedPrimitive::Intersect (primitive.cpp:99-140): the
+            # ray moves into object space, d not renormalised, so t stays
+            # in world units, and meets the shared object-space triangle
+            it = scene.inst_tri[pidx[idx]]
+            w2i = _inst_w2i(scene, it)
+            vi = scene.tri_verts[it[:, 0].to(torch.int64)]
+            put(idx, intersect_triangle(
+                vm.xform_point(w2i, o[idx]), vm.xform_vector(w2i, d[idx]),
+                t_best[idx], vi[:, 0:3], vi[:, 3:6], vi[:, 6:9]))
     return hit, t
+
+
+def _inst_w2i(scene, it):
+    xf = scene.inst_xf[torch.clamp(it[:, 1].to(torch.int64), 0,
+                                   scene.inst_xf.shape[0] - 1)]
+    return xf[:, :12].view(-1, 3, 4)
 
 
 def _traverse(scene, o, d, t_max, any_hit: bool = False, any_mask=None):
@@ -100,7 +142,7 @@ def _traverse(scene, o, d, t_max, any_hit: bool = False, any_mask=None):
         at_node = live & ~in_leaf & (node >= 0)
 
         prim_id = torch.clamp(leaf_cur, 0, n_prims_total - 1)
-        p_hit, p_t = _test_prim(scene, prim_id, o, d, t_best)
+        p_hit, p_t = _test_prim(scene, prim_id, o, d, t_best, in_leaf)
         take = in_leaf & p_hit & (p_t < t_best)
         t_best = torch.where(take, p_t, t_best)
         prim_best = torch.where(take, prim_id, prim_best)
@@ -135,13 +177,8 @@ def _traverse(scene, o, d, t_max, any_hit: bool = False, any_mask=None):
 def intersect_closest(scene, o, d, t_max, any_mask=None):
     """Closest hit (t [n], prim [n], -1 = miss).  Lanes flagged in any_mask
     stop at their first hit; only prim >= 0 means anything for them.  The
-    scene goes through the BVH kernel path; scenes outside its gate
-    are refused."""
-    if not kb.kernel_supported(scene):
-        raise NotImplementedError(
-            f"scenes with more than {kb.MAX_BRUTE_QUADRICS} quadrics or a "
-            f"BVH deeper than {kb.STACK_SIZE // 3} 4-wide levels (binary "
-            f"BVH: {kb.BVH2_STACK_SIZE} levels)")
+    scene goes through the BVH kernel path (ops/bvh.py traversal_route,
+    which refuses a tree deeper than the kernel's stack)."""
     with torch.no_grad(), record_function("layer: traversal incl. kernel"):
         return kb.intersect_kernel_with_quadrics(scene, o, d, t_max,
                                                  any_mask=any_mask)
@@ -204,23 +241,50 @@ def hit_record(scene, o, d, t, prim_id):
     dpdv = torch.where(it, dpdv_t, unit[1])
     ss_sh = torch.where((is_tri & has_n)[:, None], ss_t, dpdu)
 
-    if sc.SHAPE_SPHERE in scene.quadric_types:
+    # Each other shape type's record is made on every lane, as in the JAX
+    # package, and kept on that type's hit lanes.  A lane of another type
+    # takes that shape type's benign parameter row (_BENIGN), not the row
+    # its index reaches: the same values where kept, and no other row's
+    # parameters (a phi_max of 0) in the backward.
+    others = scene.quadric_types
+    if any(q in sc.QUADRIC_SHAPES for q in others):
         qidx = torch.clamp(pidx, 0, scene.q_type.shape[0] - 1)
         par = scene.q_params[qidx]
-        s = quad.intersect_sphere(o, d, t_arg, scene.q_w2o[qidx],
-                                  scene.q_o2w[qidx], par[:, 0], par[:, 1],
-                                  par[:, 2], par[:, 3])
-        m = ((ptype == sc.SHAPE_SPHERE) & s["hit"])[:, None]
-        ngq = torch.where(scene.q_rev[qidx][:, None], -s["ng"], s["ng"])
-        p = torch.where(m, s["p_hit"], p)
-        ng = torch.where(m, ngq, ng)
-        ns = torch.where(m, ngq, ns)
-        uv = torch.where(m, s["uv"], uv)
-        p_err = torch.where(m, s["p_error"], p_err)
-        tq, bq = coordinate_system(torch.where(m, ngq, ns))
-        dpdu = torch.where(m, tq, dpdu)
-        dpdv = torch.where(m, bq, dpdv)
-        ss_sh = torch.where(m, tq, ss_sh)
+        w2o, o2w = scene.q_w2o[qidx], scene.q_o2w[qidx]
+        rev = scene.q_rev[qidx][:, None]
+    for qt in others:
+        mine = (ptype == qt)[:, None]
+        if qt in sc.QUADRIC_SHAPES:
+            r = quad.intersect_record(qt, o, d, t_arg, w2o, o2w,
+                                      torch.where(mine, par, _benign(qt, par)))
+            m = mine & r["hit"][:, None]
+            ngq = torch.where(rev, -r["ng"], r["ng"])
+            tq, bq = coordinate_system(torch.where(m, ngq, ns))
+            fields = {"p": r["p_hit"], "ng": ngq, "ns": ngq, "uv": r["uv"],
+                      "p_error": r["p_error"], "dpdu": tq, "dpdv": bq, "ss": tq}
+        elif qt == sc.SHAPE_CURVE:
+            crow = scene.curve_packed[torch.clamp(pidx, 0,
+                                                  scene.curve_packed.shape[0] - 1)]
+            c = curve_intersect(o, d, t_arg, torch.where(mine, crow, _benign(qt, crow)),
+                                want_record=True)
+            m = mine & c["hit"][:, None]
+            fields = {"p": c["p_hit"], "ng": c["ng"], "ns": c["ng"], "uv": c["uv"],
+                      "p_error": c["p_error"], "dpdu": c["dpdu"], "dpdv": c["dpdv"],
+                      "ss": c["dpdu"]}
+        else:
+            r = _instanced_record(scene, o, d, t_arg, pidx)
+            m = mine & (hit & r["hit"])[:, None]
+            fields = {"p": r["p"], "ng": r["ng"], "ns": r["ns"], "uv": r["uv"],
+                      "p_error": r["p_error"], "dpdu": r["dpdu"], "dpdv": r["dpdv"],
+                      "ss": r["dpdu"]}
+        p = torch.where(m, fields["p"], p)
+        ng = torch.where(m, fields["ng"], ng)
+        ns = torch.where(m, fields["ns"], ns)
+        uv = torch.where(m, fields["uv"], uv)
+        p_err = torch.where(m, fields["p_error"], p_err)
+        dpdu = torch.where(m, fields["dpdu"], dpdu)
+        dpdv = torch.where(m, fields["dpdv"], dpdv)
+        ss_sh = torch.where(m, fields["ss"], ss_sh)
 
     return {
         "hit": hit, "t": t, "prim_id": prim_id, "p": p, "ng": ng, "ns": ns,
@@ -229,6 +293,75 @@ def hit_record(scene, o, d, t, prim_id):
         "material": torch.where(hit, meta[:, 2], -1),
         "arealight": torch.where(hit, meta[:, 3], -1),
     }
+
+
+# a well-formed parameter row of each shape type (q_params, or a
+# curve_packed row: a straight flat curve) for the lanes of other types
+_BENIGN_ROWS = {
+    sc.SHAPE_SPHERE: (1.0, -1.0, 1.0, 2 * math.pi),
+    sc.SHAPE_CYLINDER: (1.0, -1.0, 1.0, 2 * math.pi),
+    sc.SHAPE_DISK: (1.0, 0.0, 0.0, 2 * math.pi),
+    sc.SHAPE_CONE: (1.0, 1.0, 2 * math.pi),
+    sc.SHAPE_PARABOLOID: (1.0, 0.0, 1.0, 2 * math.pi),
+    sc.SHAPE_HYPERBOLOID: (1.0, 1.0, -1.0, 1.0, 2 * math.pi, 1.0, 0.0, -1.0, 1.0,
+                           0.0, 1.0),
+    sc.SHAPE_CURVE: (0.0, 0.0, 0.0, 0.0, 0.0, 0.3, 0.0, 0.0, 0.6, 0.0, 0.0, 1.0,
+                     0.1, 0.1, 0.0, 1.0),
+}
+
+
+_benign_cache: dict = {}
+
+
+def _benign(kind, like):
+    """_BENIGN_ROWS[kind] as a row like `like`'s rows, made once a device
+    (no copy to the card on each call)."""
+    key = (kind, like.shape[-1], like.dtype, like.device)
+    if key not in _benign_cache:
+        row = np.zeros(like.shape[-1], np.float32)
+        row[:len(_BENIGN_ROWS[kind])] = _BENIGN_ROWS[kind]
+        _benign_cache[key] = torch.as_tensor(row, dtype=like.dtype, device=like.device)
+    return _benign_cache[key]
+
+
+def _instanced_record(scene, o, d, t_arg, pidx):
+    """An instanced triangle's SurfaceInteraction (traverse.py:538-588):
+    built in object space against the shared row, then carried to world
+    space (transform.cpp:415-440): the point with the abs-matrix error
+    bound, dpdu and dpdv linearly, the normals by the inverse transpose
+    (w2i^T), renormalised."""
+    it = scene.inst_tri[torch.clamp(pidx, 0, scene.inst_tri.shape[0] - 1)]
+    xf = scene.inst_xf[torch.clamp(it[:, 1].to(torch.int64), 0,
+                                   scene.inst_xf.shape[0] - 1)]
+    w2i = xf[:, :12].view(-1, 3, 4)
+    i2w = xf[:, 12:24].view(-1, 3, 4)
+    a = scene.tri_attr[torch.clamp(it[:, 0].to(torch.int64), 0,
+                                   scene.tri_attr.shape[0] - 1)]
+    q0, q1, q2 = a[:, 0:3], a[:, 3:6], a[:, 6:9]
+    tri = intersect_triangle(vm.xform_point(w2i, o), vm.xform_vector(w2i, d),
+                             t_arg, q0, q1, q2)
+    ng_i, dpdu_i, dpdv_i = triangle_geometry(q0, q1, q2, a[:, 9:11],
+                                             a[:, 11:13], a[:, 13:15])
+    b0, b1, b2 = tri["b0"][:, None], tri["b1"][:, None], tri["b2"][:, None]
+    uv_i = b0 * a[:, 9:11] + b1 * a[:, 11:13] + b2 * a[:, 13:15]
+    has_n = a[:, 24] > 0.0
+    ns_raw = b0 * a[:, 15:18] + b1 * a[:, 18:21] + b2 * a[:, 21:24]
+    nsl2 = vm.dot(ns_raw, ns_raw)[:, None]
+    okn = has_n[:, None] & (nsl2 > 1e-16)
+    ns_i = torch.where(okn, ns_raw / torch.sqrt(torch.where(okn, nsl2, 1.0)), ng_i)
+    flip = vm.dot(ng_i, ns_i) < 0.0
+    ng_i = torch.where((has_n & flip)[:, None], -ng_i, ng_i)
+    p_w = vm.xform_point(i2w, tri["p_hit"])
+    g3 = gamma(3)
+    p_err_w = ((g3 + 1.0) * vm.xform_vector(torch.abs(i2w[:, :, :3]), tri["p_error"])
+               + g3 * torch.abs(p_w))
+    ng_w = vm.xform_normal_w2o(w2i, ng_i)
+    ns_w = vm.xform_normal_w2o(w2i, ns_i)
+    ng_w = ng_w / torch.sqrt(torch.clamp(vm.dot(ng_w, ng_w), min=1e-30))[:, None]
+    ns_w = ns_w / torch.sqrt(torch.clamp(vm.dot(ns_w, ns_w), min=1e-30))[:, None]
+    return {"hit": tri["hit"], "p": p_w, "ng": ng_w, "ns": ns_w, "uv": uv_i,
+            "p_error": p_err_w, "dpdu": vm.xform_vector(i2w, dpdu_i),
+            "dpdv": vm.xform_vector(i2w, dpdv_i)}
 
 
 def uv_differentials(rec, rx_o, rx_d, ry_o, ry_d):

@@ -3,7 +3,9 @@
 The JAX package (pbrt_tpu) builds SceneArrays and cameras as frozen
 dataclasses of arrays.  A caller flattens them to numpy (``as_numpy_fields``
 does that for any dataclass, without importing JAX) and hands the result
-here, so both packages render the very same arrays: the geometry, the
+here, so both packages render the very same arrays: the geometry (every
+quadric type's q_packed row and q_prim_id, the curves' curve_packed, the
+instances' inst_xf and inst_tri), the
 material table with its glass, metal, uber opacity, disney, hair, mix,
 subsurface and texture columns and its Fourier tables, the scene's BSSRDF
 tables, the light table with n_samples, the spot and distant columns, the
@@ -27,7 +29,8 @@ from .cameras.realistic import RealisticParams
 from .core.sampling import DISTRIBUTION_2D_FIELDS
 from .media.media import MEDIUM_FIELDS
 from .materials.fourier import TABLE_FIELDS, TABLE_INTS
-from .scene import (BSSRDF_FIELDS, ENV_FIELDS, LIGHT_FIELDS, MAP_LIGHT_FIELDS,
+from .scene import (BSSRDF_FIELDS, ENV_FIELDS, GEOMETRY_FIELDS, LIGHT_FIELDS,
+                    MAP_LIGHT_FIELDS,
                     MATERIAL_FIELDS, MEDIUM_ID_FIELDS, SCENE_FIELDS,
                     SUBSURFACE_FIELDS, SceneArrays, resolve_device)
 from .textures.textures import TEXTURE_FIELDS
@@ -193,7 +196,7 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
               got["materials"][k], rtol)
     _diff_optional(out, "scene.materials", ref["materials"], got["materials"],
                    SUBSURFACE_FIELDS + ("fourier_id",), rtol)
-    _diff_optional(out, "scene", ref, got, BSSRDF_FIELDS, rtol)
+    _diff_optional(out, "scene", ref, got, BSSRDF_FIELDS + GEOMETRY_FIELDS, rtol)
     rt, gt = ref["materials"]["fourier"] or (), got["materials"].get("fourier", ())
     if len(rt) != len(gt):
         out.append(f"scene.materials.fourier: {len(rt)} tables != {len(gt)}")

@@ -1,11 +1,13 @@
 """Sampled spectra on the host, for scene compilation (numpy).
 
-Port of the parts of pbrt_tpu/core/sampled_spectrum.py that the metal
-material's default needs: SampledSpectrum::FromSampled (spectrum.h:230-247)
-onto pbrt's 60 bins over 400-700 nm, then XYZ and RGB (spectrum.h:249-259),
-so that copper's measured eta and k (metal.cpp:82-121) become the RGB
-defaults pbrt's RGB build uses.  The arithmetic is the JAX package's, op for
-op, in float64, so the result is bit-equal to its copper_eta_k_rgb().
+Port of the parts of pbrt_tpu/core/sampled_spectrum.py that scene files
+reach: SampledSpectrum::FromSampled (spectrum.h:230-247) onto pbrt's 60
+bins over 400-700 nm, then XYZ and RGB (spectrum.h:249-259), so that
+copper's measured eta and k (metal.cpp:82-121), a "spectrum" parameter's
+(lambda, value) pairs or .spd file and a "blackbody" parameter's
+temperature (BlackbodyNormalized, spectrum.cpp:135-158) become the RGB
+pbrt's RGB build uses.  The arithmetic is the JAX package's, op for op, in
+float64, so the results are bit-equal to its.
 
 Data: pbrt_tpu_torch/data/spectra.npz, the port's own copy of the CIE 1931
 matching curves (471 samples), the Smits basis and copper's eta and k.
@@ -108,3 +110,42 @@ def copper_eta_k_rgb():
     t = _tables()
     return (spd_to_rgb(t["CopperWavelengths"], t["CopperN"]),
             spd_to_rgb(t["CopperWavelengths"], t["CopperK"]))
+
+
+def blackbody(lam_nm, temp_k):
+    """Blackbody (spectrum.cpp:135-148): Planck's law, W / (m^2 sr m)."""
+    lam = np.asarray(lam_nm, np.float64) * 1e-9
+    t = float(temp_k)
+    if t <= 0:
+        return np.zeros_like(lam)
+    c = 299792458.0
+    h = 6.62606957e-34
+    kb = 1.3806488e-23
+    l5 = lam**5
+    return (2.0 * h * c * c) / (l5 * (np.expm1(h * c / (lam * kb * t))))
+
+
+def blackbody_normalized(lam_nm, temp_k):
+    """BlackbodyNormalized (spectrum.cpp:150-158): scaled so that the
+    emission at Wien's peak is 1."""
+    le = blackbody(lam_nm, temp_k)
+    lambda_max = 2.8977721e-3 / max(float(temp_k), 1e-6) * 1e9
+    return le / blackbody(np.asarray([lambda_max]), temp_k)[0]
+
+
+def blackbody_rgb_normalized(temp_k):
+    """A "blackbody" parameter's RGB (paramset.cpp:404-417): the normalised
+    emission sampled at the CIE wavelengths, float32."""
+    lam = _tables()["CIE_lambda"]
+    return spd_to_rgb(lam, blackbody_normalized(lam, temp_k))
+
+
+def read_spd_file(path):
+    """An .spd file: whitespace-separated (lambda, value) pairs, "#"
+    comments (floatfile.cpp ReadFloatFile, paramset.cpp:378-388)."""
+    vals = []
+    with open(path) as f:
+        for line in f:
+            vals += [float(x) for x in line.split("#", 1)[0].split()]
+    arr = np.asarray(vals, np.float64).reshape(-1, 2)
+    return arr[:, 0], arr[:, 1]

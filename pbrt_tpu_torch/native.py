@@ -4,8 +4,9 @@ Takes the place of native/Makefile and the ctypes loading of
 pbrt_tpu/accel/build.py:46-114.  Shared libraries with a plain C interface,
 loaded with ctypes, one per source:
 
-* ``csrc/bvh4_traverse.cu`` and ``csrc/bvh2_traverse.cu`` -> the Hopper BVH
-  traversal kernels, each compiled with
+* ``csrc/bvh4_traverse.cu`` (its triangle-only and typed builds, one
+  library) and ``csrc/bvh2_traverse.cu`` -> the Hopper BVH traversal
+  kernels, each compiled with
   ``nvcc -gencode arch=compute_90a,code=sm_90a`` (needs the CUDA toolkit);
 * ``csrc/host/bvh_builder.cpp`` -> the host SAH BVH builder, compiled with
   ``g++ -O3 -fPIC -shared`` (no ``-march=native``).
@@ -115,12 +116,18 @@ def cuda_lib(kernel: str) -> ctypes.CDLL:
     """The library of one traversal kernel ("bvh4_traverse" or
     "bvh2_traverse"), built on first call.  It exports
     ``<kernel>(nodes, tris, o, d, t_max, mode, order, t_out, prim_out, n,
-    stream)`` and ``<kernel>_stack_size()``."""
+    stream)`` and ``<kernel>_stack_size()``; bvh4's also its typed build,
+    ``bvh4_traverse_typed(nodes, tris, q_packed, curve_packed, inst_xf, o,
+    d, t_max, mode, order, t_out, prim_out, n, stream)``."""
     lib = ctypes.CDLL(str(build((kernel,))[kernel]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, kernel)
     fn.restype = i32
     fn.argtypes = [vp] * 9 + [i32, vp]
+    if kernel == "bvh4_traverse":
+        typed = lib.bvh4_traverse_typed
+        typed.restype = i32
+        typed.argtypes = [vp] * 12 + [i32, vp]
     size = getattr(lib, f"{kernel}_stack_size")
     size.restype = i32
     size.argtypes = []

@@ -26,11 +26,17 @@ does about it.  Here:
   arithmetic), vectorised over rays; they also count node-row fetches and
   triangle tests per ray;
 * ``record_calls`` keeps the ray batches of every traversal in a block;
+* ``bvh4_traverse_typed`` is the bvh4 kernel's typed-leaf build (the same
+  source, a template parameter): every record type is tested in the
+  leaves (triangles, instanced triangles, the six quadrics, curves), for
+  the scenes past the JAX package's gate; its plain version is
+  ``bvh4_traverse_plain(typed=typed_tables(scene))``;
 * ``intersect_kernel_with_quadrics`` sorts the rays by (dead, direction
   octant, origin Morton code), hands the unsorted rays and the permutation
-  to the kernel, and tests the scene's few quadrics by brute force
-  (pallas_bvh.py:760-852);
-* ``kernel_supported`` is the gate of pallas_bvh.py:861-885.
+  to the kernel, and, inside the gate, tests the scene's few quadrics by
+  brute force (``quadric_pass``, pallas_bvh.py:760-858);
+* ``kernel_supported`` is the gate of pallas_bvh.py:861-890 and
+  ``traversal_route`` picks the build.
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ LEAF_FLAG = 1 << 31
 MAX_LEAF_PRIMS = 127  # 7 bits of a leaf stack entry
 MAX_PRIMS = 1 << 24  # 24 bits of a leaf stack entry
 MAX_BRUTE_QUADRICS = 64
+TYPE_CURVE = 7  # the record types of the typed leaves (scene.SHAPE_*)
+TYPE_INSTANCE = 8
+QUADRIC_TYPES = (1, 2, 3, 4, 5, 6)
 NODE_BYTES = 128  # one 4-wide row
 NODE2_BYTES = 64  # one binary row: both children of an interior node
 PRIM_BYTES = 48
@@ -178,17 +187,33 @@ def build_bvh2_table(nodes_min, nodes_max, offset, n_prims, axis):
     return np.ascontiguousarray(rows), int(node_levels(offset, n_prims).max())
 
 
-def build_prim_records(prim_type, prim_idx, tri_verts):
-    """[P, 12] float32 per primitive in BVH order: (v0, type), (e1, 0),
-    (e2, 0) with e1 = v1 - v0, e2 = v2 - v0; non-triangles keep zeros."""
+def build_prim_records(prim_type, prim_idx, tri_verts, inst_tri=None):
+    """[P, 12] float32 per primitive in BVH order, 48 bytes: (v0, type),
+    (e1, 0), (e2, 0) with e1 = v1 - v0, e2 = v2 - v0 for a triangle.  An
+    instanced triangle (type 8) holds its shared object-space triangle the
+    same way, with its instance's inst_xf row in word 7 (int32 bits); a
+    quadric (types 1-6) or a curve (type 7) holds its q_packed or
+    curve_packed row in word 4 (int32 bits) and zeros elsewhere."""
     prim_type = np.asarray(prim_type)
+    prim_idx = np.asarray(prim_idx, np.int32)
     rec = np.zeros((prim_type.shape[0], 12), np.float32)
     rec[:, 3] = prim_type.astype(np.float32)
+    bits = rec.view(np.int32)
     tri = prim_type == 0
-    v = np.asarray(tri_verts, np.float32)[np.asarray(prim_idx)[tri]]
-    rec[tri, 0:3] = v[:, 0:3]
-    rec[tri, 4:7] = v[:, 3:6] - v[:, 0:3]
-    rec[tri, 8:11] = v[:, 6:9] - v[:, 0:3]
+    inst = prim_type == TYPE_INSTANCE
+    rows = prim_idx[tri]
+    if inst.any():
+        it = np.asarray(inst_tri, np.int32)[prim_idx[inst]]
+        rows = np.concatenate([rows, it[:, 0]])
+    v = np.asarray(tri_verts, np.float32)[rows]
+    both = tri | inst
+    sel = np.concatenate([np.nonzero(tri)[0], np.nonzero(inst)[0]])
+    rec[sel, 0:3] = v[:, 0:3]
+    rec[sel, 4:7] = v[:, 3:6] - v[:, 0:3]
+    rec[sel, 8:11] = v[:, 6:9] - v[:, 0:3]
+    if inst.any():
+        bits[inst, 7] = it[:, 1]
+    bits[~both, 4] = prim_idx[~both]
     return rec
 
 
@@ -233,30 +258,147 @@ def moller_trumbore(o, d, v0, e1, e2, t_best):
     return hit, t
 
 
-def _leaf_tests(li, first, cnt, recs, o, d, any_hit, t_best, prim, prim_tests):
+def typed_leaf_test(rec, o, d, t_best, typed):
+    """The typed build's test of one non-triangle record per ray (the same
+    operations as csrc/bvh4_traverse.cu's typed leaf step).  rec [K, 12]
+    records of type 1-8, o, d [K, 3], t_best [K]; typed = (q_packed,
+    curve_packed, inst_xf).  Returns (hit, t, windows): hit requires
+    t < t_best; windows [K] counts the curve windows a lane evaluated
+    (0 off curves and on a curve whose box the ray misses)."""
+    from ..core.vecmath import xform_point, xform_vector
+    from ..shapes import quadrics as quad
+    from ..shapes.curve import curve_intersect
+
+    q_packed, curve_packed, inst_xf = typed
+    kind = rec[:, 3]
+    hit = torch.zeros(kind.shape, dtype=torch.bool, device=kind.device)
+    t = torch.full(kind.shape, _INF, dtype=torch.float32, device=kind.device)
+    payload = rec.view(torch.int32)[:, 4].to(torch.int64)
+    windows = torch.zeros(kind.shape, dtype=torch.int64, device=kind.device)
+    # the record types present, in one host read
+    present = torch.bincount(kind.to(torch.int64), minlength=9).tolist()
+    inst = (torch.nonzero(kind == float(TYPE_INSTANCE))[:, 0]
+            if present[TYPE_INSTANCE] else kind.new_zeros(0, dtype=torch.int64))
+    if inst.numel():
+        r = rec[inst]
+        w2i = inst_xf[r.view(torch.int32)[:, 7].to(torch.int64), :12].view(-1, 3, 4)
+        h, ti = moller_trumbore(xform_point(w2i, o[inst]), xform_vector(w2i, d[inst]),
+                                r[:, 0:3], r[:, 4:7], r[:, 8:11], t_best[inst])
+        hit[inst] = h
+        t[inst] = ti
+    for qt in QUADRIC_TYPES:
+        if present[qt]:
+            lanes = torch.nonzero(kind == float(qt))[:, 0]
+            row = q_packed[payload[lanes]]
+            w2o = row[:, :12].view(-1, 3, 4)
+            res = quad.intersect_object(qt, xform_point(w2o, o[lanes]),
+                                        xform_vector(w2o, d[lanes]),
+                                        t_best[lanes], row[:, 12:24])
+            hit[lanes] = res["hit"]
+            t[lanes] = res["t"]
+    if present[TYPE_CURVE]:
+        lanes = torch.nonzero(kind == float(TYPE_CURVE))[:, 0]
+        res = curve_intersect(o[lanes], d[lanes], t_best[lanes],
+                              curve_packed[payload[lanes]])
+        hit[lanes] = res["hit"]
+        t[lanes] = res["t"]
+        windows[lanes] = res["windows"]
+    return hit & (t < t_best), t, windows
+
+
+def _leaf_tests(li, first, cnt, recs, o, d, any_hit, t_best, prim, prim_tests,
+                typed=None):
     """Test the leaves of rays li (first prim, count each) in prim order, as
     the kernels do; updates t_best, prim and prim_tests in place.  Returns
-    the any-hit rays that found a hit and stop."""
+    the any-hit rays that found a hit and stop.  Without `typed` only
+    triangle records are tested, as the triangle-only kernels do, and
+    prim_tests [n] counts them; with it (q_packed, curve_packed, inst_xf)
+    every record type is (_typed_leaf_tests), and prim_tests [n, 10] counts
+    the tests of each record type (columns 0-8) and the curve windows
+    evaluated (column 9)."""
     found = torch.zeros_like(first, dtype=torch.bool)
     if not li.numel():
         return found
+    if typed is not None:
+        return _typed_leaf_tests(li, first, cnt, recs, o, d, any_hit, t_best, prim,
+                                 prim_tests, typed)
     a = any_hit[li]
     for k in range(int(cnt.max())):
         live = (k < cnt) & ~found
         pid = torch.clamp(first + k, max=recs.shape[0] - 1)
         rec = recs[pid]
         is_tri = live & (rec[:, 3] == 0.0)
-        prim_tests[li] += is_tri.to(torch.int64)
         h, t = moller_trumbore(o[li], d[li], rec[:, 0:3], rec[:, 4:7],
                                rec[:, 8:11], t_best[li])
         take = is_tri & h
+        prim_tests[li] += is_tri.to(torch.int64)
         t_best[li] = torch.where(take, torch.where(a, -1e30, t), t_best[li])
         prim[li] = torch.where(take, (first + k).to(torch.int32), prim[li])
         found = found | (take & a)
     return found
 
 
-def _start(o, d, t_max, stack_size):
+def _typed_leaf_tests(li, first, cnt, recs, o, d, any_hit, t_best, prim,
+                      prim_tests, typed):
+    """_leaf_tests of the typed build, with the kernel's results.  Every
+    record but a curve is tested once for the whole leaf against the ray's
+    t_best on entering it: a triangle's, an instanced triangle's and a
+    quadric's test give the same hit and t under any bound above the t
+    they find, so taking them in prim order, each if its t is below t_best
+    then, is the kernel's sequence.  A curve's test is not so (its last
+    passing window sets t), so curves are tested in turn against t_best as
+    it stands."""
+    found = torch.zeros_like(first, dtype=torch.bool)
+    a = any_hit[li]
+    n_k = int(cnt.max())
+    ks = torch.arange(n_k, device=li.device)
+    rec = recs[torch.clamp(first[:, None] + ks, max=recs.shape[0] - 1)]  # [L, K, 12]
+    kind = rec[..., 3]
+    inleaf = ks < cnt[:, None]
+    hit = torch.zeros(kind.shape, dtype=torch.bool, device=li.device)
+    tt = torch.full(kind.shape, _INF, dtype=torch.float32, device=li.device)
+    sel = torch.nonzero(inleaf & (kind != float(TYPE_CURVE)))
+    if sel.numel():
+        r = rec[sel[:, 0], sel[:, 1]]
+        lane = li[sel[:, 0]]
+        bound = t_best[lane]
+        h, t = moller_trumbore(o[lane], d[lane], r[:, 0:3], r[:, 4:7], r[:, 8:11],
+                               bound)
+        is_tri = r[:, 3] == 0.0
+        h = h & is_tri
+        oth = torch.nonzero(~is_tri)[:, 0]
+        if oth.numel():
+            ho, to, _ = typed_leaf_test(r[oth], o[lane[oth]], d[lane[oth]],
+                                        bound[oth], typed)
+            h = h.index_put((oth,), ho)
+            t = t.index_put((oth,), to)
+        hit[sel[:, 0], sel[:, 1]] = h
+        tt[sel[:, 0], sel[:, 1]] = t
+    curves = bool((inleaf & (kind == float(TYPE_CURVE))).any())
+    for k in range(n_k):
+        live = inleaf[:, k] & ~found
+        h, t = hit[:, k], tt[:, k]
+        counts = torch.zeros((li.shape[0], 10), dtype=torch.int64, device=li.device)
+        counts.scatter_(1, torch.where(live, kind[:, k].to(torch.int64), 9)[:, None], 1)
+        counts[:, 9] = 0
+        if curves:
+            cv = torch.nonzero(live & (kind[:, k] == float(TYPE_CURVE)))[:, 0]
+            if cv.numel():
+                lo = li[cv]
+                hc, tc, wc = typed_leaf_test(rec[cv, k], o[lo], d[lo], t_best[lo],
+                                             typed)
+                h = h.index_put((cv,), hc)
+                t = t.index_put((cv,), tc)
+                counts[cv, 9] = wc
+        prim_tests[li] += counts
+        take = live & h & (t < t_best[li])
+        t_best[li] = torch.where(take, torch.where(a, -1e30, t), t_best[li])
+        prim[li] = torch.where(take, (first + k).to(torch.int32), prim[li])
+        found = found | (take & a)
+    return found
+
+
+def _start(o, d, t_max, stack_size, typed=False):
     """Per-ray state shared by both plain versions."""
     n = o.shape[0]
     dev = o.device
@@ -266,7 +408,9 @@ def _start(o, d, t_max, stack_size):
         prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
         inv=1.0 / torch.where(d == 0.0, 1e-30, d),
         stack=torch.zeros((n, stack_size), dtype=torch.int64, device=dev),
-        sp=z, entry=z.clone(), node_visits=z.clone(), prim_tests=z.clone(),
+        sp=z, entry=z.clone(), node_visits=z.clone(),
+        prim_tests=(torch.zeros((n, 10), dtype=torch.int64, device=dev) if typed
+                    else z.clone()),
         active=t_max > 0.0)
 
 
@@ -296,11 +440,13 @@ def _result(st, return_counts):
     return st["t_best"], st["prim"]
 
 
-def _in_order(plain, order, nodes, tris, o, d, t_max, mode, return_counts):
+def _in_order(plain, order, nodes, tris, o, d, t_max, mode, return_counts,
+              **kw):
     """`plain` on the rays taken in `order` (a permutation), each output
     scattered back to its ray's place, as the kernels read and write."""
     idx = order.to(torch.int64)
-    res = plain(nodes, tris, o[idx], d[idx], t_max[idx], mode[idx], return_counts)
+    res = plain(nodes, tris, o[idx], d[idx], t_max[idx], mode[idx], return_counts,
+                **kw)
     out = []
     for r in res:
         back = torch.empty_like(r)
@@ -310,19 +456,21 @@ def _in_order(plain, order, nodes, tris, o, d, t_max, mode, return_counts):
 
 
 def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
-                        order=None):
+                        order=None, typed=None):
     """The bvh4 kernel's function in plain PyTorch: one loop step advances
     every unfinished ray by one node or leaf visit.  order (int32 [n], None =
-    the identity) is the kernel's work list.  Returns (t, prim) or, with
+    the identity) is the kernel's work list.  typed = (q_packed,
+    curve_packed, inst_xf) is the typed build's function (every record type
+    tested), None the triangle-only build's.  Returns (t, prim) or, with
     return_counts, (t, prim, node_visits, prim_tests)."""
     if order is not None:
         return _in_order(bvh4_traverse_plain, order, nodes, tris, o, d, t_max,
-                         mode, return_counts)
+                         mode, return_counts, typed=typed)
     rows_f = nodes.view(-1, 32)
     rows_i = nodes.view(torch.int32).view(-1, 32)
     recs = tris.view(-1, 12)
     any_hit = mode > 0.0
-    st = _start(o, d, t_max, STACK_SIZE)
+    st = _start(o, d, t_max, STACK_SIZE, typed is not None)
     t_best, prim, inv, entry = st["t_best"], st["prim"], st["inv"], st["entry"]
     while bool(st["active"].any()):
         idx = torch.nonzero(st["active"])[:, 0]
@@ -333,7 +481,7 @@ def bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, return_counts=False,
 
         le = e[leaf]
         found = _leaf_tests(idx[leaf], le & 0xFFFFFF, (le >> 24) & 0x7F, recs,
-                            o, d, any_hit, t_best, prim, st["prim_tests"])
+                            o, d, any_hit, t_best, prim, st["prim_tests"], typed)
         finished[leaf] = found
         pop[leaf] = ~found
 
@@ -477,9 +625,10 @@ def record_calls():
 
 
 def _traverse(kernel, width, stack_need, stack_size, plain,
-              nodes, tris, o, d, t_max, mode, order):
-    """Shared body of the two wrappers: record, check, then the plain
-    version for CPU tensors or one launch of `kernel` for CUDA tensors."""
+              nodes, tris, o, d, t_max, mode, order, typed=None):
+    """Shared body of the wrappers: record, check, then the plain version
+    for CPU tensors or one launch of `kernel` for CUDA tensors (its typed
+    entry point `<kernel>_typed` with the typed tables)."""
     for calls in _recorders:
         calls.append(tuple(None if x is None else x.clone()
                            for x in (o, d, t_max, mode, order)))
@@ -492,8 +641,12 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
     _check("mode", mode, torch.float32, (n,))
     if order is not None:
         _check("order", order, torch.int32, (n,))
-    devs = {x.device for x in (nodes, tris, o, d, t_max, mode, order)
-            if x is not None}
+    if typed is not None:
+        for name, x, w in zip(("q_packed", "curve_packed", "inst_xf"), typed,
+                              (24, 28, 24)):
+            _check(name, x, torch.float32, (x.shape[0], w))
+    devs = {x.device for x in (nodes, tris, o, d, t_max, mode, order,
+                               *(typed or ())) if x is not None}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     if stack_need > stack_size:
@@ -501,6 +654,8 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
                          f"entries; the kernel has {stack_size}")
     dev = o.device
     if dev.type == "cpu":
+        if typed is not None:
+            return plain(nodes, tris, o, d, t_max, mode, order=order, typed=typed)
         return plain(nodes, tris, o, d, t_max, mode, order=order)
     if dev.type != "cuda":
         raise NotImplementedError(f"{kernel} on {dev.type} tensors")
@@ -513,16 +668,18 @@ def _traverse(kernel, width, stack_need, stack_size, plain,
     prim_out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t_out, prim_out
+    tables = [] if typed is None else [x.data_ptr() for x in typed]
+    name = kernel if typed is None else f"{kernel}_typed"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, kernel)(
-            nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), mode.data_ptr(),
+        err = getattr(lib, name)(
+            nodes.data_ptr(), tris.data_ptr(), *tables, o.data_ptr(),
+            d.data_ptr(), t_max.data_ptr(), mode.data_ptr(),
             None if order is None else order.data_ptr(), t_out.data_ptr(),
             prim_out.data_ptr(), n, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return t_out, prim_out
 
 
@@ -546,6 +703,30 @@ def bvh4_traverse(nodes, tris, o, d, t_max, mode, depth: int, order=None):
 
 
 bvh4_traverse.launches = 0
+
+
+def bvh4_traverse_typed(nodes, tris, q_packed, curve_packed, inst_xf, o, d,
+                        t_max, mode, depth: int, order=None):
+    """bvh4_traverse's typed build: the same tree, stack, work list, dead
+    and any-hit lanes, but every leaf record is tested by its type:
+    triangles (Moller-Trumbore, as the triangle-only build), instanced
+    triangles (the ray moved into the instance's object space by its
+    inst_xf row, d not renormalised), the six quadrics (the object-space
+    tests of shapes/quadrics.py on the record's q_packed row) and curves
+    (shapes/curve.py's 16-window sweep on its curve_packed row).
+    q_packed [Q, 24], curve_packed [C, 28], inst_xf [I, 24] f32 (a one-row
+    placeholder when the scene has none).  CUDA tensors launch the kernel's
+    typed entry point (counted in bvh4_traverse_typed.launches); CPU
+    tensors run bvh4_traverse_plain(typed=...)."""
+    out = _traverse("bvh4_traverse", 32, 3 * depth, STACK_SIZE,
+                    bvh4_traverse_plain, nodes, tris, o, d, t_max, mode, order,
+                    typed=(q_packed, curve_packed, inst_xf))
+    if o.is_cuda and o.shape[0]:
+        bvh4_traverse_typed.launches += 1
+    return out
+
+
+bvh4_traverse_typed.launches = 0
 
 
 def bvh2_traverse(nodes, tris, o, d, t_max, mode, depth: int, order=None):
@@ -595,26 +776,79 @@ def sort_rays_key(root_min, root_max, o, d, t_max):
 
 
 def kernel_supported(scene) -> bool:
-    """The traversal gate: quadrics are brute-forced, so at most
-    MAX_BRUTE_QUADRICS of them; and the tree of the kernel that will run
-    must fit its stack."""
+    """The JAX package's gate (pallas_bvh.py:861-890): at most
+    MAX_BRUTE_QUADRICS quadrics (brute-forced beside the kernel), no curve,
+    no instanced triangle, and the tree of the kernel that will run fits its
+    stack.  Such scenes take the triangle-only kernels."""
     if use_bvh2():
         fits = scene.bvh2_depth <= BVH2_STACK_SIZE
     else:
         fits = 3 * scene.bvh4_depth <= STACK_SIZE
-    return len(scene.quadric_rows) <= MAX_BRUTE_QUADRICS and fits
+    return (len(scene.quadric_rows) <= MAX_BRUTE_QUADRICS and fits
+            and scene.curve_packed is None and scene.inst_tri is None)
+
+
+def traversal_route(scene) -> str:
+    """"kernel" for a scene inside the gate, "typed" for one past it that
+    the typed build of bvh4 takes; raises NotImplementedError for the rest:
+    a tree deeper than the stack, or a scene past the gate under
+    PBRT_TPU_BVH4=0 (the binary kernel has no typed leaves)."""
+    if kernel_supported(scene):
+        return "kernel"
+    if use_bvh2():
+        if scene.bvh2_depth > BVH2_STACK_SIZE:
+            raise NotImplementedError(
+                f"a binary BVH deeper than {BVH2_STACK_SIZE} levels")
+        raise NotImplementedError(
+            "PBRT_TPU_BVH4=0: scenes with more than "
+            f"{MAX_BRUTE_QUADRICS} quadrics, curves or object instances need "
+            "the typed leaves of the 4-wide kernel; unset PBRT_TPU_BVH4")
+    if 3 * scene.bvh4_depth > STACK_SIZE:
+        raise NotImplementedError(
+            f"a BVH deeper than {STACK_SIZE // 3} 4-wide levels")
+    return "typed"
+
+
+def typed_tables(scene) -> tuple:
+    """(q_packed, curve_packed, inst_xf) for bvh4_traverse_typed, with a
+    one-row placeholder for an absent table."""
+    def table(x, width):
+        if x is not None:
+            return x
+        return torch.zeros((1, width), dtype=torch.float32, device=scene.device)
+
+    return (scene.q_packed, table(scene.curve_packed, 28),
+            table(scene.inst_xf, 24))
+
+
+def quadric_pass(scene, o, d, t, prim):
+    """The brute-force quadric pass of pallas_bvh.py:830-858: every quadric
+    of the scene, in row order, tested against every ray with the kernel's
+    t as its bound; a nearer hit takes the ray."""
+    from ..core.vecmath import xform_point, xform_vector
+    from ..shapes.quadrics import intersect_object
+
+    for qi, prim_row, qtype in scene.quadric_rows:
+        row = scene.q_packed[qi]
+        w2o = row[:12].view(3, 4)
+        s = intersect_object(qtype, xform_point(w2o, o), xform_vector(w2o, d), t,
+                             row[12:24])
+        take = s["hit"] & (s["t"] < t)
+        t = torch.where(take, s["t"], t)
+        prim = torch.where(take, prim_row, prim)
+    return t, prim
 
 
 def intersect_kernel_with_quadrics(scene, o, d, t_max, any_mask=None):
-    """Closest hit through bvh4_traverse (or bvh2_traverse under
-    PBRT_TPU_BVH4=0) plus the brute-force quadric pass.  Returns (t [n],
-    prim [n]); any-mask lanes stop at their first hit and only prim >= 0
-    means anything for them.  The kernel takes the rays in sorted order
-    (live first, then by coherence) through `order` and writes each result
-    in its ray's place; the order changes speed, never results."""
-    from ..shapes.quadrics import intersect_sphere_object
-    from ..core.vecmath import xform_point, xform_vector
-
+    """Closest hit (t [n], prim [n]); any-mask lanes stop at their first
+    hit and only prim >= 0 means anything for them.  A scene inside the gate
+    goes through bvh4_traverse (or bvh2_traverse under PBRT_TPU_BVH4=0) plus
+    the brute-force quadric pass; one past it through bvh4_traverse_typed,
+    which tests every primitive in the leaves.  The kernel takes the rays in
+    sorted order (live first, then by coherence) through `order` and writes
+    each result in its ray's place; the order changes speed, never
+    results."""
+    route = traversal_route(scene)
     n = o.shape[0]
     dev = o.device
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
@@ -626,21 +860,15 @@ def intersect_kernel_with_quadrics(scene, o, d, t_max, any_mask=None):
     with record_function("layer: traversal / key and argsort"):
         key = sort_rays_key(scene.bvh_min[0], scene.bvh_max[0], o, d, tm)
         order = torch.argsort(key, stable=True).to(torch.int32)
+    if route == "typed":
+        return bvh4_traverse_typed(scene.bvh4_nodes, scene.prim_tris,
+                                   *typed_tables(scene), o, d, tm, mode,
+                                   scene.bvh4_depth, order)
     if use_bvh2():
         t, prim = bvh2_traverse(scene.bvh2_nodes, scene.prim_tris, o, d, tm,
                                 mode, scene.bvh2_depth, order)
     else:
         t, prim = bvh4_traverse(scene.bvh4_nodes, scene.prim_tris, o, d, tm,
                                 mode, scene.bvh4_depth, order)
-    with record_function("layer: traversal / sphere pass"):
-        for qi, prim_row in scene.quadric_rows:
-            row = scene.q_packed[qi]
-            w2o = row[:12].view(3, 4)
-            par = row[12:16]
-            oo = xform_point(w2o, o)
-            od = xform_vector(w2o, d)
-            s = intersect_sphere_object(oo, od, t, par[0], par[1], par[2], par[3])
-            take = s["hit"] & (s["t"] < t)
-            t = torch.where(take, s["t"], t)
-            prim = torch.where(take, prim_row, prim)
-    return t, prim
+    with record_function("layer: traversal / quadric pass"):
+        return quadric_pass(scene, o, d, t, prim)

@@ -9,9 +9,11 @@ paths.  The traversal kernels run under no_grad (accel/traverse.py), and
 hit_record re-derives the hit differentiably for the fixed prim id, so the
 gradient is the exact derivative of the render at a fixed sample sequence.
 
-The step runs on every material, light, texture, camera and sampler the
-port renders, each held against the JAX package's step on the CPU
-(tests/test_torch_grad_*.py).  It refuses the three steps the JAX package
+The step runs on every material, light, texture, camera, sampler and
+shape the port renders (quadrics, instances and curves since slice 12:
+hit_record makes each shape type's record on that type's lanes alone, so
+no other row's parameters reach the backward), each held against the JAX
+package's step on the CPU (tests/test_torch_grad_*.py).  It refuses the three steps the JAX package
 cannot take (_refuse_unchecked): the realistic camera's camera leaves, the
 random sampler with remat, and the exact sampler mode.  As in the JAX
 package it passes no ray differentials, so textures are looked up at level

@@ -106,6 +106,7 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
         "rays_traced": st.ray_total(counters),
         "phases": dict(timer.acc),
         "render_cpu_s": render_cpu_s,
+        "setup_split": dict(setup.scene_builder.timings),
         "profile": timer.report(),
     }
     return img, stats

@@ -5,7 +5,12 @@ Port of pbrt_tpu/scene.py (SceneBuilder, SceneArrays, statics.py) for the
 shapes, materials, lights and textures of the path and direct-lighting
 integrators:
 
-* shapes: triangle meshes and spheres;
+* shapes: triangle meshes, the six quadrics (sphere, cylinder, disk, cone,
+  paraboloid, hyperboloid), procedural cubic curves (shapes/curve.py) and
+  instanced triangle meshes (a shared object-space template, one
+  SHAPE_TRIANGLE_INST primitive per triangle and instance, the instance's
+  world-to-object and object-to-world rows in ``inst_xf``); area lights on
+  spheres and triangle meshes only;
 * materials: matte, plastic, mirror, glass (smooth and rough), metal,
   substrate, uber (with its opacity), translucent, mix, disney, hair,
   fourier (one table per .bsdf file) and subsurface (one beam-diffusion
@@ -32,6 +37,7 @@ the JAX builder builds both of its own (pbrt_tpu/scene.py:965-966).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -47,6 +53,15 @@ from .textures.textures import HostTextureTable, TextureTable, texture_meta
 
 SHAPE_TRIANGLE = 0
 SHAPE_SPHERE = 1
+SHAPE_CYLINDER = 2
+SHAPE_DISK = 3
+SHAPE_CONE = 4
+SHAPE_PARABOLOID = 5
+SHAPE_HYPERBOLOID = 6
+SHAPE_CURVE = 7  # procedural cubic Bezier curve, a row of curve_packed
+SHAPE_TRIANGLE_INST = 8  # instanced triangle: a row of inst_tri
+QUADRIC_SHAPES = (SHAPE_SPHERE, SHAPE_CYLINDER, SHAPE_DISK, SHAPE_CONE,
+                  SHAPE_PARABOLOID, SHAPE_HYPERBOLOID)
 
 LIGHT_POINT = 0
 LIGHT_SPOT = 1
@@ -84,7 +99,13 @@ SUPPORTED_LIGHTS = {LIGHT_POINT: "point", LIGHT_SPOT: "spot",
                     LIGHT_DISTANT: "distant", LIGHT_AREA: "diffuse area",
                     LIGHT_INFINITE: "infinite", LIGHT_PROJECTION: "projection",
                     LIGHT_GONIO: "goniometric"}
-SUPPORTED_SHAPES = {SHAPE_TRIANGLE: "triangle", SHAPE_SPHERE: "sphere"}
+SUPPORTED_SHAPES = {SHAPE_TRIANGLE: "triangle", SHAPE_SPHERE: "sphere",
+                    SHAPE_CYLINDER: "cylinder", SHAPE_DISK: "disk",
+                    SHAPE_CONE: "cone", SHAPE_PARABOLOID: "paraboloid",
+                    SHAPE_HYPERBOLOID: "hyperboloid", SHAPE_CURVE: "curve",
+                    SHAPE_TRIANGLE_INST: "instanced triangle"}
+# the shapes an area light can sit on
+EMISSIVE_SHAPES = {SHAPE_TRIANGLE: "triangle", SHAPE_SPHERE: "sphere"}
 
 # texture-bound material columns the port evaluates
 TEXTURE_COLUMNS = ("kd_tex", "ks_tex", "sigma_tex", "rough_tex", "opacity_tex")
@@ -109,6 +130,8 @@ SCENE_FIELDS = ("bvh_min", "bvh_max", "bvh_offset", "bvh_nprims", "bvh_axis",
                 "q_type", "q_w2o", "q_o2w", "q_params", "q_rev", "q_packed",
                 "q_prim_id")
 MEDIUM_ID_FIELDS = ("prim_medium_inside", "prim_medium_outside", "camera_medium")
+# present with a curve or an instanced mesh, None otherwise
+GEOMETRY_FIELDS = ("curve_packed", "inst_xf", "inst_tri")
 # bump_tex is a column of the JAX package's table that no code of its
 # materials or integrators applies; a scene that binds it is refused
 _REFUSED_TEXTURE_COLUMNS = ("bump_tex",)
@@ -230,7 +253,7 @@ class SceneArrays:
     # GPU traversal tables (ops/bvh.py)
     bvh4_nodes: torch.Tensor  # [M4, 32] f32
     bvh2_nodes: torch.Tensor  # [M2, 16] f32, one row per interior node + 1
-    prim_tris: torch.Tensor  # [P, 12] f32
+    prim_tris: torch.Tensor  # [P, 12] f32, one 48-byte record a primitive
     materials: MaterialTable
     lights: LightTable
     light_distr: smp.Distribution1D
@@ -240,7 +263,8 @@ class SceneArrays:
     mat_types: tuple
     light_types: tuple
     quadric_types: tuple
-    quadric_rows: tuple  # ((quadric index, prim row), ...) for the quadric pass
+    quadric_rows: tuple  # ((quadric index, prim row, shape type), ...) for
+    #   the brute-force quadric pass
     env_light_idx: int = -1  # the light row of the env map, -1 none
     mix_sub_types: tuple = ()  # the types of the mix materials' materials
     textures: Optional[TextureTable] = None
@@ -269,6 +293,10 @@ class SceneArrays:
     bssrdf_profile: Optional[torch.Tensor] = None  # [K * 100, 64]
     bssrdf_cdf: Optional[torch.Tensor] = None  # [K * 100, 64]
     bssrdf_rho_eff: Optional[torch.Tensor] = None  # [K * 100]
+    # procedural curves and instanced meshes (None without)
+    curve_packed: Optional[torch.Tensor] = None  # [C, 28] f32
+    inst_xf: Optional[torch.Tensor] = None  # [I, 24] f32 w2i rows | i2w rows
+    inst_tri: Optional[torch.Tensor] = None  # [IT, 2] i32 (template row, instance)
 
     @property
     def device(self) -> torch.device:
@@ -306,10 +334,14 @@ class SceneArrays:
         _refuse(prim_types, SUPPORTED_SHAPES, "shape type")
         area = np.asarray(lights["light_type"]) == LIGHT_AREA
         _refuse(tuple(np.asarray(lights["shape_type"])[area].tolist()),
-                SUPPORTED_SHAPES, "area light shape")
-        for key in ("kd_nodes", "curve_packed", "inst_tri"):
-            if fields.get(key) is not None:
-                raise NotImplementedError(f"scenes with {key}")
+                EMISSIVE_SHAPES, "area light shape")
+        if fields.get("kd_nodes") is not None:
+            raise NotImplementedError("scenes with kd_nodes")
+        geo = {k: fields.get(k) for k in GEOMETRY_FIELDS}
+        for key, ptype in (("curve_packed", SHAPE_CURVE),
+                           ("inst_tri", SHAPE_TRIANGLE_INST)):
+            if ptype in prim_types and geo[key] is None:
+                raise ValueError(f"{SUPPORTED_SHAPES[ptype]} primitives without {key}")
         media = _media_fields(fields)
 
         rows, depth = build_bvh4_table(fields["bvh_min"], fields["bvh_max"],
@@ -319,7 +351,7 @@ class SceneArrays:
                                          fields["bvh_offset"],
                                          fields["bvh_nprims"], fields["bvh_axis"])
         recs = build_prim_records(prim_meta[:, 0], prim_meta[:, 1],
-                                  fields["tri_verts"])
+                                  fields["tri_verts"], geo["inst_tri"])
         q_prim = np.asarray(fields["q_prim_id"])
         out = {k: torch.as_tensor(np.asarray(fields[k]), device=device)
                for k in SCENE_FIELDS}
@@ -343,8 +375,8 @@ class SceneArrays:
             mix_sub_types=_mix_sub_types(mats),
             light_types=light_types,
             quadric_types=tuple(t for t in prim_types if t != SHAPE_TRIANGLE),
-            quadric_rows=tuple((int(qi), int(r)) for qi, r in enumerate(q_prim)
-                               if r >= 0),
+            quadric_rows=tuple((int(qi), int(r), int(prim_meta[r, 0]))
+                               for qi, r in enumerate(q_prim) if r >= 0),
             prim_medium_inside=torch.as_tensor(media["prim_medium_inside"],
                                                device=device),
             prim_medium_outside=torch.as_tensor(media["prim_medium_outside"],
@@ -354,7 +386,8 @@ class SceneArrays:
             medium_types=media["medium_types"],
             has_media=media["has_media"],
             **{k: torch.as_tensor(np.asarray(fields[k]), device=device)
-               for k in BSSRDF_FIELDS if fields.get(k) is not None},
+               for k in BSSRDF_FIELDS + GEOMETRY_FIELDS
+               if fields.get(k) is not None},
         )
 
 
@@ -485,12 +518,19 @@ class SceneBuilder:
         self._n_verts = 0
         self._n_tris = 0
         self.quadrics: list[tuple] = []
+        self.curves: list[np.ndarray] = []  # curve_packed rows
+        self.instances: list[np.ndarray] = []  # inst_xf rows
+        self.inst_tri: list[np.ndarray] = []  # [k, 2] (template row, instance)
+        self._template: Optional[list] = None  # the mesh template in capture
         self.materials: list[dict] = []
         self.lights: list[dict] = []
         self.light_strategy = "uniform"  # "uniform" | "power"
         self.textures = HostTextureTable()
         self.media = HostMediumTable()
         self.camera_medium = -1
+        # host seconds of set-up steps, by name ("BVH build"; the scene
+        # reader adds "loop subdivision", "NURBS" and "instancing")
+        self.timings: dict = {}
 
     # -- materials --
     def add_material(self, mat_type: int = MAT_MATTE, **params) -> int:
@@ -536,6 +576,14 @@ class SceneBuilder:
         self.tri_has_n.append(np.full(nt, n is not None))
         self.tri_has_uv.append(np.full(nt, uv is not None))
         tri_v = p[indices]
+        if self._template is not None:
+            self._template.append(dict(
+                t0=self._n_tris, nt=nt, verts=tri_v, material=material,
+                arealight=arealight, medium_inside=medium_inside,
+                medium_outside=medium_outside))
+            self._n_verts += nv
+            self._n_tris += nt
+            return
         self.blocks.append(_PrimBlock(
             SHAPE_TRIANGLE, np.arange(self._n_tris, self._n_tris + nt),
             material, np.full(nt, arealight), tri_v.min(1), tri_v.max(1),
@@ -543,29 +591,187 @@ class SceneBuilder:
         self._n_verts += nv
         self._n_tris += nt
 
+    def add_quadric(self, q_type: int, object_to_world: tf.Transform, params,
+                    material: int = -1, arealight: int = -1,
+                    reverse_orientation: bool = False, medium_inside: int = -1,
+                    medium_outside: int = -1) -> int:
+        """One quadric (pbrt_tpu/scene.py:463-521): params are its q_params
+        (see shapes/quadrics.py), its world bounds the 8 transformed
+        corners of its object bounds.  Area lights sit on spheres only:
+        the JAX package drops the emission of the others."""
+        if arealight >= 0 and q_type != SHAPE_SPHERE:
+            raise NotImplementedError(
+                f"an emissive {SUPPORTED_SHAPES[q_type]} (the JAX package drops "
+                "its AreaLightSource; the port refuses it)")
+        _refuse((q_type,), {k: SUPPORTED_SHAPES[k] for k in QUADRIC_SHAPES},
+                "quadric type")
+        qi = len(self.quadrics)
+        rev = bool(reverse_orientation) ^ object_to_world.swaps_handedness()
+        self.quadrics.append((q_type, object_to_world,
+                              np.asarray(params, np.float32), rev))
+        params = np.asarray(params, np.float64)  # the bounds' values
+        r = float(params[0])
+        if q_type in (SHAPE_SPHERE, SHAPE_CYLINDER, SHAPE_PARABOLOID):
+            omin = np.array([-r, -r, float(params[1])])
+            omax = np.array([r, r, float(params[2])])
+        elif q_type == SHAPE_CONE:
+            omin = np.array([-r, -r, 0.0])
+            omax = np.array([r, r, float(params[1])])
+        elif q_type == SHAPE_HYPERBOLOID:
+            r = max(float(np.hypot(params[5], params[6])),
+                    float(np.hypot(params[8], params[9])))
+            omin = np.array([-r, -r, float(params[2])])
+            omax = np.array([r, r, float(params[3])])
+        else:  # disk
+            h = float(params[2])
+            omin = np.array([-r, -r, h - 1e-4])
+            omax = np.array([r, r, h + 1e-4])
+        corners = np.array([[x, y, z] for x in (omin[0], omax[0])
+                            for y in (omin[1], omax[1])
+                            for z in (omin[2], omax[2])], np.float32)
+        wc = object_to_world.apply_point(corners)
+        self.blocks.append(_PrimBlock(q_type, np.array([qi]), material,
+                                      np.array([arealight]), wc.min(0)[None],
+                                      wc.max(0)[None], medium_inside,
+                                      medium_outside))
+        return qi
+
     def add_sphere(self, object_to_world: tf.Transform, radius, material=-1,
                    arealight=-1, zmin=None, zmax=None, phimax_deg=360.0,
                    reverse_orientation=False, medium_inside=-1,
                    medium_outside=-1) -> int:
         zmin = -radius if zmin is None else zmin
         zmax = radius if zmax is None else zmax
-        params = np.asarray((radius, zmin, zmax, np.deg2rad(phimax_deg)),
-                            np.float32)
-        qi = len(self.quadrics)
-        rev = bool(reverse_orientation) ^ object_to_world.swaps_handedness()
-        self.quadrics.append((SHAPE_SPHERE, object_to_world, params, rev))
-        r = float(radius)
-        omin = np.array([-r, -r, float(zmin)])
-        omax = np.array([r, r, float(zmax)])
-        corners = np.array([[x, y, z] for x in (omin[0], omax[0])
-                            for y in (omin[1], omax[1])
-                            for z in (omin[2], omax[2])], np.float32)
-        wc = object_to_world.apply_point(corners)
-        self.blocks.append(_PrimBlock(SHAPE_SPHERE, np.array([qi]), material,
-                                      np.array([arealight]), wc.min(0)[None],
-                                      wc.max(0)[None], medium_inside,
-                                      medium_outside))
-        return qi
+        return self.add_quadric(
+            SHAPE_SPHERE, object_to_world,
+            (radius, zmin, zmax, np.deg2rad(phimax_deg)), material, arealight,
+            reverse_orientation, medium_inside, medium_outside)
+
+    def add_cone(self, object_to_world, radius, height, material=-1,
+                 phimax_deg=360.0, reverse_orientation=False, medium_inside=-1,
+                 medium_outside=-1) -> int:
+        """shapes/cone.cpp CreateConeShape."""
+        return self.add_quadric(
+            SHAPE_CONE, object_to_world, (radius, height, np.deg2rad(phimax_deg)),
+            material, -1, reverse_orientation, medium_inside, medium_outside)
+
+    def add_paraboloid(self, object_to_world, radius, zmin, zmax, material=-1,
+                       phimax_deg=360.0, reverse_orientation=False,
+                       medium_inside=-1, medium_outside=-1) -> int:
+        """shapes/paraboloid.cpp CreateParaboloidShape."""
+        return self.add_quadric(
+            SHAPE_PARABOLOID, object_to_world,
+            (radius, zmin, zmax, np.deg2rad(phimax_deg)), material, -1,
+            reverse_orientation, medium_inside, medium_outside)
+
+    def add_hyperboloid(self, object_to_world, p1, p2, material=-1,
+                        phimax_deg=360.0, reverse_orientation=False,
+                        medium_inside=-1, medium_outside=-1) -> int:
+        """shapes/hyperboloid.cpp: ah (x^2 + y^2) - ch z^2 = 1 through p1
+        and p2, p1 marched along the segment while the solve is degenerate
+        (the constructor's do/while), as pbrt_tpu/scene.py:561-596."""
+        p1 = np.asarray(p1, np.float64)
+        p2 = np.asarray(p2, np.float64)
+        if p2[2] == 0.0:
+            p1, p2 = p2, p1
+        pp = p1.copy()
+        ah = ch = np.inf
+        for _ in range(64):
+            r1s = pp[0] ** 2 + pp[1] ** 2
+            r2s = p2[0] ** 2 + p2[1] ** 2
+            z1s, z2s = pp[2] ** 2, p2[2] ** 2
+            det = z1s * r2s - r1s * z2s
+            if abs(det) > 1e-12:
+                ah = (z1s - z2s) / det
+                ch = (r1s - r2s) / det
+                if np.isfinite(ah) and np.isfinite(ch):
+                    break
+            pp = pp + 2.0 * (p2 - p1)
+        if not (np.isfinite(ah) and np.isfinite(ch)):
+            raise ValueError("degenerate hyperboloid points")
+        params = (ah, ch, float(min(p1[2], p2[2])), float(max(p1[2], p2[2])),
+                  np.deg2rad(phimax_deg), p1[0], p1[1], p1[2], p2[0], p2[1], p2[2])
+        return self.add_quadric(SHAPE_HYPERBOLOID, object_to_world, params,
+                                material, -1, reverse_orientation,
+                                medium_inside, medium_outside)
+
+    def add_curve(self, cp, width0: float, width1: float,
+                  curve_type: str = "flat", normals=None, object_to_world=None,
+                  material: int = -1, splitdepth: int = 3) -> None:
+        """Procedural curve primitives (shapes/curve.cpp CreateCurveShape,
+        pbrt_tpu/scene.py:598-664): the cubic cp [4, 3] is split into
+        2^splitdepth u-ranges, each split further until its refinement
+        depth fits the test's 16 windows (curve.K_LOG2); normals [2, 3]
+        are a ribbon's end normals."""
+        from .shapes import curve as cv
+
+        cp = np.asarray(cp, np.float32).reshape(4, 3)
+        if object_to_world is not None and not object_to_world.is_identity():
+            cp = object_to_world.apply_point(cp).astype(np.float32)
+            if normals is not None:
+                normals = object_to_world.apply_normal(np.asarray(normals, np.float32))
+        if curve_type not in cv.CURVE_TYPES:
+            raise NotImplementedError(f"curve type {curve_type!r}: the port has "
+                                      f"{sorted(cv.CURVE_TYPES)}")
+        ctype = cv.CURVE_TYPES[curve_type]
+        n_seg = 1 << max(int(splitdepth), 0)
+        ends = [(i / n_seg, (i + 1) / n_seg) for i in range(n_seg)]
+        cps = cv.blossom_cps(cp.astype(np.float64), *np.asarray(ends).T)
+        segs = []
+        for c, (a, b) in zip(cps, ends):
+            segs.extend(cv.split_curve_for_build(c, width0, width1, a, b))
+        rows, bmin, bmax = [], [], []
+        for cp12, u0, u1 in segs:
+            rows.append(cv.pack_curve_rows(
+                cp12[None], width0, width1, u0, u1, ctype,
+                None if normals is None else normals[0:1],
+                None if normals is None else normals[1:2])[0])
+            lo, hi = cv.curve_prim_bounds(cp12, u0, u1, width0, width1)
+            bmin.append(lo)
+            bmax.append(hi)
+        first = len(self.curves)
+        self.curves.extend(rows)
+        k = len(rows)
+        self.blocks.append(_PrimBlock(SHAPE_CURVE, np.arange(first, first + k),
+                                      material, np.full(k, -1), np.stack(bmin),
+                                      np.stack(bmax)))
+
+    # -- instancing (TransformedPrimitive, core/primitive.h:99-127) --
+    def begin_mesh_template(self):
+        """Capture the add_triangle_mesh calls that follow as a template:
+        their rows are stored once, with no primitives."""
+        self._template = []
+
+    def end_mesh_template(self) -> list:
+        t, self._template = self._template, None
+        return t
+
+    def add_mesh_instance(self, template, o2w: tf.Transform) -> int:
+        """One SHAPE_TRIANGLE_INST primitive per template triangle, bounded
+        by the instanced triangle in world space; the rows stay shared and
+        the traversal moves the ray into object space
+        (pbrt_tpu/scene.py:417-462).  An emissive template is refused (the
+        JAX package drops its emission)."""
+        iid = len(self.instances)
+        self.instances.append(np.concatenate([
+            np.asarray(o2w.m_inv, np.float32)[:3].reshape(12),
+            np.asarray(o2w.m, np.float32)[:3].reshape(12)]))
+        for blk in template:
+            if blk["arealight"] >= 0:
+                raise NotImplementedError(
+                    "an emissive mesh inside an object instance (the JAX "
+                    "package drops its emission; the port refuses it)")
+            nt = blk["nt"]
+            vw = o2w.apply_point(blk["verts"].reshape(-1, 3)).reshape(nt, 3, 3)
+            base = sum(len(x) for x in self.inst_tri)
+            self.blocks.append(_PrimBlock(
+                SHAPE_TRIANGLE_INST, np.arange(base, base + nt), blk["material"],
+                np.full(nt, -1), vw.min(1).astype(np.float32),
+                vw.max(1).astype(np.float32), blk["medium_inside"],
+                blk["medium_outside"]))
+            self.inst_tri.append(np.stack([np.arange(blk["t0"], blk["t0"] + nt),
+                                           np.full(nt, iid)], 1))
+        return iid
 
     # -- lights --
     def add_point_light(self, light_to_world: tf.Transform, intensity) -> int:
@@ -690,7 +896,10 @@ class SceneBuilder:
             raise ValueError("scene has no primitives")
         bmin = np.concatenate([b.bmin for b in self.blocks]).astype(np.float32)
         bmax = np.concatenate([b.bmax for b in self.blocks]).astype(np.float32)
+        t0 = time.perf_counter()
         bvh = build_bvh(bmin, bmax, max_prims_in_node, method=bvh_method)
+        self.timings["BVH build"] = (self.timings.get("BVH build", 0.0)
+                                     + time.perf_counter() - t0)
         meta = np.concatenate([
             np.stack([np.full(b.shape_idx.shape, b.shape_type), b.shape_idx,
                       np.full(b.shape_idx.shape, b.material), b.arealight], 1)
@@ -742,12 +951,19 @@ class SceneBuilder:
         q_packed = np.concatenate([q_w2o[:, :3, :].reshape(-1, 12), q_params],
                                   -1).astype(np.float32)
         q_prim_id = np.full(max(len(self.quadrics), 1), -1, np.int32)
-        quad = prim_meta[:, 0] != SHAPE_TRIANGLE
+        quad = np.isin(prim_meta[:, 0], QUADRIC_SHAPES)
         q_prim_id[prim_meta[quad, 1]] = np.nonzero(quad)[0]
+        geometry = dict(
+            curve_packed=(np.stack(self.curves).astype(np.float32)
+                          if self.curves else None),
+            inst_xf=(np.stack(self.instances).astype(np.float32)
+                     if self.instances else None),
+            inst_tri=(np.concatenate(self.inst_tri).astype(np.int32)
+                      if self.inst_tri else None))
         light_table, light_distr = self._build_lights(bmin, bmax)
         materials, bssrdf_tables = self._build_materials()
         return dict(
-            **bssrdf_tables,
+            **bssrdf_tables, **geometry,
             bvh_min=bvh.nodes_min, bvh_max=bvh.nodes_max,
             bvh_offset=bvh.offset, bvh_nprims=bvh.n_prims, bvh_axis=bvh.axis,
             prim_meta=prim_meta, tri_indices=tri_indices, tri_p=tri_p,

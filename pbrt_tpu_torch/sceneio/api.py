@@ -7,12 +7,11 @@ and direct-lighting integrators render:
   systems (api.cpp:899-1186);
 * ``Camera "perspective"`` and ``"orthographic"`` (with ``lensradius``/
   ``focaldistance``), ``"environment"`` and ``"realistic"`` (``lensfile``,
-  ``filmdiag``, ``focusdistance``; a lens file that cannot be read falls
-  back to the built-in 50 mm double Gauss with a warning, as in the JAX
-  package), the image film, the box, triangle, gaussian, mitchell and
-  sinc filters with their parameters, the halton, sobol, random,
-  stratified, zerotwosequence ("lowdiscrepancy") and maxmin samplers,
-  ``Integrator "path"`` and ``"directlighting"``;
+  resolved against the scene file's directory, ``filmdiag``,
+  ``focusdistance``), the image film, the box, triangle, gaussian, mitchell
+  and sinc filters with their parameters, the halton, sobol, random,
+  stratified, zerotwosequence ("lowdiscrepancy") and maxmin ("maxmindist")
+  samplers, ``Integrator "path"`` and ``"directlighting"``;
 * matte, plastic, mirror, glass, metal (copper by default), substrate,
   uber, translucent, mix, disney, hair, fourier (a .bsdf file beside the
   scene), subsurface (its own coefficients or a measured "name") and
@@ -24,30 +23,44 @@ and direct-lighting integrators render:
 * point, spot, distant, projection and goniometric lights, infinite
   lights (constant or with ``mapname``) and diffuse area lights on
   triangle meshes and spheres;
-* ``trianglemesh``, ``sphere`` and ``plymesh`` shapes;
+* every pbrt-v3 shape: ``trianglemesh``, ``plymesh``, the six quadrics
+  (``sphere``, ``disk``, ``cylinder``, ``cone``, ``paraboloid``,
+  ``hyperboloid``), ``heightfield``, ``loopsubdiv`` and ``nurbs`` (made
+  into triangle meshes on the host) and cubic Bezier ``curve``s (flat,
+  ribbon, cylinder); ``ObjectBegin``/``ObjectEnd``/``ObjectInstance``
+  (mesh shapes shared by the instances, quadrics and curves made again
+  under each instance's transform);
+* spectra given as rgb/color, ``spectrum`` (pairs or an .spd file) or
+  ``blackbody`` (sceneio/paramset.py);
 * ``MakeNamedMedium`` (homogeneous and heterogeneous) and
   ``MediumInterface``: in the options block it sets the camera's medium,
   in the world block the media of the shapes that follow (non-emissive
-  trianglemeshes and spheres, as in the JAX package: a plymesh or an
-  emissive shape gets none);
+  trianglemeshes and spheres, cones, paraboloids and hyperboloids, as in
+  the JAX package: a plymesh, a disk, a cylinder, a mesh shape made on the
+  host, a curve or an emissive shape gets none);
 * ``Integrator "volpath"``, ``"whitted"`` and ``"ao"``.
 
-Everything else raises NotImplementedError naming what is missing:
-instancing, other shapes, lights, materials, medium types, texture classes
-and mappings, and kd-trees.  Unlike the JAX package, nothing degrades to a
-stand-in: a missing image file raises, and so do a mix naming an unknown
-or a mix material, a spot light's "from" or "to" (which the JAX package
-does not read), a fourier material without "bsdffile" and a subsurface
-"name" the measured table lacks.
+Everything else raises NotImplementedError naming what is missing: other
+lights, materials, medium types, texture classes and mappings, and
+kd-trees.  Unlike the JAX package, nothing degrades to a stand-in: a
+missing image or lens file raises, and so do a mix naming an unknown or a
+mix material, a spot light's "from" or "to" (which the JAX package does not
+read), a fourier material without "bsdffile", a subsurface "name" the
+measured table lacks, an area light on a shape other than a trianglemesh
+or a sphere or on a mesh inside an object, a curve of another degree or
+basis, a ribbon chain of several segments with more than two normals, xyz
+spectra, and stratified's xsamples, ysamples and jitter.
 
 Output: ``RenderSetup``, everything render.py needs.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
 import os
+import time
 
 import numpy as np
 
@@ -56,6 +69,28 @@ from ..core import transform as tf
 from .paramset import ParamSet
 
 log = logging.getLogger("pbrt_tpu_torch")
+
+# the shapes made into triangle meshes on the host, which instancing shares
+_MESH_SHAPES = ("trianglemesh", "plymesh", "loopsubdiv", "heightfield", "nurbs")
+_SHAPES = ("trianglemesh", "sphere", "disk", "cylinder", "cone", "paraboloid",
+           "hyperboloid", "loopsubdiv", "heightfield", "plymesh", "curve",
+           "nurbs")
+
+
+def heightfield_mesh(nu: int, nv: int, pz):
+    """Shape "heightfield" (heightfield.cpp, pbrt_tpu/sceneio/api.py:
+    841-864): nu x nv heights over the unit square, two triangles a cell.
+    Returns (indices, P, uv)."""
+    xs, ys = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv))
+    p = np.stack([xs.ravel(), ys.ravel(), np.asarray(pz)], -1)
+    qi, qj = np.meshgrid(np.arange(nu - 1), np.arange(nv - 1), indexing="xy")
+    v00 = (qj * nu + qi).ravel()
+    v10 = v00 + 1
+    v01 = v00 + nu
+    v11 = v01 + 1
+    idx = np.concatenate([np.stack([v00, v10, v11], -1),
+                          np.stack([v00, v11, v01], -1)])
+    return idx, p, np.stack([xs.ravel(), ys.ravel()], -1)
 
 
 @dataclasses.dataclass
@@ -73,6 +108,7 @@ class RenderSetup:
     filter_name: str = "box"
     filter_params: ParamSet = None
 
+    cwd: str = "."  # the scene file's directory
     _scene_cache: object = None
 
     def build_scene(self, device="cuda"):
@@ -113,10 +149,13 @@ class RenderSetup:
             lens_data = None
             lf = p.find_one_string("lensfile", "")
             if lf:
+                path = lf if os.path.isabs(lf) else os.path.join(self.cwd, lf)
                 try:
-                    lens_data = np.loadtxt(lf, comments="#")
-                except Exception:
-                    log.warning("lensfile %r unreadable; using 50mm dgauss", lf)
+                    lens_data = np.loadtxt(path, comments="#")
+                except (OSError, ValueError) as e:
+                    raise NotImplementedError(
+                        f"lensfile {lf!r} cannot be read ({e}); the JAX "
+                        "package falls back to a 50 mm double Gauss") from e
             return cameras.make_realistic_camera(
                 c2w, self.resolution, lens_data=lens_data,
                 film_diag_mm=p.find_one_float("filmdiag", 35.0),
@@ -153,8 +192,15 @@ class RenderSetup:
         from ..samplers.samplers import SamplerConfig
 
         p = self.sampler_params or ParamSet()
-        name = {"lowdiscrepancy": "zerotwosequence"}.get(self.sampler_name,
-                                                         self.sampler_name)
+        name = {"lowdiscrepancy": "zerotwosequence", "maxmindist": "maxmin"}.get(
+            self.sampler_name, self.sampler_name)
+        if name == "stratified":
+            given = [k for k in ("xsamples", "ysamples", "jitter") if k in p.keys()]
+            if given:
+                raise NotImplementedError(
+                    f"stratified sampler {given}: the port draws pixelsamples "
+                    "jittered strata as the JAX package does, which ignores "
+                    "these")
         exact = (os.environ.get("PBRT_TPU_EXACT_SAMPLER", "0") == "1"
                  and (name == "halton" or name in PIXEL_EXACT_SAMPLERS))
         return SamplerConfig(name, p.find_one_int("pixelsamples", 16),
@@ -213,6 +259,9 @@ class PbrtApi:
         self.cwd = "."
         self.in_world = False
         self.named_media: dict = {}
+        self.objects: dict = {}  # name -> [(shape, params, o2w, material, gs)]
+        self.current_object = None
+        self._mesh_templates: dict = {}
         # Default material: matte (api.cpp GraphicsState constructor).
         self.gs.material = self.setup.scene_builder.add_material(
             sc.MAT_MATTE, kd=(0.5, 0.5, 0.5))
@@ -258,25 +307,25 @@ class PbrtApi:
     # ---- options directives ----
     def camera(self, name, params):
         self.setup.camera_name = name
-        self.setup.camera_params = ParamSet.from_decls(params)
+        self.setup.camera_params = ParamSet.from_decls(params, self.cwd)
         self.setup.camera_to_world = self.ctm.inverse
         self.named_coordinate_systems["camera"] = self.ctm.inverse
 
     def film(self, name, params):
         self.setup.film_name = name
-        self.setup.film_params = ParamSet.from_decls(params)
+        self.setup.film_params = ParamSet.from_decls(params, self.cwd)
 
     def sampler(self, name, params):
         self.setup.sampler_name = name
-        self.setup.sampler_params = ParamSet.from_decls(params)
+        self.setup.sampler_params = ParamSet.from_decls(params, self.cwd)
 
     def integrator(self, name, params):
         self.setup.integrator_name = name
-        self.setup.integrator_params = ParamSet.from_decls(params)
+        self.setup.integrator_params = ParamSet.from_decls(params, self.cwd)
 
     def filter(self, name, params):
         self.setup.filter_name = name
-        self.setup.filter_params = ParamSet.from_decls(params)
+        self.setup.filter_params = ParamSet.from_decls(params, self.cwd)
 
     pixel_filter = filter
 
@@ -314,7 +363,7 @@ class PbrtApi:
     def texture(self, name, ttype, tclass, params):
         """The texture row is made at declaration, so children precede
         their parents in the table."""
-        tid = self._make_texture(tclass, ParamSet.from_decls(params))
+        tid = self._make_texture(tclass, ParamSet.from_decls(params, self.cwd))
         if ttype == "float":
             self.gs.float_textures[name] = tid
         else:
@@ -405,13 +454,6 @@ class PbrtApi:
                          float(wraps[wrap_s]), 0.0))
         raise NotImplementedError(f"texture class {tclass!r}")
 
-    # ---- not ported ----
-    def object_begin(self, name, params=None):
-        raise NotImplementedError("ObjectBegin/ObjectInstance: instancing is "
-                                  "not ported")
-
-    object_end = object_instance = object_begin
-
     # ---- media (api.cpp:724-768, 1492-1512) ----
     def _medium_id(self, name) -> int:
         if not name:
@@ -431,7 +473,7 @@ class PbrtApi:
     def make_named_medium(self, name, params):
         """MakeMedium (api.cpp:724-768): homogeneous, or heterogeneous
         with its density grid filling the box p0-p1 under the CTM."""
-        ps = ParamSet.from_decls(params)
+        ps = ParamSet.from_decls(params, self.cwd)
         mtype = ps.find_one_string("type", "homogeneous")
         if mtype not in ("homogeneous", "heterogeneous"):
             raise NotImplementedError(
@@ -465,10 +507,10 @@ class PbrtApi:
         return fname if os.path.isabs(fname) else os.path.join(self.cwd, fname)
 
     def material(self, name, params):
-        self.gs.material = self._make_material(name, ParamSet.from_decls(params))
+        self.gs.material = self._make_material(name, ParamSet.from_decls(params, self.cwd))
 
     def make_named_material(self, name, params):
-        ps = ParamSet.from_decls(params)
+        ps = ParamSet.from_decls(params, self.cwd)
         mtype = ps.find_one_string("type", "matte")
         self.gs.named_materials[name] = self._make_material(mtype, ps)
 
@@ -674,7 +716,7 @@ class PbrtApi:
 
     # ---- lights ----
     def light_source(self, name, params):
-        ps = ParamSet.from_decls(params)
+        ps = ParamSet.from_decls(params, self.cwd)
         b = self.setup.scene_builder
         scale = np.asarray(ps.find_one_spectrum("scale", 1.0))
         if name == "point":
@@ -721,20 +763,36 @@ class PbrtApi:
         if name not in ("area", "diffuse"):
             raise NotImplementedError(f"area light {name!r}: the port has "
                                       "'diffuse' ('area')")
-        self.gs.area_light = ParamSet.from_decls(params)
+        self.gs.area_light = ParamSet.from_decls(params, self.cwd)
 
     # ---- shapes (api.cpp:426-520) ----
     def shape(self, name, params):
-        ps = ParamSet.from_decls(params)
+        ps = ParamSet.from_decls(params, self.cwd)
+        if self.current_object is not None:
+            if self.gs.area_light is not None and name in _MESH_SHAPES:
+                raise NotImplementedError(
+                    f"an emissive {name} inside an object (the JAX package "
+                    "drops its emission; the port refuses it)")
+            self.objects[self.current_object].append(
+                (name, ps, self.ctm, self.gs.material, copy.deepcopy(self.gs)))
+            return
+        self._create_shape(name, ps, self.ctm, self.gs.material, self.gs)
+
+    def _create_shape(self, name, ps: ParamSet, o2w, mat, gs):
         b = self.setup.scene_builder
-        mat = self.gs.material
-        o2w = self.ctm
-        area = self.gs.area_light
+        area = gs.area_light
         if area is not None:
+            if name not in ("trianglemesh", "sphere"):
+                raise NotImplementedError(
+                    f"an emissive {name} (the JAX package drops its "
+                    "AreaLightSource; the port refuses it)")
             L = (np.asarray(area.find_one_spectrum("L", 1.0))
                  * np.asarray(area.find_one_spectrum("scale", 1.0)))
             two_sided = area.find_one_bool("twosided", False)
             n_samples = area.find_one_int("samples", area.find_one_int("nsamples", 1))
+        media = dict(medium_inside=gs.medium_inside,
+                     medium_outside=gs.medium_outside)
+        rev = gs.reverse_orientation
         if name == "trianglemesh":
             idx = ps.find_ints("indices")
             p = ps.find_points("P")
@@ -748,9 +806,7 @@ class PbrtApi:
                     two_sided=two_sided, n_samples=n_samples, n=n, uv=uv)
             else:
                 b.add_triangle_mesh(idx, p, n=n, uv=uv, object_to_world=o2w,
-                                    material=mat,
-                                    medium_inside=self.gs.medium_inside,
-                                    medium_outside=self.gs.medium_outside)
+                                    material=mat, **media)
         elif name == "sphere":
             r = ps.find_one_float("radius", 1.0)
             zmin = ps.find_one_float("zmin", -r)
@@ -761,23 +817,153 @@ class PbrtApi:
                                       two_sided=two_sided, n_samples=n_samples)
             else:
                 b.add_sphere(o2w, r, material=mat, zmin=zmin, zmax=zmax,
-                             phimax_deg=phimax,
-                             reverse_orientation=self.gs.reverse_orientation,
-                             medium_inside=self.gs.medium_inside,
-                             medium_outside=self.gs.medium_outside)
+                             phimax_deg=phimax, reverse_orientation=rev, **media)
+        elif name == "disk":  # no media, as in the JAX package
+            r = ps.find_one_float("radius", 1.0)
+            b.add_quadric(sc.SHAPE_DISK, o2w, (
+                r, ps.find_one_float("innerradius", 0.0),
+                ps.find_one_float("height", 0.0),
+                np.deg2rad(ps.find_one_float("phimax", 360.0))), mat, -1, rev)
+        elif name == "cylinder":  # no media, as in the JAX package
+            b.add_quadric(sc.SHAPE_CYLINDER, o2w, (
+                ps.find_one_float("radius", 1.0), ps.find_one_float("zmin", -1.0),
+                ps.find_one_float("zmax", 1.0),
+                np.deg2rad(ps.find_one_float("phimax", 360.0))), mat, -1, rev)
+        elif name == "cone":
+            b.add_cone(o2w, ps.find_one_float("radius", 1.0),
+                       ps.find_one_float("height", 1.0), material=mat,
+                       phimax_deg=ps.find_one_float("phimax", 360.0),
+                       reverse_orientation=rev, **media)
+        elif name == "paraboloid":
+            b.add_paraboloid(o2w, ps.find_one_float("radius", 1.0),
+                             ps.find_one_float("zmin", 0.0),
+                             ps.find_one_float("zmax", 1.0), material=mat,
+                             phimax_deg=ps.find_one_float("phimax", 360.0),
+                             reverse_orientation=rev, **media)
+        elif name == "hyperboloid":
+            b.add_hyperboloid(o2w, ps.find_one_point("p1", (0.0, 0.0, 0.0)),
+                              ps.find_one_point("p2", (1.0, 1.0, 1.0)),
+                              material=mat,
+                              phimax_deg=ps.find_one_float("phimax", 360.0),
+                              reverse_orientation=rev, **media)
+        elif name == "loopsubdiv":
+            from ..shapes.loopsubdiv import loop_subdivide
+
+            levels = ps.find_one_int("levels", ps.find_one_int("nlevels", 3))
+            with self._timed("loop subdivision"):
+                idx, p, n = loop_subdivide(ps.find_ints("indices"),
+                                           ps.find_points("P"), levels)
+            b.add_triangle_mesh(idx, p, n=n, object_to_world=o2w, material=mat)
+        elif name == "heightfield":
+            idx, p, uv = heightfield_mesh(ps.find_one_int("nu", 0),
+                                          ps.find_one_int("nv", 0),
+                                          ps.find_floats("Pz"))
+            b.add_triangle_mesh(idx, p, uv=uv, object_to_world=o2w, material=mat)
         elif name == "plymesh":
-            if area is not None:
-                raise NotImplementedError(
-                    "an emissive plymesh (the JAX package drops its "
-                    "AreaLightSource; the port refuses it)")
             from .plyload import load_ply
 
             idx, p, n, uv = load_ply(self._path(ps.find_one_string("filename", "")))
             b.add_triangle_mesh(idx, p, n=n, uv=uv, object_to_world=o2w,
                                 material=mat)
+        elif name == "curve":
+            self._curve(ps, o2w, mat)
+        elif name == "nurbs":
+            from ..shapes.nurbs import tessellate_nurbs
+
+            nu, nv = ps.find_one_int("nu", 0), ps.find_one_int("nv", 0)
+            pw = ps.find_floats("Pw")
+            if pw is not None:
+                pw = np.asarray(pw, np.float32).reshape(nv, nu, 4)
+            else:
+                p3 = np.asarray(ps.find_points("P"), np.float32).reshape(nv, nu, 3)
+                pw = np.concatenate([p3, np.ones((nv, nu, 1), np.float32)], -1)
+            with self._timed("NURBS"):
+                idx, p, uv = tessellate_nurbs(
+                    nu, nv, ps.find_one_int("uorder", 4), ps.find_one_int("vorder", 4),
+                    ps.find_floats("uknots"), ps.find_floats("vknots"), pw)
+            b.add_triangle_mesh(idx, p, uv=uv, object_to_world=o2w, material=mat)
         else:
             raise NotImplementedError(
-                f"shape {name!r}: the port has trianglemesh, sphere and plymesh")
+                f"shape {name!r}: the port has {', '.join(_SHAPES)}")
+
+    def _curve(self, ps: ParamSet, o2w, mat):
+        """Shape "curve" (curve.cpp CreateCurveShape, api.py:871-901): one
+        statement holds a chain of cubic Bezier segments, each made into
+        procedural curve primitives, the widths lerped along the chain."""
+        degree = ps.find_one_int("degree", 3)
+        basis = ps.find_one_string("basis", "bezier")
+        if degree != 3 or basis != "bezier":
+            raise NotImplementedError(
+                f'curve degree {degree}, basis "{basis}": the port has cubic '
+                "Bezier curves (the JAX package reads any curve as one)")
+        p = np.asarray(ps.find_points("P"), np.float32)
+        n_seg = max((p.shape[0] - 1) // 3, 1)
+        cps = np.stack([p[3 * i:3 * i + 4] for i in range(n_seg)])
+        w = ps.find_one_float("width", 1.0)
+        w0 = ps.find_one_float("width0", w)
+        w1 = ps.find_one_float("width1", w)
+        ctype = ps.find_one_string("type", "flat")
+        nrm = ps.find_points("N")
+        normals = None
+        if ctype == "ribbon":
+            if nrm is None or len(nrm) < 2:
+                raise ValueError("a ribbon curve needs its normals \"N\"")
+            if n_seg > 1 and len(nrm) > 2:
+                raise NotImplementedError(
+                    "a ribbon chain of several segments with their own "
+                    "normals (the JAX package gives every segment the first "
+                    "two)")
+            normals = np.asarray(nrm[:2], np.float32)
+        ws = np.linspace(w0, w1, n_seg + 1)
+        sd = ps.find_one_int("splitdepth", 3)
+        for i in range(n_seg):
+            self.setup.scene_builder.add_curve(
+                cps[i], float(ws[i]), float(ws[i + 1]), curve_type=ctype,
+                normals=normals, object_to_world=o2w, material=mat, splitdepth=sd)
+
+    # ---- instancing (api.cpp:1520-1588) ----
+    def object_begin(self, name, params=None):
+        self.attribute_begin()
+        self.objects[name] = []
+        self.current_object = name
+
+    def object_end(self):
+        self.current_object = None
+        self.attribute_end()
+
+    def object_instance(self, name, params=None):
+        """TransformedPrimitive instancing (core/primitive.h:99-127): the
+        object's mesh shapes are built once into a shared object-space
+        template, and each instance adds one primitive per triangle; its
+        quadrics and curves are made again under the combined transform
+        (pbrt_tpu/sceneio/api.py:939-970)."""
+        if name not in self.objects:
+            raise ValueError(f"ObjectInstance {name!r}: no such object")
+        shapes = self.objects[name]
+        b = self.setup.scene_builder
+        mesh = [x for x in shapes if x[0] in _MESH_SHAPES]
+        if mesh and name not in self._mesh_templates:
+            b.begin_mesh_template()
+            for shape_name, ps, o2w, mat, gs in mesh:
+                self._create_shape(shape_name, ps, o2w, mat, gs)
+            self._mesh_templates[name] = b.end_mesh_template()
+        with self._timed("instancing"):
+            if mesh:
+                b.add_mesh_instance(self._mesh_templates[name], self.ctm)
+            for shape_name, ps, o2w, mat, gs in shapes:
+                if shape_name not in _MESH_SHAPES:
+                    self._create_shape(shape_name, ps, self.ctm @ o2w, mat, gs)
+
+    @contextlib.contextmanager
+    def _timed(self, what: str):
+        """Add the block's host seconds to the builder's timings[what]."""
+        t = self.setup.scene_builder.timings
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            t[what] = t.get(what, 0.0) + time.perf_counter() - t0
 
     def finalize(self) -> RenderSetup:
+        self.setup.cwd = self.cwd
         return self.setup

@@ -21,7 +21,12 @@ the extension ray, the probe walk's segments, the exit point's NEE, the
 separate next-bounce launch); and the film under the gaussian and sinc
 filters (repeats bit-identical, the card equal to the CPU) and the
 orthographic, environment and realistic cameras' rays on the card against
-the CPU.
+the CPU; and the typed build of bvh4 against its plain version on scenes
+with every record type (quadrics past the gate, curves, instances), under
+a random work list and at the stack cap, the PBRT_TPU_BVH4=0 refusal past
+the gate, and small copies of chip_smoke.py's geometry and instances
+files on the card against the CPU, with their launch counts and a grad
+step.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -49,7 +54,11 @@ from pbrt_tpu_torch.tools import bench_layout_probe as bp
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_trees import caterpillar_rays, caterpillar_tree
 from chip_smoke import (bvh_switch, write_advanced_pbrt, write_breadth_pbrt,
-                        write_config3_pbrt)
+                        write_config3_pbrt, write_geometry_pbrt,
+                        write_instances_pbrt)
+from test_torch_typed import SCENES as TYPED_SCENES
+from test_torch_typed import lanes as typed_lanes
+from test_torch_typed import typed_rays
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -803,3 +812,131 @@ def test_grad_group_bvh2_matches_bvh4(monkeypatch, case):
     L2, g2 = device_step(case, "cuda")
     assert kb.bvh2_traverse.launches > 0
     assert_leaves_close(g2, g4, 1e-4)
+
+
+@pytest.mark.parametrize("work", ["identity", "random-order"])
+@pytest.mark.parametrize("name", list(TYPED_SCENES))
+def test_typed_kernel_equals_plain(name, work):
+    """The typed build against bvh4_traverse_plain(typed=...) bit for bit,
+    closest-hit and with any-hit lanes, every 5th lane dead."""
+    s = TYPED_SCENES[name]().build(device="cuda")
+    n = 4099
+    o, d = typed_rays(n, 12, "cuda")
+    t_max, mode = typed_lanes(n, 13, "cuda")
+    order = random_order(n, 14) if work == "random-order" else None
+    tables = kb.typed_tables(s)
+    before = kb.bvh4_traverse_typed.launches
+    for m in (torch.zeros(n, device="cuda"), mode):
+        t_k, p_k = kb.bvh4_traverse_typed(s.bvh4_nodes, s.prim_tris, *tables, o, d,
+                                          t_max, m, s.bvh4_depth, order)
+        torch.cuda.synchronize()
+        t_p, p_p = kb.bvh4_traverse_plain(s.bvh4_nodes, s.prim_tris, o, d, t_max, m,
+                                          order=order, typed=tables)
+        assert torch.equal(p_k, p_p)
+        assert torch.equal(t_k, t_p)
+    assert kb.bvh4_traverse_typed.launches == before + 2
+    assert float((p_k >= 0).float().mean()) > 0.2
+
+
+@pytest.mark.parametrize("work", ["identity", "random-order"])
+def test_typed_kernel_equals_plain_at_the_stack_cap(work):
+    """The caterpillar tree at bvh4's stack cap with every 4th record an
+    instanced triangle (an identity instance): the typed build equals its
+    plain version bit for bit; one level deeper is refused."""
+    m, need = STACK_CAP["bvh4"]
+    tree, recs = caterpillar_tree(m)
+    recs = recs.copy()
+    recs[::4, 3] = float(kb.TYPE_INSTANCE)
+    recs.view(np.int32)[::4, 7] = 0
+    rows4, depth = kb.build_bvh4_table(*tree[:4])
+    assert kb.STACK_SIZE - 3 < need(depth) <= kb.STACK_SIZE
+    eye = np.concatenate([np.eye(4, dtype=np.float32)[:3].ravel()] * 2)[None]
+    tables = (torch.zeros((1, 24), device="cuda"), torch.zeros((1, 28), device="cuda"),
+              torch.as_tensor(eye, device="cuda"))
+    nodes = torch.as_tensor(rows4, device="cuda")
+    tris = torch.as_tensor(recs, device="cuda")
+    n = 4099
+    o, d = caterpillar_rays(n, 7)
+    t_max = torch.full((n,), 1e30, device="cuda")
+    t_max[::11] = 0.0
+    mode = (torch.arange(n, device="cuda") % 4 == 0).float()
+    order = random_order(n, 8) if work == "random-order" else None
+    t_k, p_k = kb.bvh4_traverse_typed(nodes, tris, *tables, o, d, t_max, mode,
+                                      depth, order)
+    t_p, p_p = kb.bvh4_traverse_plain(nodes, tris, o, d, t_max, mode, order=order,
+                                      typed=tables)
+    assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+    assert bool((recs[p_k[p_k >= 0].cpu().numpy(), 3] == kb.TYPE_INSTANCE).any())
+    deeper, _ = caterpillar_tree(m + 2)
+    rows5, depth5 = kb.build_bvh4_table(*deeper[:4])
+    assert need(depth5) > kb.STACK_SIZE
+    with pytest.raises(ValueError, match="stack"):
+        kb.bvh4_traverse_typed(torch.as_tensor(rows5, device="cuda"), tris, *tables,
+                               o, d, t_max, mode, depth5)
+
+
+def test_typed_route_refused_under_bvh2(monkeypatch):
+    """PBRT_TPU_BVH4=0 past the gate raises, naming the switch, before any
+    launch."""
+    from pbrt_tpu_torch.accel import traverse
+
+    s = TYPED_SCENES["mixed"]().build(device="cuda")
+    o, d = typed_rays(256, 1, "cuda")
+    monkeypatch.setenv("PBRT_TPU_BVH4", "0")
+    before = (kb.bvh2_traverse.launches, kb.bvh4_traverse_typed.launches)
+    with pytest.raises(NotImplementedError, match="PBRT_TPU_BVH4"):
+        traverse.intersect_closest(s, o, d, 1e30)
+    assert (kb.bvh2_traverse.launches, kb.bvh4_traverse_typed.launches) == before
+
+
+def _small_geometry(tmp_path, label):
+    if label == "geometry":
+        return write_geometry_pbrt(tmp_path / label, res=(32, 32), spp=2, depth=2,
+                                   hf=64, levels=2)
+    return write_instances_pbrt(tmp_path / label, res=(32, 32), spp=2, depth=2,
+                                blob=(32, 16), n_blobs=4, n_quads=9, n_curves=96)
+
+
+@pytest.mark.parametrize("label,kernel", [("geometry", "bvh4_traverse"),
+                                          ("instances", "bvh4_traverse_typed")])
+def test_geometry_files_on_card_match_cpu(tmp_path, label, kernel):
+    """Small copies of chip_smoke.py's two phase-18 files (uniform light
+    distribution) at 32x32 @ 2 spp, depth 2: the card's render against the
+    CPU's at tests/test_torch_path.py:58-59's bars (99.5% of pixels within
+    rel 1e-3, means within 5e-3), (1 + 2) launches a spp of the one build
+    and none of the others, a bit-identical repeat, and a grad step: L
+    equal to the forward, every leaf finite."""
+    file = _small_geometry(tmp_path, label)
+    setup = parse_pbrt_file(str(file))
+    setup.integrator_params.set("lightsamplestrategy", "string", ["uniform"])
+    film_cfg, filt = setup.make_film_config()
+    camera = setup.make_camera()
+    cfg = setup.make_integrator_config()
+    scfg = setup.make_sampler_config()
+    counts = {k: getattr(kb, k) for k in ("bvh4_traverse", "bvh2_traverse",
+                                          "bvh4_traverse_typed")}
+    before = {k: f.launches for k, f in counts.items()}
+    card = setup.scene_builder.build(device="cuda")
+    a = path.render(card, camera, film_cfg, scfg, cfg, filt, device="cuda")
+    spent = {k: f.launches - before[k] for k, f in counts.items()}
+    assert spent == {k: (2 * 3 if k == kernel else 0) for k in counts}
+    assert torch.equal(a, path.render(card, camera, film_cfg, scfg, cfg, filt,
+                                      device="cuda"))
+    b = path.render(setup.scene_builder.build(device="cpu"), camera, film_cfg, scfg,
+                    cfg, filt, device="cpu")
+    a, b = a.cpu().numpy(), b.numpy()
+    assert np.isfinite(a).all() and a.mean() > 0
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2)
+    assert float(np.all(rel <= 1e-3, -1).mean()) >= 0.995
+    assert abs(float(a.mean()) - float(b.mean())) <= 5e-3 * float(b.mean())
+    pixels = torch.as_tensor(path.make_pixel_grid(film_cfg), device="cuda")
+    w = torch.ones((pixels.shape[0], 3), device="cuda")
+    cam = camera.to("cuda")
+    L, g = diff.render_grad_step(card, cam, pixels, 1, w, scfg, cfg, device="cuda")
+    with torch.no_grad():
+        L_fwd = diff.render_batch_radiance(card, cam, pixels, 1, scfg, cfg)
+    assert torch.equal(L, L_fwd)
+    leaves = [x for v in g.values()
+              for x in (v.values() if isinstance(v, dict) else [v])]
+    assert all(bool(torch.isfinite(x).all()) for x in leaves
+               if isinstance(x, torch.Tensor))

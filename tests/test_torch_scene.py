@@ -137,9 +137,16 @@ def test_refuses_what_is_not_ported():
     j.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_numpy(_jax_fields(j.build()), "cpu")
+    # a kd-tree, and an area light on a disk (the JAX builder takes one; its
+    # reader drops it)
     j = jsc.SceneBuilder()
-    j.add_cone(jtf.identity(), 1.0, 2.0)
-    with pytest.raises(NotImplementedError):
+    j.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]])
+    with pytest.raises(NotImplementedError, match="kd_nodes"):
+        bridge.scene_from_numpy(_jax_fields(j.build(accelerator="kdtree")), "cpu")
+    j = jsc.SceneBuilder()
+    li = j.add_area_light_handle((1.0, 1.0, 1.0), jsc.SHAPE_DISK, 0)
+    j.add_quadric(jsc.SHAPE_DISK, jtf.identity(), (1.0, 0.0, 0.0, 6.28), -1, li)
+    with pytest.raises(NotImplementedError, match="area light shape"):
         bridge.scene_from_numpy(_jax_fields(j.build()), "cpu")
 
 

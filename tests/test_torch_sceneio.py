@@ -124,13 +124,16 @@ def test_include_and_plymesh_match_jax(tmp_path):
     ('Texture "t" "spectrum" "constant"\nMaterial "mirror" "texture Kr" "t"\n',
      "texture Kr"),
     ('Material "velvet"\n', "velvet"),
-    ('LightSource "distant" "spectrum L" [400 1 700 1]\n', "spectrum L"),
-    ('Material "matte" "spectrum Kd" [400 .5 700 .5]\n', "spectrum Kd"),
-    ('ObjectBegin "o"\nObjectEnd\n', "instancing"),
+    ('LightSource "distant" "xyz L" [1 1 1]\n', "xyz L"),
+    ('Material "matte" "xyz Kd" [.5 .5 .5]\n', "xyz Kd"),
+    ('ObjectBegin "o"\nAreaLightSource "diffuse"\nShape "trianglemesh" '
+     '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]\nObjectEnd\n',
+     "inside an object"),
     ('MakeNamedMedium "m" "string type" "cloud"\n', "cloud"),
-    ('Shape "curve"\n', "curve"),
+    ('Shape "curve" "point P" [0 0 0 1 0 0 1 1 0 0 1 1] "integer degree" [2]\n',
+     "degree"),
     ('LightSource "spot" "point from" [0 0 1]\n', "from"),
-    ('Shape "cylinder"\n', "cylinder"),
+    ('AreaLightSource "diffuse"\nShape "cylinder"\n', "cylinder"),
     ('AreaLightSource "diffuse"\nShape "plymesh" "string filename" "x.ply"\n',
      "plymesh"),
     ('ActiveTransform StartTime\n', "animated"),
@@ -173,9 +176,8 @@ def test_option_refusals(options, call, what):
     'Camera "orthographic" "float lensradius" [0.1] "float focaldistance" [3]',
     'Camera "orthographic"',
     'Camera "environment" "float shutterclose" [0.5]',
-    # a lens file that cannot be read: the built-in lens, with a warning
-    'Camera "realistic" "string lensfile" "missing.dat" "float filmdiag" [30] '
-    '"float focusdistance" [4]',
+    # no lens file: the built-in 50 mm double Gauss
+    'Camera "realistic" "float filmdiag" [30] "float focusdistance" [4]',
     'Sampler "stratified" "integer pixelsamples" [4]',
     'Sampler "lowdiscrepancy" "integer pixelsamples" [8]',
     'Sampler "random"',
@@ -248,3 +250,139 @@ def test_missing_image_raises(tmp_path):
                      '"string filename" "missing.pfm"\nWorldEnd\n')
     with pytest.raises(FileNotFoundError):
         tio.parse_pbrt_file(str(scene))
+
+
+SPD = "# a test spd\n400 0.2\n500 0.6  # inline comment\n600 0.4\n700 0.9\n"
+SPECTRUM_DECLS = {
+    "blackbody": ("blackbody I", [6500, 2]),
+    "blackbody, no scale": ("blackbody I", [3000]),
+    "pairs": ("spectrum Kd", [400, 0.2, 500, 0.6, 600, 0.4, 700, 0.9]),
+    "pairs, unsorted range": ("spectrum Kd", [380.0, 0.5, 720.0, 0.1]),
+    "file": ("spectrum Kd", None),
+}
+
+
+@pytest.mark.parametrize("name", list(SPECTRUM_DECLS))
+def test_spectrum_forms_match_jax(tmp_path, name):
+    """The blackbody and spectrum forms (sampled_spectrum.py: FromSampled,
+    BlackbodyNormalized, .spd files) against the JAX package's
+    ParamSet.find_one_spectrum, float32 bit for bit; the .spd file named by
+    its absolute path (the JAX package opens a relative name from the
+    process's directory)."""
+    from pbrt_tpu.sceneio.paramset import ParamSet as JParamSet
+    from pbrt_tpu_torch.sceneio.paramset import ParamSet as TParamSet
+
+    decl, vals = SPECTRUM_DECLS[name]
+    if vals is None:
+        (tmp_path / "kd.spd").write_text(SPD)
+        vals = [str(tmp_path / "kd.spd")]
+    key = decl.split()[1]
+    ref = JParamSet.from_decls([(decl, vals)]).find_one_spectrum(key, 1.0)
+    got = TParamSet.from_decls([(decl, vals)]).find_one_spectrum(key, 1.0)
+    assert ref.dtype == got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_spd_file_is_found_beside_the_scene(tmp_path):
+    """A relative .spd name is resolved against the scene file's directory,
+    as image maps are; the same file by its absolute path gives the same
+    material row."""
+    sub = tmp_path / "s"
+    sub.mkdir()
+    (sub / "kd.spd").write_text(SPD)
+    body = ('WorldBegin\nMaterial "matte" "spectrum Kd" "{}"\n'
+            'Shape "sphere"\nWorldEnd\n')
+    (sub / "rel.pbrt").write_text(body.format("kd.spd"))
+    (sub / "abs.pbrt").write_text(body.format(sub / "kd.spd"))
+    rel = tio.parse_pbrt_file(str(sub / "rel.pbrt")).scene_builder.materials
+    ab = tio.parse_pbrt_file(str(sub / "abs.pbrt")).scene_builder.materials
+    np.testing.assert_array_equal(rel[-1]["kd"], ab[-1]["kd"])
+    assert float(np.asarray(rel[-1]["kd"]).max()) > 0.3
+
+
+def test_spectrum_forms_in_a_file_match_jax(tmp_path):
+    """A whole file with a blackbody point light and spectrum materials:
+    the port's setup against the JAX package's, arrays bit for bit."""
+    (tmp_path / "kd.spd").write_text(SPD)
+    text = SIMPLE_SCENE.replace(
+        "WorldBegin",
+        'WorldBegin\nLightSource "point" "blackbody I" [4500 3] "rgb scale" [2 2 2]\n'
+        f'Material "plastic" "spectrum Kd" "{tmp_path / "kd.spd"}"\n'
+        '  "spectrum Ks" [400 0.1 550 0.3 700 0.2]\nShape "sphere"', 1)
+    assert bridge.compare_setups(jio.parse_pbrt_string(text),
+                                 tio.parse_pbrt_string(text), rtol=0.0) == []
+
+
+def test_maxmindist_is_maxmin():
+    """Sampler "maxmindist", pbrt-v3's name, is the maxmin sampler: the
+    JAX package's SamplerConfig reads it as an unknown name (the port's
+    liberty: the name pbrt-v3 documents)."""
+    setup = tio.parse_pbrt_string('Sampler "maxmindist" "integer pixelsamples" [4]\n'
+                                  'WorldBegin\nWorldEnd\n')
+    cfg = setup.make_sampler_config()
+    assert cfg.name == "maxmin" and cfg.spp == 4
+
+
+@pytest.mark.parametrize("param", ['"integer xsamples" [2]', '"integer ysamples" [2]',
+                                   '"bool jitter" "false"'])
+def test_stratified_strata_parameters_refused(param):
+    """The JAX package's stratified sampler draws pixelsamples jittered
+    strata and ignores xsamples, ysamples and jitter; the port refuses
+    them rather than render another sampler than the file asks for."""
+    setup = tio.parse_pbrt_string(f'Sampler "stratified" {param}\n'
+                                  'WorldBegin\nWorldEnd\n')
+    with pytest.raises(NotImplementedError, match="stratified"):
+        setup.make_sampler_config()
+
+
+LENS = """# a two-element lens: radius thickness eta aperture
+  29.475 3.76 1.67 25.2
+  -84.83 20 1 25.2
+"""
+
+
+def test_lensfile_is_found_beside_the_scene(tmp_path):
+    """The realistic camera's lensfile is read from the scene file's
+    directory: the port's camera from the relative name equals the JAX
+    package's from the absolute path (which it opens from the process's
+    directory); an unreadable lens file is refused (the JAX package falls
+    back to its built-in lens with a warning)."""
+    (tmp_path / "two.dat").write_text(LENS)
+    cam = ('Camera "realistic" "string lensfile" "{}" "float filmdiag" [30] '
+           '"float focusdistance" [4]\nWorldBegin\nShape "sphere"\nWorldEnd\n')
+    (tmp_path / "rel.pbrt").write_text(cam.format("two.dat"))
+    ref = jio.parse_pbrt_string(cam.format(tmp_path / "two.dat"))
+    got = tio.parse_pbrt_file(str(tmp_path / "rel.pbrt"))
+    assert bridge.compare_setups(ref, got) == []
+    assert got.make_camera().curvature.shape == (2,)
+    (tmp_path / "bad.pbrt").write_text(cam.format("missing.dat"))
+    with pytest.raises(NotImplementedError, match="lensfile"):
+        tio.parse_pbrt_file(str(tmp_path / "bad.pbrt")).make_camera()
+
+
+@pytest.mark.parametrize("body,what", [
+    ('AreaLightSource "diffuse"\nShape "disk"\n', "disk"),
+    ('AreaLightSource "diffuse"\nShape "cone"\n', "cone"),
+    ('AreaLightSource "diffuse"\nShape "paraboloid"\n', "paraboloid"),
+    ('AreaLightSource "diffuse"\nShape "hyperboloid"\n', "hyperboloid"),
+    ('AreaLightSource "diffuse"\nShape "heightfield" "integer nu" [2] '
+     '"integer nv" [2] "float Pz" [0 0 0 0]\n', "heightfield"),
+    ('AreaLightSource "diffuse"\nShape "curve" "point P" [0 0 0 1 0 0 1 1 0 0 1 1]\n',
+     "curve"),
+    ('Shape "curve" "point P" [0 0 0 1 0 0 1 1 0 0 1 1] "string basis" "bspline"\n',
+     "basis"),
+    ('Shape "curve" "point P" [0 0 0 1 0 0 1 1 0 0 1 1 2 1 0 2 0 0 3 0 0] '
+     '"string type" "ribbon" "normal N" [0 0 1 0 0 1 0 0 1]\n', "first two"),
+    ('ObjectBegin "o"\nAreaLightSource "diffuse"\nShape "loopsubdiv" '
+     '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]\nObjectEnd\n',
+     "inside an object"),
+])
+def test_new_shape_refusals(body, what):
+    """Where the JAX package drops or misreads what a file asks for, the
+    port refuses it: an area light on a shape other than a triangle mesh or
+    a sphere (the JAX package drops its emission), an emissive mesh inside
+    an object (dropped there too), a curve of another basis (read as a
+    Bezier) and a ribbon chain of several segments with its own normals
+    (each segment gets the first two)."""
+    with pytest.raises(NotImplementedError, match=what):
+        tio.parse_pbrt_string(f"WorldBegin\n{body}WorldEnd\n")
