@@ -57,11 +57,13 @@ Phases, each printing its result on a line of its own and its seconds:
  10. config3: BASELINE config 3's features through render.render_file on
      the main scene's blob (an EWA imagemap on the blob, a checkerboard
      floor, a smooth and a rough glass sphere, an env map; 400x400 @ 16
-     spp (cut from 64 at PR 12), depth 5, spatial distribution): Mrays/s,
+     spp (cut from 64 to 16, then to 8, as phases were added), depth 5, spatial
+     distribution): Mrays/s,
      wall, process CPU and set-up by phase (the pyramid and the env CDF
-     timed alone too), 96 bvh4 launches, a bit-identical repeat,
-     PBRT_TPU_BVH4=0 with 96 bvh2 launches at tests/test_torch_path.py:58-59's bars against bvh4, and a
-     64x64 @ 2 spp copy on the card against the CPU at the same bars; with
+     timed alone too), 48 bvh4 launches, a bit-identical repeat,
+     PBRT_TPU_BVH4=0 with 48 bvh2 launches at tests/test_torch_path.py:
+     58-59's bars against bvh4, and a 64x64 @ 1 spp copy
+     on the card against the CPU at the same bars; with
      --profile FILE, one spp under torch.profiler, its table written to
      FILE's name plus "_config3";
  11. direct: Integrator "directlighting" through render_file:
@@ -73,13 +75,14 @@ Phases, each printing its result on a line of its own and its seconds:
      (write_config4_pbrt): the main scene's blob, floor, wall, emissive
      sphere and a point light, a material-less sphere of homogeneous fog
      in the mirror's place and a material-less box beside the blob holding
-     a seeded 128^3 density grid (8.4 MB); volpath, 400x400 @ 8 spp, depth
-     3 (cut from 5 at PR 12), halton, spatial distribution: Mrays/s (live
+     a seeded 128^3 density grid (8.4 MB); volpath, 400x400 @ 4 spp (cut
+     from 8), depth 3 (cut from 5), halton, spatial
+     distribution: Mrays/s (live
      traversal lanes over the render's wall), the wall a spp, process CPU
-     and set-up by phase, the bytes on the card, 416 bvh4 launches (52 a
-     spp), a bit-identical repeat, PBRT_TPU_BVH4=0 with 416 bvh2 launches
+     and set-up by phase, the bytes on the card, 208 bvh4 launches (52 a
+     spp), a bit-identical repeat, PBRT_TPU_BVH4=0 with 208 bvh2 launches
      against bvh4 and a
-     64x64 @ 2 spp copy on the card against the CPU, both at
+     64x64 @ 1 spp copy on the card against the CPU, both at
      tests/test_torch_path.py:58-59's bars, and each kernel against its
      plain version and bvh2 against bvh4 on the camera batch and the first
      segment of each of the four walks (the surface's at bounce 0, the
@@ -88,9 +91,10 @@ Phases, each printing its result on a line of its own and its seconds:
      "_config4" (ranges "layer: media / delta tracking", "/ ratio
      tracking", "/ Tr walk", "/ medium NEE");
  13. whitted and ao: the main scene's file with Integrator "whitted"
-     (maxdepth 5, 88 launches) and "ao" (nsamples 64, 520 launches) at
-     400x400 @ 8 spp: finite, non-zero, a bit-identical repeat, a 64x64 @
-     2 spp copy on the card against the CPU at tests/test_torch_path.py:
+     (maxdepth 5, 44 launches) and "ao" (nsamples 64, 260 launches) at
+     400x400 @ 4 spp (cut from 8): finite, non-zero, a
+     bit-identical repeat, a 64x64 @
+     1 spp copy on the card against the CPU at tests/test_torch_path.py:
      58-59's bars, and each kernel against its plain version and bvh2
      against bvh4 on the batches of one spp as each render launched them:
      the camera rays, whitted's bounce-0 shadow rays and ao's first probe
@@ -101,10 +105,10 @@ Phases, each printing its result on a line of its own and its seconds:
      behind it, the mirror sphere in metal (copper), a sphere mixing matte
      and metal, a sphere in uber with an imagemap opacity, the emissive
      sphere and a distant, a projection (a seeded 64x64 slide) and a
-     goniometric light (a seeded 32x64 map); path at 400x400 @ 8 spp,
-     depth 5, spatial distribution: Mrays/s, the wall a spp, process CPU
-     and set-up by phase, the bytes on the card, 48 bvh4 launches, a
-     bit-identical repeat, PBRT_TPU_BVH4=0 with 48 bvh2 launches against
+     goniometric light (a seeded 32x64 map); path at 400x400 @ 4 spp (cut
+     from 8), depth 5, spatial distribution: Mrays/s, the wall a
+     spp, process CPU and set-up by phase, the bytes on the card, 24 bvh4
+     launches, a bit-identical repeat, PBRT_TPU_BVH4=0 with 24 bvh2 launches against
      bvh4, a 64x64 @ 1 spp copy under path, directlighting "all" and
      volpath on the card against the CPU (the CPU scene takes the card's
      spatial distribution), all at tests/test_torch_path.py:
@@ -119,11 +123,12 @@ Phases, each printing its result on a line of its own and its seconds:
      (write_advanced_pbrt): the main scene's blob in kdsubsurface, the
      mirror sphere in subsurface "Skin1", the floor in fourier (the
      port's copy of roughgold_alpha_0.2.bsdf), a disney and a hair sphere,
-     the wall in matte and the emissive sphere; path at 400x400 @ 8 spp,
-     depth 3 (cut from 5 at PR 12), halton, spatial distribution: Mrays/s
+     the wall in matte and the emissive sphere; path at 400x400 @ 4 spp
+     (cut from 8), depth 3 (cut from 5), halton, spatial
+     distribution: Mrays/s
      (BSSRDF probe rays among the rays), the wall a spp, process CPU and
      set-up by phase (a BSSRDF table and the .bsdf read timed alone), the
-     bytes on the card, 8 x 22 bvh4 launches (the camera rays, then a
+     bytes on the card, 4 x 22 bvh4 launches (the camera rays, then a
      bounce's NEE, 4 probe
      segments, the exit point's NEE and the next closest hit), a
      bit-identical repeat, PBRT_TPU_BVH4=0 with as many bvh2 launches
@@ -179,16 +184,40 @@ Phases, each printing its result on a line of its own and its seconds:
      file; inside the JAX package's gate: bvh4 and the quadric pass) and
      write_instances_pbrt (16 instances of a 65,536-triangle blob, 256
      instanced quadrics, 4,096 hair curves; past the gate: the typed
-     build), each at 400x400 @ 8 spp, depth 5, spatial: 48 launches of the
+     build), each at 400x400 @ 4 spp (cut from 8), depth 5,
+     spatial: 24 launches of the
      one build, a bit-identical repeat, the geometry file bit-equal to its
      SceneBuilder scene, a 64x64 depth-2 copy card against CPU, each
      kernel against its plain version on one spp's batches, a remat grad
      step (11 launches, 5 replayed bit for bit), the instances refused
      under PBRT_TPU_BVH4=0; with --profile FILE, one spp of each profiled
      (FILE's name plus "_geometry", "_instances");
+ 19. transport: Integrator "bdpt", "mlt" and "sppm" through
+     render.render_file on main's scene (write_transport_pbrt) at 400x400,
+     depth 5, halton: bdpt at 8 spp (31 bvh4 launches a spp, a
+     bit-identical repeat, PBRT_TPU_BVH4=0 at the path bars, bvh4 against
+     its plain version on one spp's camera-walk, light-walk and connection
+     batches and bvh2 on the connection's, a 64x64 copy card against CPU,
+     the image against path at tests/test_bdpt.py's bars on the file with
+     the sphere in matte); mlt with 65,536 chains, 4
+     mutations a pixel and 393,216 bootstrap vectors (a bit-identical
+     repeat, a 64x64 depth-2 copy card against CPU with the same draws, the
+     image against path at tests/test_mlt_sppm_tools.py's bars); sppm with
+     160,000 photons an iteration, 4 iterations (the photons a visible
+     point gathers, a bit-identical repeat, a 64x64 copy card against CPU,
+     the image against path, each kernel against its plain version on one
+     photon batch); with --profile FILE, one bdpt spp, one mlt render at
+     1 mutation a pixel and one sppm iteration profiled (FILE's name plus
+     "_bdpt", "_mlt", "_sppm");
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
+
+Phases 10-19 run in the groups of GROUPS, side by side on the one card:
+the first in this process after phase 9, each other in a worker process
+(`chip_smoke.py --worker`, started after phase 4, its output kept under
+build/smoke/ and printed once it ends).  A worker that fails fails the
+script; every worker is stopped when the script ends, and dies with it.
 """
 from __future__ import annotations
 
@@ -211,10 +240,14 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 SLAB_FLOPS = 27  # one box's slab test
 TRI_FLOPS = 45  # per Moller-Trumbore test
 SPP, DEPTH, RES = 8, 5, (400, 400)
-# phase 10's samples a pixel: BASELINE config 3 asks 64; cut to keep the
-# script inside its time as phases were added (each of its three renders
-# is host-bound, its wall in proportion)
-CONFIG3_SPP = 16
+# phase 10's samples a pixel: BASELINE config 3 asks 64; cut (to 16, then
+# 8) to keep the script inside its time as phases were added (each of its
+# three renders is host-bound, its wall in proportion)
+CONFIG3_SPP = 8
+# the samples a pixel of phases 12-15 and 18's renders: cut from 8 to keep
+# the script inside its time beside phase 19 (their launches a spp
+# are unchanged; phases 10, 12 and 13's 64x64 copies went from 2 spp to 1)
+CUT_SPP = 4
 # traversal launches a spp at DEPTH: config4 (volpath with media) 1 + 16
 # walk segments a bounce but the last, 1 at the last; whitted on the main
 # scene (one light) 1 + 1 a bounce but the last, 1 at the last; ao 1 + 64
@@ -1606,14 +1639,14 @@ def config3_phase(render, counted, card, dev, profile):
     check(frac >= 0.995 and mean_rel <= 5e-3,
           f"config3 bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
 
-    small = write_config3_pbrt(out_dir / "small", res=(64, 64), spp=2)
+    small = write_config3_pbrt(out_dir / "small", res=(64, 64), spp=1)
     a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
                               device=dev)
     t0 = time.perf_counter()
     b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
                               device="cpu")
     frac, mean_rel = image_bars(b, a)
-    print(f"config3 card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+    print(f"config3 card against cpu (64x64 @ 1 spp): match_frac {frac:.4f}, "
           f"mean rel {mean_rel:.3e}; the CPU render {time.perf_counter() - t0:.2f} s",
           flush=True)
     check(frac >= 0.995 and mean_rel <= 5e-3,
@@ -1708,7 +1741,7 @@ def direct_phase(render, read_pfm, counted, card, dev):
 def config4_phase(render, counted, card, dev, profile):
     """Phase 12: BASELINE config 4 through render_file on the card: the
     main scene's blob with a homogeneous fog sphere and a 128^3 density
-    grid, volpath at 400x400 @ 8 spp, depth CONFIG4_DEPTH (3).
+    grid, volpath at 400x400 @ CUT_SPP (4) spp, depth CONFIG4_DEPTH (3).
     CONFIG4_LAUNCHES (52) launches a spp; a
     bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4 and a 64x64 @ 2
     spp copy on the card against the CPU at tests/test_torch_path.py:58-59's
@@ -1722,10 +1755,10 @@ def config4_phase(render, counted, card, dev, profile):
 
     out_dir = SMOKE_DIR / "config4"
     t0 = time.perf_counter()
-    path = write_config4_pbrt(out_dir, depth=CONFIG4_DEPTH)
+    path = write_config4_pbrt(out_dir, spp=CUT_SPP, depth=CONFIG4_DEPTH)
     print(f"config4 file: {path.stat().st_size / 1e6:.1f} MB written in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    want = SPP * CONFIG4_LAUNCHES
+    want = CUT_SPP * CONFIG4_LAUNCHES
     runs = []
     for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
         c0 = time.process_time()
@@ -1737,9 +1770,9 @@ def config4_phase(render, counted, card, dev, profile):
               and launches[f"{other}_traverse"] == 0,
               f"config4 ({kind}) launches {launches}, not {want} of {kind}")
         wall = st["phases"]["Rendering"]
-        print(render_line(f"config4 {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+        print(render_line(f"config4 {RES[0]}x{RES[1]} @ {CUT_SPP} spp, {kind}", st,
                           launches, card)
-              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              + f", wall {wall / CUT_SPP:.4f} s a spp, process CPU of the whole "
               f"call {cpu:.3f} s, image mean {float(img.mean()):.6f}", flush=True)
         runs.append((img, launches))
     check(np.array_equal(runs[0][0], runs[1][0]), "config4: a repeat differs")
@@ -1750,7 +1783,7 @@ def config4_phase(render, counted, card, dev, profile):
     check(frac >= 0.995 and mean_rel <= 5e-3,
           f"config4 bvh2 against bvh4: match_frac {frac}, mean rel {mean_rel}")
 
-    small = write_config4_pbrt(out_dir / "small", res=(64, 64), spp=2,
+    small = write_config4_pbrt(out_dir / "small", res=(64, 64), spp=1,
                                depth=CONFIG4_DEPTH)
     a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
                               device=dev)
@@ -1758,7 +1791,7 @@ def config4_phase(render, counted, card, dev, profile):
     b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
                               device="cpu")
     frac, mean_rel = image_bars(b, a)
-    print(f"config4 card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+    print(f"config4 card against cpu (64x64 @ 1 spp): match_frac {frac:.4f}, "
           f"mean rel {mean_rel:.3e}; the CPU render {time.perf_counter() - t0:.2f} s",
           flush=True)
     check(frac >= 0.995 and mean_rel <= 5e-3,
@@ -1809,8 +1842,9 @@ def config4_phase(render, counted, card, dev, profile):
 
 def whitted_ao_phase(render, counted, card, dev):
     """Phase 13: Integrator "whitted" (maxdepth 5) and "ao" (nsamples 64)
-    on the main scene through render_file at 400x400 @ 8 spp: finite and
-    non-zero, the launches, a bit-identical repeat, and a 64x64 @ 2 spp
+    on the main scene through render_file at 400x400 @ CUT_SPP (4) spp:
+    finite and
+    non-zero, the launches, a bit-identical repeat, and a 64x64 @ 1 spp
     copy on the card against the CPU at tests/test_torch_path.py:58-59's
     bars.  Then one spp of each under bvh.record_calls(): each kernel held
     against its plain version, and bvh2 against bvh4, on the camera batch,
@@ -1822,7 +1856,8 @@ def whitted_ao_phase(render, counted, card, dev):
 
     out_dir = SMOKE_DIR / "whitted_ao"
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = write_main_pbrt(out_dir).read_text()
+    text = write_main_pbrt(out_dir).read_text().replace(
+        f'"integer pixelsamples" [{SPP}]', f'"integer pixelsamples" [{CUT_SPP}]')
     line = f'Integrator "path" "integer maxdepth" [{DEPTH}]'
     kernels = bvh_kernels(bvh)
     out = {"results": {kind: {} for kind in kernels}}
@@ -1839,12 +1874,12 @@ def whitted_ao_phase(render, counted, card, dev):
         for _ in range(2):
             img, st, launches = timed_render_file(render, counted, p,
                                                   out_dir / f"{name}.pfm", dev)
-            check(launches["bvh4_traverse"] == SPP * per_spp
+            check(launches["bvh4_traverse"] == CUT_SPP * per_spp
                   and launches["bvh2_traverse"] == 0,
-                  f"{name}: launches {launches}, not {SPP * per_spp}")
-            print(render_line(f"{name} main {RES[0]}x{RES[1]} @ {SPP} spp", st,
+                  f"{name}: launches {launches}, not {CUT_SPP * per_spp}")
+            print(render_line(f"{name} main {RES[0]}x{RES[1]} @ {CUT_SPP} spp", st,
                               launches, card)
-                  + f", wall {st['phases']['Rendering'] / SPP:.4f} s a spp, "
+                  + f", wall {st['phases']['Rendering'] / CUT_SPP:.4f} s a spp, "
                   f"image mean {float(img.mean()):.6f}", flush=True)
             imgs.append(img)
         check(np.array_equal(imgs[0], imgs[1]), f"{name}: a repeat differs")
@@ -1852,14 +1887,14 @@ def whitted_ao_phase(render, counted, card, dev):
         small.write_text(p.read_text().replace(
             f'"integer xresolution" [{RES[0]}] "integer yresolution" [{RES[1]}]',
             '"integer xresolution" [64] "integer yresolution" [64]').replace(
-            f'"integer pixelsamples" [{SPP}]', '"integer pixelsamples" [2]'))
+            f'"integer pixelsamples" [{CUT_SPP}]', '"integer pixelsamples" [1]'))
         a, _ = render.render_file(str(small), out=str(out_dir / "small_card.pfm"),
                                   device=dev)
         t0 = time.perf_counter()
         b, _ = render.render_file(str(small), out=str(out_dir / "small_cpu.pfm"),
                                   device="cpu")
         frac, mean_rel = image_bars(b, a)
-        print(f"{name} card against cpu (64x64 @ 2 spp): match_frac {frac:.4f}, "
+        print(f"{name} card against cpu (64x64 @ 1 spp): match_frac {frac:.4f}, "
               f"mean rel {mean_rel:.3e}; the CPU render "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         check(a.shape == (64, 64, 3) and frac >= 0.995 and mean_rel <= 5e-3,
@@ -1899,7 +1934,8 @@ def breadth_phase(render, counted, card, dev, profile):
     render_file on the card (write_breadth_pbrt: uber, substrate,
     translucent, metal, mix, uber with an imagemap opacity; spot, distant,
     projection and goniometric lights beside the emissive sphere), path at
-    400x400 @ 8 spp, depth 5, halton, spatial distribution: 48 launches, a
+    400x400 @ CUT_SPP (4) spp, depth 5, halton, spatial distribution: 24
+    launches, a
     bit-identical repeat, PBRT_TPU_BVH4=0 against bvh4; a 64x64 @ 1 spp copy
     under path, directlighting "all" and volpath on the card against the
     CPU, after the card's spatial distribution against the CPU's; each kernel
@@ -1918,10 +1954,10 @@ def breadth_phase(render, counted, card, dev, profile):
     out_dir = SMOKE_DIR / "breadth"
     t0 = time.perf_counter()
     split = {}
-    path = write_breadth_pbrt(out_dir)
+    path = write_breadth_pbrt(out_dir, spp=CUT_SPP)
     print(f"breadth file and maps written in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    want = SPP * (1 + DEPTH)
+    want = CUT_SPP * (1 + DEPTH)
     runs = []
     for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
         c0 = time.process_time()
@@ -1933,9 +1969,9 @@ def breadth_phase(render, counted, card, dev, profile):
               and launches[f"{other}_traverse"] == 0,
               f"breadth ({kind}) launches {launches}, not {want} of {kind}")
         wall = st["phases"]["Rendering"]
-        print(render_line(f"breadth {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+        print(render_line(f"breadth {RES[0]}x{RES[1]} @ {CUT_SPP} spp, {kind}", st,
                           launches, card)
-              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              + f", wall {wall / CUT_SPP:.4f} s a spp, process CPU of the whole "
               f"call {cpu:.3f} s, image mean {float(img.mean()):.6f}", flush=True)
         runs.append((img, launches))
     check(np.array_equal(runs[0][0], runs[1][0]), "breadth: a repeat differs")
@@ -2062,7 +2098,8 @@ def breadth_phase(render, counted, card, dev, profile):
 def advanced_phase(render, counted, card, dev, profile):
     """Phase 15: pbrt-v3's remaining materials through render_file on the
     card (write_advanced_pbrt: kdsubsurface, subsurface "Skin1", fourier,
-    disney, hair), path at 400x400 @ 8 spp, depth ADVANCED_DEPTH (3),
+    disney, hair), path at 400x400 @ CUT_SPP (4) spp, depth ADVANCED_DEPTH
+    (3),
     halton, spatial distribution: ADVANCED_LAUNCHES a spp, a bit-identical
     repeat,
     PBRT_TPU_BVH4=0 against bvh4; a 64x64 @ 1 spp copy under path and
@@ -2085,7 +2122,7 @@ def advanced_phase(render, counted, card, dev, profile):
     out_dir = SMOKE_DIR / "advanced"
     t0 = time.perf_counter()
     split = {}
-    path = write_advanced_pbrt(out_dir, depth=ADVANCED_DEPTH)
+    path = write_advanced_pbrt(out_dir, spp=CUT_SPP, depth=ADVANCED_DEPTH)
     t1 = time.perf_counter()
     bssrdf.compute_beam_diffusion_bssrdf(0.0, 1.33)
     t2 = time.perf_counter()
@@ -2094,7 +2131,7 @@ def advanced_phase(render, counted, card, dev, profile):
           f"BSSRDF table (g 0, eta 1.33) {t2 - t1:.3f} s (the file's two "
           f"subsurface materials share it), the .bsdf read "
           f"{time.perf_counter() - t2:.3f} s", flush=True)
-    want = SPP * ADVANCED_LAUNCHES
+    want = CUT_SPP * ADVANCED_LAUNCHES
     runs = []
     for kind, switch in (("bvh4", "1"), ("bvh4", "1"), ("bvh2", "0")):
         c0 = time.process_time()
@@ -2108,9 +2145,9 @@ def advanced_phase(render, counted, card, dev, profile):
         wall = st["phases"]["Rendering"]
         probes = int(np.asarray(st["counters"])[
             pstats.COUNTERS.index("Intersections/BSSRDF probe rays")])
-        print(render_line(f"advanced {RES[0]}x{RES[1]} @ {SPP} spp, {kind}", st,
+        print(render_line(f"advanced {RES[0]}x{RES[1]} @ {CUT_SPP} spp, {kind}", st,
                           launches, card)
-              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole "
+              + f", wall {wall / CUT_SPP:.4f} s a spp, process CPU of the whole "
               f"call {cpu:.3f} s, {probes} BSSRDF probe rays among the rays, "
               f"image mean {float(img.mean()):.6f}", flush=True)
         runs.append((img, launches))
@@ -3292,7 +3329,8 @@ def geometry_phase(render, counted, card, dev, profile):
     the card.  write_geometry_pbrt (inside the JAX package's gate: the
     triangle-only bvh4 and the six-type quadric pass) and
     write_instances_pbrt (past it: the typed build of bvh4), each at
-    400x400 @ 8 spp, path depth 5, halton, spatial: the launches of each
+    400x400 @ CUT_SPP (4) spp, path depth 5, halton, spatial: the launches
+    of each
     build, the wall a spp beside the process CPU, Mrays/s, set-up seconds
     by phase, the bytes on the card by table, a bit-identical repeat; the
     geometry file against the same scene made with SceneBuilder calls (bit
@@ -3316,7 +3354,7 @@ def geometry_phase(render, counted, card, dev, profile):
             ("instances", write_instances_pbrt, "bvh4_traverse_typed")):
         split = {}
         t0 = time.perf_counter()
-        path = write(out_dir / label)
+        path = write(out_dir / label, spp=CUT_SPP)
         split["file written"] = time.perf_counter() - t0
         # the user's entry point, counted
         t0 = time.perf_counter()
@@ -3324,13 +3362,14 @@ def geometry_phase(render, counted, card, dev, profile):
         img, st, launches = timed_render_file(render, counted, path,
                                               out_dir / f"{label}.pfm", dev)
         cpu = time.process_time() - c0
-        want = SPP * (1 + DEPTH)
+        want = CUT_SPP * (1 + DEPTH)
         check(launches[kernel] == want
               and all(v == 0 for k, v in launches.items() if k != kernel),
               f"{label}: launches {launches}, not {want} of {kernel} alone")
         wall = st["phases"]["Rendering"]
-        print(render_line(f"{label} {RES[0]}x{RES[1]} @ {SPP} spp", st, launches, card)
-              + f", wall {wall / SPP:.4f} s a spp, process CPU of the whole call "
+        print(render_line(f"{label} {RES[0]}x{RES[1]} @ {CUT_SPP} spp", st, launches,
+                          card)
+              + f", wall {wall / CUT_SPP:.4f} s a spp, process CPU of the whole call "
               f"{cpu:.3f} s; set-up split, s: "
               + json.dumps({k: round(v, 3) for k, v in st["setup_split"].items()})
               + f"; image mean {float(img.mean()):.6f}", flush=True)
@@ -3426,6 +3465,518 @@ def geometry_phase(render, counted, card, dev, profile):
 # The run
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 19: pbrt-v3's other light-transport integrators
+# ---------------------------------------------------------------------------
+
+# a bdpt sample at depth D launches the camera walk's D + 1, the light
+# walk's D, then a connection each for the D strategies with t = 1, the D
+# with s = 1 and the D (D - 1) / 2 with s, t >= 2 (integrators/bdpt.py)
+BDPT_LAUNCHES = (DEPTH + 1) + DEPTH + DEPTH + DEPTH + DEPTH * (DEPTH - 1) // 2
+# phase 19's MLT: the chains are the lanes; 65,536 bootstrap vectors a depth
+MLT_CHAINS, MLT_MPP = 65536, 4
+MLT_BOOTSTRAP = MLT_CHAINS * (DEPTH + 1)
+# phase 19's SPPM: photons an iteration at the pixel count; the radius
+# against main's scale (a 20-unit floor, ~0.02 units a pixel at the blob)
+SPPM_ITERATIONS, SPPM_RADIUS = 4, 0.3
+SPPM_LAUNCHES = 3 * DEPTH  # an iteration: 2 a camera bounce, 1 a photon bounce
+
+
+def write_transport_pbrt(out_dir: Path, integrator: str, extra: str = "",
+                         res=RES, spp=SPP) -> Path:
+    """write_main_pbrt's scene (its 262,144-triangle blob, the mirror
+    sphere's caustic and the emissive sphere, L = 40) with Integrator
+    `integrator` and its parameters `extra`, at res and spp."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = write_main_pbrt(out_dir).read_text()
+    text = text.replace(f'Integrator "path" "integer maxdepth" [{DEPTH}]',
+                        f'Integrator "{integrator}" "integer maxdepth" [{DEPTH}] {extra}')
+    text = text.replace(
+        f'"integer xresolution" [{RES[0]}] "integer yresolution" [{RES[1]}]',
+        f'"integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]')
+    text = text.replace(f'"integer pixelsamples" [{SPP}]',
+                        f'"integer pixelsamples" [{spp}]')
+    path = out_dir / f"{integrator}_{res[0]}.pbrt"
+    path.write_text(text)
+    return path
+
+
+def block_mean(img, res):
+    """img [H, W, 3] averaged over blocks down to res (x, y): the image at
+    the resolution a test's bars were set at (tests/test_bdpt.py's 20x20,
+    tests/test_mlt_sppm_tools.py's 16x16)."""
+    h, w = img.shape[:2]
+    return img.reshape(res[1], h // res[1], res[0], w // res[0], 3).mean((1, 3))
+
+
+def mean_corr(img, ref):
+    """tests/test_mlt_sppm_tools.py's measures: the means' relative
+    difference and the pixels' correlation."""
+    return (abs(float(img.mean()) - float(ref.mean())) / float(ref.mean()),
+            float(np.corrcoef(img.ravel(), ref.ravel())[0, 1]))
+
+
+def bdpt_bars(img, ref):
+    """tests/test_bdpt.py's measures at its 20x20: the means' relative
+    difference and the mean per-pixel difference over the mean."""
+    a, b = block_mean(img, (20, 20)), block_mean(ref, (20, 20))
+    return (abs(float(a.mean()) - float(b.mean())) / float(b.mean()),
+            float(np.abs(a - b).mean()) / float(b.mean()))
+
+
+def transport_batches(name, scene, captured, picks, kernels, bvh, out, bvh2_on):
+    """bvh4 against its plain version on the batches picks {label: index}
+    of one recorded sample, bvh2 against its plain version on the batch
+    bvh2_on, and bvh2 against bvh4 on every one."""
+    for label, i in picks.items():
+        oc, dc, tc, mc, order = captured[i]
+        print(f"batch {name}-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live, {int((mc > 0).sum())} any-hit", flush=True)
+        for kind, k in kernels.items():
+            if kind == "bvh2" and label != bvh2_on:
+                continue  # bvh2 is held to bvh4 below, bit for bit
+            out["results"][kind][f"{name}-{label}"] = kernel_case(
+                f"{kind}-{name}-{label}", k, bvh, scene, oc, dc, tc, mc > 0, "mask",
+                order, both_modes=False)
+        cross_check(f"{name}-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+
+
+def small_copy(render, path, dev):
+    """A 64x64 file rendered on the card and on the CPU: (card, cpu, the
+    CPU's seconds)."""
+    a, _ = render.render_file(str(path), out=str(path.with_suffix(".card.pfm")),
+                              device=dev)
+    t0 = time.perf_counter()
+    b, _ = render.render_file(str(path), out=str(path.with_suffix(".cpu.pfm")),
+                              device="cpu")
+    return a, b, time.perf_counter() - t0
+
+
+def transport_phase(render, counted, card, dev, profile):
+    """Phase 19: Integrator "bdpt", "mlt" and "sppm" through
+    render.render_file on main's scene at 400x400, depth 5, halton (the
+    mirror sphere's caustic is what they exist for), against the port's
+    path render of the file (8 spp).  bdpt at 8 spp: its launches, a
+    bit-identical repeat, PBRT_TPU_BVH4=0 at tests/test_torch_path.py:
+    58-59's bars, bvh4 against its plain version on one spp's camera-walk,
+    light-walk and (s = t = 2) connection batches and bvh2 on the
+    connection's, bvh2 against bvh4 on all three, a 64x64 @ 1 spp copy
+    card against CPU at the path bars, and tests/test_bdpt.py's bars
+    (means within 5%, mean per-pixel difference within 15%, at its 20x20)
+    against path on the file with the sphere in matte (2 spp each: the
+    path integrator counts light through the mirror twice, ROADMAP §3 O1;
+    main's own file is printed).  mlt with 65,536 chains, 4 mutations a
+    pixel, 393,216 bootstrap vectors: a bit-identical repeat, a 64x64 copy
+    (depth 2, 1,024 chains) card against CPU with the same draws (the
+    bootstrap's b within 1e-3, the images at the MLT bars), the image
+    against path at tests/test_mlt_sppm_tools.py's MLT bars at its 16x16
+    (means within 15%, correlation above 0.9).  sppm with 160,000 photons
+    an iteration: the photons a visible point gathers, a bit-identical
+    repeat, a 64x64 copy card against CPU at the path bars, the image
+    against path at the SPPM bars at 16x16 (12%, 0.95), and each kernel
+    against its plain version on one photon batch.  With --profile FILE,
+    one bdpt spp, one mlt render at 1 mutation a pixel and one sppm
+    iteration under torch.profiler (FILE's name plus "_bdpt", "_mlt",
+    "_sppm")."""
+    import torch
+    from pbrt_tpu_torch import film
+    from pbrt_tpu_torch.integrators import bdpt, mlt, sppm
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "transport"
+    kernels = bvh_kernels(bvh)
+    out = {"results": {kind: {} for kind in kernels}, "walls": {}}
+    split = {}
+
+    # the port's path render of the file, the reference of all three
+    t0 = time.perf_counter()
+    p_path = write_transport_pbrt(out_dir, "path")
+    ref, st, launches = timed_render_file(render, counted, p_path,
+                                          out_dir / "path.pfm", dev)
+    print(render_line(f"transport path reference 400x400 @ {SPP} spp", st, launches,
+                      card), flush=True)
+    split["path reference"] = time.perf_counter() - t0
+
+    # bdpt
+    t0 = time.perf_counter()
+    p = write_transport_pbrt(out_dir, "bdpt")
+    imgs = []
+    for _ in range(2):
+        ranks0 = film.add_splats.ranks
+        img, st, launches = timed_render_file(render, counted, p,
+                                              out_dir / "bdpt.pfm", dev)
+        check(launches["bvh4_traverse"] == SPP * BDPT_LAUNCHES
+              and launches["bvh2_traverse"] == 0,
+              f"bdpt: launches {launches}, not {SPP * BDPT_LAUNCHES}")
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"bdpt main {RES[0]}x{RES[1]} @ {SPP} spp", st, launches,
+                          card)
+              + f", wall {wall / SPP:.4f} s a spp, splat rounds "
+              f"{film.add_splats.ranks - ranks0}, image mean {float(img.mean()):.6f}",
+              flush=True)
+        out["walls"].setdefault("bdpt", []).append(wall)
+        imgs.append(img)
+    check(np.array_equal(imgs[0], imgs[1]), "bdpt: a repeat differs")
+    out["bdpt"] = launches["bvh4_traverse"]
+    img2, _, launches2 = timed_render_file(render, counted, p, out_dir / "bdpt2.pfm",
+                                           dev, switch="0")
+    check(launches2["bvh2_traverse"] == SPP * BDPT_LAUNCHES
+          and launches2["bvh4_traverse"] == 0, f"bdpt bvh2: launches {launches2}")
+    frac, mrel = image_bars(imgs[0], img2)
+    print(f"bdpt bvh2 against bvh4: match_frac {frac:.4f}, mean rel {mrel:.3e}",
+          flush=True)
+    check(frac >= 0.995 and mrel <= 5e-3, f"bdpt bvh2: {frac}, {mrel}")
+    # the path integrator counts light seen through the mirror twice (its
+    # NEE samples the specular lobe, as the JAX package's does, and the
+    # next bounce adds the emission again): printed here; the bars are held
+    # on the same file with the sphere in matte
+    rel, per_pix = bdpt_bars(imgs[0], ref)
+    print(f"bdpt against path, main's file: means differ by {rel:.4f}, mean "
+          f"per-pixel difference at 20x20 {per_pix:.4f} of the mean; at "
+          f"400x400 {float(np.abs(imgs[0] - ref).mean()) / float(ref.mean()):.4f}",
+          flush=True)
+    matte = {}
+    for integ in ("path", "bdpt"):
+        q = write_transport_pbrt(out_dir / "matte", integ, spp=2)
+        q.write_text(q.read_text().replace('Material "mirror" "rgb Kr" [0.9 0.9 0.9]',
+                                           'Material "matte" "rgb Kd" [0.7 0.7 0.7]'))
+        matte[integ], _, _ = timed_render_file(render, counted, q,
+                                               out_dir / f"matte_{integ}.pfm", dev)
+    rel, per_pix = bdpt_bars(matte["bdpt"], matte["path"])
+    print(f"bdpt against path, the sphere in matte (2 spp each): means differ by "
+          f"{rel:.4f} (bar 0.05), mean per-pixel difference at 20x20 {per_pix:.4f} "
+          f"of the mean (bar 0.15)", flush=True)
+    check(rel < 0.05 and per_pix < 0.15, f"bdpt against path: {rel}, {per_pix}")
+    split["bdpt renders"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(p))
+    scene = setup.build_scene(dev)
+    camera = setup.make_camera()
+    film_cfg, filt = setup.make_film_config()
+    with bvh.record_calls() as captured:
+        bdpt.render(scene, camera, film_cfg, SamplerConfig("halton", 1, RES),
+                    setup.make_integrator_config(), filt, device=dev)
+    check(len(captured) == BDPT_LAUNCHES,
+          f"bdpt: one spp launched {len(captured)} times, not {BDPT_LAUNCHES}")
+    # the camera walk's first segment, the light walk's first, the first
+    # t = 1 connection (to the lens), the first s = 1 (a light sample) and
+    # the first s, t >= 2 (the strategies' order: bdpt.strategies)
+    order = bdpt.strategies(DEPTH)
+    traced = [st_ for st_ in order if st_[0] != 0]
+    conn0 = 2 * DEPTH + 1
+    picks = {"camera-walk": 0, "light-walk": DEPTH + 1,
+             "connect-s2t2": conn0 + traced.index((2, 2))}
+    transport_batches("bdpt", scene, captured, picks, kernels, bvh, out,
+                      "connect-s2t2")
+    del captured
+    if profile is not None:
+        profile_render(lambda: bdpt.render(scene, camera, film_cfg,
+                                           SamplerConfig("halton", 1, RES),
+                                           setup.make_integrator_config(), filt,
+                                           device=dev),
+                       profile.with_name(f"{profile.stem}_bdpt{profile.suffix}"),
+                       "bdpt profile")
+    split["bdpt kernel checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    small = write_transport_pbrt(out_dir, "bdpt", res=(64, 64), spp=1)
+    a, b, cpu_s = small_copy(render, small, dev)
+    frac, mrel = image_bars(b, a)
+    print(f"bdpt card against cpu (64x64 @ 1 spp): match_frac {frac:.4f}, mean rel "
+          f"{mrel:.3e}; the CPU render {cpu_s:.2f} s", flush=True)
+    check(frac >= 0.995 and mrel <= 5e-3, f"bdpt card against cpu: {frac}, {mrel}")
+    split["bdpt 64x64 copy"] = time.perf_counter() - t0
+
+    # mlt
+    t0 = time.perf_counter()
+    extra = (f'"integer chains" [{MLT_CHAINS}] "integer mutationsperpixel" '
+             f'[{MLT_MPP}] "integer bootstrapsamples" [{MLT_BOOTSTRAP}]')
+    p = write_transport_pbrt(out_dir, "mlt", extra)
+    imgs = []
+    for _ in range(2):
+        img, st, launches = timed_render_file(render, counted, p, out_dir / "mlt.pfm",
+                                              dev)
+        info = dict(mlt.render.info)
+        wall = st["phases"]["Rendering"]
+        print(render_line(f"mlt main {RES[0]}x{RES[1]}, {MLT_CHAINS} chains, "
+                          f"{MLT_MPP} mutations a pixel", st, launches, card)
+              + f", b {info['b']:.6f}, chains a depth {info['chains']}, steps "
+              f"{info['steps']}, splat rounds {info['splat_rounds']}, image mean "
+              f"{float(img.mean()):.6f}", flush=True)
+        out["walls"].setdefault("mlt", []).append(wall)
+        imgs.append(img)
+    check(np.array_equal(imgs[0], imgs[1]), "mlt: a repeat differs")
+    out["mlt"] = launches["bvh4_traverse"]
+    out["mlt_info"] = info
+    rel, corr = mean_corr(block_mean(imgs[0], (16, 16)), block_mean(ref, (16, 16)))
+    print(f"mlt against path at 16x16: means differ by {rel:.4f} (bar 0.15), "
+          f"correlation {corr:.4f} (bar 0.9); at 400x400 "
+          f"{mean_corr(imgs[0], ref)[1]:.4f}", flush=True)
+    check(rel < 0.15 and corr > 0.9, f"mlt against path: {rel}, {corr}")
+    if profile is not None:
+        q = write_transport_pbrt(out_dir / "profile", "mlt", extra.replace(
+            f'"integer mutationsperpixel" [{MLT_MPP}]',
+            '"integer mutationsperpixel" [1]'))
+        setup = parse_pbrt_file(str(q))
+        scene = setup.build_scene(dev)
+        film_cfg, _ = setup.make_film_config()
+        profile_render(lambda: mlt.render(scene, setup.make_camera(), film_cfg, None,
+                                          setup.make_integrator_config(),
+                                          device=dev),
+                       profile.with_name(f"{profile.stem}_mlt{profile.suffix}"),
+                       "mlt profile (1 mutation a pixel)")
+        del scene
+    split["mlt renders"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    small = write_transport_pbrt(
+        out_dir, "mlt", '"integer chains" [1024] "integer mutationsperpixel" [1] '
+        '"integer bootstrapsamples" [6144]', res=(64, 64), spp=1)
+    small.write_text(small.read_text().replace(
+        f'"integer maxdepth" [{DEPTH}]', '"integer maxdepth" [2]'))
+    a, _ = render.render_file(str(small), out=str(out_dir / "mlt_small_card.pfm"),
+                              device=dev)
+    b_card = mlt.render.info["b"]
+    c0 = time.perf_counter()
+    b, _ = render.render_file(str(small), out=str(out_dir / "mlt_small_cpu.pfm"),
+                              device="cpu")
+    b_cpu = mlt.render.info["b"]
+    rel, corr = mean_corr(a, b)
+    b_rel = abs(b_card - b_cpu) / max(abs(b_cpu), 1e-12)
+    print(f"mlt card against cpu (64x64, depth 2, 1024 chains, the same draws): b "
+          f"{b_card:.6f} against {b_cpu:.6f} (rel {b_rel:.2e}, bar 1e-3), means "
+          f"differ by {rel:.4f}, correlation {corr:.4f}; the CPU render "
+          f"{time.perf_counter() - c0:.2f} s", flush=True)
+    check(b_rel <= 1e-3 and rel < 0.15 and corr > 0.9,
+          f"mlt card against cpu: b {b_rel}, {rel}, {corr}")
+    split["mlt 64x64 copy"] = time.perf_counter() - t0
+
+    # sppm
+    t0 = time.perf_counter()
+    extra = (f'"integer numiterations" [{SPPM_ITERATIONS}] "integer '
+             f'photonsperiteration" [{RES[0] * RES[1]}] "float radius" [{SPPM_RADIUS}]')
+    p = write_transport_pbrt(out_dir, "sppm", extra)
+    imgs = []
+    for _ in range(2):
+        img, st, launches = timed_render_file(render, counted, p,
+                                              out_dir / "sppm.pfm", dev)
+        check(launches["bvh4_traverse"] == SPPM_ITERATIONS * SPPM_LAUNCHES,
+              f"sppm: launches {launches}, not {SPPM_ITERATIONS * SPPM_LAUNCHES}")
+        info = dict(sppm.render.info)
+        wall = st["phases"]["Rendering"]
+        n_vp = RES[0] * RES[1] * SPPM_ITERATIONS
+        print(render_line(f"sppm main {RES[0]}x{RES[1]}, {SPPM_ITERATIONS} "
+                          f"iterations of {RES[0] * RES[1]} photons, radius "
+                          f"{SPPM_RADIUS}", st, launches, card)
+              + f", wall {wall / SPPM_ITERATIONS:.4f} s an iteration, photons a "
+              f"visible point gathers {info['found'] / n_vp:.2f} (of "
+              f"{info['pairs'] / n_vp:.1f} tested), gather rounds {info['rounds']}, "
+              f"image mean {float(img.mean()):.6f}", flush=True)
+        out["walls"].setdefault("sppm", []).append(wall)
+        imgs.append(img)
+    check(np.array_equal(imgs[0], imgs[1]), "sppm: a repeat differs")
+    out["sppm"] = launches["bvh4_traverse"]
+    out["sppm_info"] = info
+    rel, corr = mean_corr(block_mean(imgs[0], (16, 16)), block_mean(ref, (16, 16)))
+    print(f"sppm against path at 16x16: means differ by {rel:.4f} (bar 0.12), "
+          f"correlation {corr:.4f} (bar 0.95); at 400x400 "
+          f"{mean_corr(imgs[0], ref)[1]:.4f}", flush=True)
+    check(rel < 0.12 and corr > 0.95, f"sppm against path: {rel}, {corr}")
+    split["sppm renders"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(p))
+    scene = setup.build_scene(dev)
+    one = dataclasses.replace(setup.make_integrator_config(), n_iterations=1)
+    with bvh.record_calls() as captured:
+        sppm.render(scene, setup.make_camera(), film_cfg, None, one, device=dev)
+    check(len(captured) == SPPM_LAUNCHES,
+          f"sppm: one iteration launched {len(captured)} times, not {SPPM_LAUNCHES}")
+    # the camera pass launches 2 a bounce, then the photon walk
+    transport_batches("sppm", scene, captured, {"photon-walk": 2 * DEPTH},
+                      kernels, bvh, out, "photon-walk")
+    del captured
+    if profile is not None:
+        profile_render(lambda: sppm.render(scene, setup.make_camera(), film_cfg, None,
+                                           one, device=dev),
+                       profile.with_name(f"{profile.stem}_sppm{profile.suffix}"),
+                       "sppm profile")
+    del scene
+    small = write_transport_pbrt(out_dir, "sppm", f'"integer numiterations" [4] '
+                                 f'"float radius" [{SPPM_RADIUS}]', res=(64, 64))
+    a, b, cpu_s = small_copy(render, small, dev)
+    frac, mrel = image_bars(b, a)
+    print(f"sppm card against cpu (64x64, 4 iterations): match_frac {frac:.4f}, "
+          f"mean rel {mrel:.3e}; the CPU render {cpu_s:.2f} s", flush=True)
+    check(frac >= 0.995 and mrel <= 5e-3, f"sppm card against cpu: {frac}, {mrel}")
+    split["sppm checks and copy"] = time.perf_counter() - t0
+    print("transport phase split, s: "
+          + json.dumps({k: round(v, 2) for k, v in split.items()}), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phases 10-19 by name: (number, the call on the shared arguments).
+LATER = {
+    "config3": (10, lambda a: config3_phase(a.render, a.counted, a.card, a.dev,
+                                            a.profile)),
+    "direct": (11, lambda a: direct_phase(a.render, a.read_pfm, a.counted, a.card,
+                                          a.dev)),
+    "config4": (12, lambda a: config4_phase(a.render, a.counted, a.card, a.dev,
+                                            a.profile)),
+    "whitted and ao": (13, lambda a: whitted_ao_phase(a.render, a.counted, a.card,
+                                                      a.dev)),
+    "breadth": (14, lambda a: breadth_phase(a.render, a.counted, a.card, a.dev,
+                                            a.profile)),
+    "advanced": (15, lambda a: advanced_phase(a.render, a.counted, a.card, a.dev,
+                                              a.profile)),
+    "imaging": (16, lambda a: imaging_phase(a.render, a.counted, a.card, a.dev,
+                                            a.profile)),
+    "grad breadth": (17, lambda a: grad_breadth_phase(a.counted, a.card, a.dev,
+                                                      a.profile)),
+    "geometry": (18, lambda a: geometry_phase(a.render, a.counted, a.card, a.dev,
+                                              a.profile)),
+    "transport": (19, lambda a: transport_phase(a.render, a.counted, a.card, a.dev,
+                                                a.profile)),
+}
+# The script is host-bound (a render waits on Python issuing operations, and
+# the plain versions and CPU copies run on the host), so phases 10-19 run in
+# groups side by side: the first group in this process after phase 9, each
+# other in a worker process of its own on the same card, started after phase
+# 4 so that phases 3 and 4's kernel times have the card to themselves.  The
+# groups are balanced by their seconds when the phases ran one after another
+# (PERF.md).  Each process counts its own launches, so a phase's counts stay
+# its own.
+GROUPS = (("direct", "whitted and ao"), ("transport", "config3"), ("grad breadth",),
+          ("geometry", "config4"), ("imaging", "advanced", "breadth"))
+WORKER_THREADS = 2  # torch's CPU threads in each process once the workers run
+DEADLINE_S = 1100.0  # the workers are stopped, and the script fails, past this
+
+
+def later_args(card: str, profile: Path | None):
+    """What phases 10-19 take: the front end, the counted wrappers, the card."""
+    import types
+
+    import torch
+    from pbrt_tpu_torch import render
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.tools import bench_layout_probe as bp
+    from pbrt_tpu_torch.utils.imageio import read_pfm
+
+    counted = {"bvh4_traverse": bvh.bvh4_traverse,
+               "bvh2_traverse": bvh.bvh2_traverse,
+               "bvh4_traverse_typed": bvh.bvh4_traverse_typed,
+               "chain_fused": bp.chain_fused}
+    return types.SimpleNamespace(render=render, read_pfm=read_pfm, counted=counted,
+                                 card=card, dev=torch.device("cuda", 0),
+                                 profile=profile)
+
+
+def run_later(names, args) -> dict:
+    import torch
+
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        out[name] = LATER[name][1](args)
+        phase(name, t0)
+        torch.cuda.empty_cache()
+    return out
+
+
+def start_workers(card: str, profile: Path | None) -> list:
+    """One process a group of GROUPS but the first, each running
+    `chip_smoke.py --worker`, its output written to a log under SMOKE_DIR."""
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    workers = []
+    for i, names in enumerate(GROUPS[1:], 1):
+        log, result = SMOKE_DIR / f"worker{i}.log", SMOKE_DIR / f"worker{i}.pkl"
+        result.unlink(missing_ok=True)
+        cmd = [sys.executable, str(HERE / "chip_smoke.py"), "--worker", ",".join(names),
+               "--result", str(result), "--parent", str(os.getpid()), "--card", card]
+        if profile is not None:
+            cmd += ["--profile", str(profile)]
+        fh = open(log, "w")
+        workers.append(dict(names=names, log=log, result=result, fh=fh,
+                            t0=time.perf_counter(),
+                            proc=subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                                  stdin=subprocess.DEVNULL, cwd=HERE)))
+    return workers
+
+
+def join_workers(workers, deadline: float) -> dict:
+    """Wait for every worker; fail at the first that fails or at the deadline.
+    Prints each worker's log, in the order of its first phase, and returns
+    the phases' results."""
+    import pickle
+
+    running = list(workers)
+    while running:
+        for w in list(running):
+            rc = w["proc"].poll()
+            if rc is None:
+                continue
+            running.remove(w)
+            w["wall"] = time.perf_counter() - w["t0"]
+            w["fh"].close()
+            if rc != 0:
+                text = w["log"].read_text()
+                print(text, end="", flush=True)
+                failed = [ln for ln in text.splitlines() if ln.strip()][-1:] or [""]
+                raise SmokeFailure(f"phases {', '.join(w['names'])} (exit code {rc}): "
+                                   f"{failed[0]}")
+        if running and time.perf_counter() > deadline:
+            raise SmokeFailure("phases " + "; ".join(", ".join(w["names"]) for w in running)
+                               + f" still running after {DEADLINE_S:.0f} s")
+        time.sleep(0.5)
+    out = {}
+    for w in sorted(workers, key=lambda w: min(LATER[n][0] for n in w["names"])):
+        print(f"worker ({', '.join(w['names'])}): {w['wall']:.2f} s, its output:",
+              flush=True)
+        print(w["log"].read_text(), end="", flush=True)
+        with open(w["result"], "rb") as fh:
+            out.update(pickle.load(fh))
+    return out
+
+
+def stop_workers(workers):
+    for w in workers:
+        if w["proc"].poll() is None:
+            w["proc"].kill()
+        w["proc"].wait()
+        w["fh"].close()
+
+
+def worker_main(names, result: Path, parent: int, card: str,
+                profile: Path | None) -> int:
+    """A worker: runs phases `names`, pickles their results to `result`."""
+    import ctypes
+    import pickle
+    import signal
+
+    # killed when the parent ends, whichever way it ends (PR_SET_PDEATHSIG)
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:
+        return 1
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    torch.set_num_threads(WORKER_THREADS)
+    try:
+        out = run_later(names, later_args(card, profile))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", flush=True)
+        return 1
+    tmp = result.with_suffix(".tmp")
+    with open(tmp, "wb") as fh:
+        pickle.dump(out, fh)
+    os.replace(tmp, result)
+    return 0
+
+
 def run(profile: Path | None = None) -> dict:
     import torch
 
@@ -3499,140 +4050,106 @@ def run(profile: Path | None = None) -> dict:
     probe = probe_phase(bp, dev, counted)
     phase("layout probe", t0)
 
-    # 5. main path, through the entry point a user calls
-    t0 = time.perf_counter()
-    sampler = SamplerConfig("halton", SPP, RES)
-    reset_counts(counted)
-    torch.cuda.synchronize()
-    t1, c1 = time.perf_counter(), time.process_time()
-    img, rays = path.render(scene, camera, film_cfg, sampler, cfg, count_rays=True)
-    torch.cuda.synchronize()
-    wall, cpu = time.perf_counter() - t1, time.process_time() - c1
-    launches = read_counts(counted)
-    check(launches["bvh4_traverse"] == SPP * (1 + DEPTH),
-          f"main path launched bvh4 {launches['bvh4_traverse']} times, not "
-          f"{SPP * (1 + DEPTH)}")
-    check(launches["bvh2_traverse"] == 0 and launches["bvh4_traverse_typed"] == 0,
-          "main path launched bvh2 or the typed build")
-    check(tuple(img.shape) == (RES[1], RES[0], 3), f"image shape {tuple(img.shape)}")
-    check(bool(torch.isfinite(img).all()), "image has non-finite values")
-    check(float(img.mean()) > 0.0, "image is black")
-    t1, c1 = time.perf_counter(), time.process_time()
-    img2 = path.render(scene, camera, film_cfg, sampler, cfg)
-    torch.cuda.synchronize()
-    wall2, cpu2 = time.perf_counter() - t1, time.process_time() - c1
-    check(torch.equal(img, img2), "a second render differs")
-    print(f"main path: {RES[0]}x{RES[1]} @ {SPP} spp, depth {DEPTH}: "
-          f"{wall:.3f} s wall ({wall2:.3f} s the repeat), {int(rays)} rays, "
-          f"{rays / wall / 1e6:.3f} Mrays/s, launches {launches}, "
-          f"image mean {float(img.mean()):.6f}, repeat bit-identical", flush=True)
-    # host CPU time of this process beside the wall: near the wall when the
-    # render waits on the host issuing operations, not on the card
-    print(f"main path host: process CPU {cpu:.3f} s ({cpu2:.3f} s the repeat), "
-          f"{len(os.sched_getaffinity(0))} cores, load average "
-          f"{os.getloadavg()[0]:.2f}", flush=True)
-    k4 = per_spp["bvh4"]
-    print(f"main path kernel time: {k4['ms']:.4f} ms per spp (bound "
-          f"{k4['bound_ms']:.4f} ms, visit bound {k4['visit_bound_ms']:.4f} ms, "
-          f"plain {k4['plain_ms']:.1f} ms), {k4['ms'] * SPP / (wall * 1e3):.4%} "
-          f"of the render's wall", flush=True)
-    if profile is not None:
-        profile_render(lambda: path.render(scene, camera, film_cfg,
-                                           SamplerConfig("halton", 1, RES), cfg),
-                       profile)
-    ref_img = img.cpu().numpy()
-    del img, img2
-    phase("main path", t0)
+    # phases 10-19: GROUPS[1:] in workers from here on, GROUPS[0] here after 9
+    workers = start_workers(card, profile)
+    try:
+        torch.set_num_threads(WORKER_THREADS)
+        # 5. main path, through the entry point a user calls
+        t0 = time.perf_counter()
+        sampler = SamplerConfig("halton", SPP, RES)
+        reset_counts(counted)
+        torch.cuda.synchronize()
+        t1, c1 = time.perf_counter(), time.process_time()
+        img, rays = path.render(scene, camera, film_cfg, sampler, cfg, count_rays=True)
+        torch.cuda.synchronize()
+        wall, cpu = time.perf_counter() - t1, time.process_time() - c1
+        launches = read_counts(counted)
+        check(launches["bvh4_traverse"] == SPP * (1 + DEPTH),
+              f"main path launched bvh4 {launches['bvh4_traverse']} times, not "
+              f"{SPP * (1 + DEPTH)}")
+        check(launches["bvh2_traverse"] == 0 and launches["bvh4_traverse_typed"] == 0,
+              "main path launched bvh2 or the typed build")
+        check(tuple(img.shape) == (RES[1], RES[0], 3), f"image shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), "image has non-finite values")
+        check(float(img.mean()) > 0.0, "image is black")
+        t1, c1 = time.perf_counter(), time.process_time()
+        img2 = path.render(scene, camera, film_cfg, sampler, cfg)
+        torch.cuda.synchronize()
+        wall2, cpu2 = time.perf_counter() - t1, time.process_time() - c1
+        check(torch.equal(img, img2), "a second render differs")
+        print(f"main path: {RES[0]}x{RES[1]} @ {SPP} spp, depth {DEPTH}: "
+              f"{wall:.3f} s wall ({wall2:.3f} s the repeat), {int(rays)} rays, "
+              f"{rays / wall / 1e6:.3f} Mrays/s, launches {launches}, "
+              f"image mean {float(img.mean()):.6f}, repeat bit-identical", flush=True)
+        # host CPU time of this process beside the wall: near the wall when the
+        # render waits on the host issuing operations, not on the card
+        print(f"main path host: process CPU {cpu:.3f} s ({cpu2:.3f} s the repeat), "
+              f"{len(os.sched_getaffinity(0))} cores, load average "
+              f"{os.getloadavg()[0]:.2f}", flush=True)
+        k4 = per_spp["bvh4"]
+        print(f"main path kernel time: {k4['ms']:.4f} ms per spp (bound "
+              f"{k4['bound_ms']:.4f} ms, visit bound {k4['visit_bound_ms']:.4f} ms, "
+              f"plain {k4['plain_ms']:.1f} ms), {k4['ms'] * SPP / (wall * 1e3):.4%} "
+              f"of the render's wall", flush=True)
+        if profile is not None:
+            profile_render(lambda: path.render(scene, camera, film_cfg,
+                                               SamplerConfig("halton", 1, RES), cfg),
+                           profile)
+        ref_img = img.cpu().numpy()
+        del img, img2
+        phase("main path", t0)
 
-    # 6. card against CPU on the small demo scene
-    t0 = time.perf_counter()
-    small = (32, 32)
-    fields = demo_scene(sc.SceneBuilder, sc, tf).build_numpy()
-    s_gpu = sc.SceneArrays.from_numpy(fields, dev)
-    s_cpu = sc.SceneArrays.from_numpy(fields, "cpu")
-    cam_s = camera_for(cameras, tf, small)
-    fc = FilmConfig(full_resolution=small)
-    for depth_s, per_pixel in ((1, True), (3, False)):
-        kw = dict(film_cfg=fc, sampler_cfg=SamplerConfig("halton", 2, small),
-                  cfg=path.PathConfig(max_depth=depth_s))
-        a = path.render(s_gpu, cam_s, device=dev, **kw).cpu().numpy()
-        b = path.render(s_cpu, cam_s, device="cpu", **kw).numpy()
-        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2)
-        frac = float(np.all(rel <= 1e-3, -1).mean())
-        mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()), 1e-6)
-        print(f"card vs cpu depth {depth_s}: match_frac {frac:.4f}, "
-              f"mean rel {mean_rel:.3e}", flush=True)
-        if per_pixel:
-            check(frac >= 0.995, f"card vs cpu depth {depth_s}: {frac}")
-        else:
-            check(mean_rel <= 1e-3, f"card vs cpu depth {depth_s}: {mean_rel}")
-    del s_gpu
-    phase("card against cpu", t0)
+        # 6. card against CPU on the small demo scene
+        t0 = time.perf_counter()
+        small = (32, 32)
+        fields = demo_scene(sc.SceneBuilder, sc, tf).build_numpy()
+        s_gpu = sc.SceneArrays.from_numpy(fields, dev)
+        s_cpu = sc.SceneArrays.from_numpy(fields, "cpu")
+        cam_s = camera_for(cameras, tf, small)
+        fc = FilmConfig(full_resolution=small)
+        for depth_s, per_pixel in ((1, True), (3, False)):
+            kw = dict(film_cfg=fc, sampler_cfg=SamplerConfig("halton", 2, small),
+                      cfg=path.PathConfig(max_depth=depth_s))
+            a = path.render(s_gpu, cam_s, device=dev, **kw).cpu().numpy()
+            b = path.render(s_cpu, cam_s, device="cpu", **kw).numpy()
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2)
+            frac = float(np.all(rel <= 1e-3, -1).mean())
+            mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()), 1e-6)
+            print(f"card vs cpu depth {depth_s}: match_frac {frac:.4f}, "
+                  f"mean rel {mean_rel:.3e}", flush=True)
+            if per_pixel:
+                check(frac >= 0.995, f"card vs cpu depth {depth_s}: {frac}")
+            else:
+                check(mean_rel <= 1e-3, f"card vs cpu depth {depth_s}: {mean_rel}")
+        del s_gpu
+        phase("card against cpu", t0)
 
-    # 7. parity ladder
-    t0 = time.perf_counter()
-    ladder_phase(render, read_pfm, dev)
-    phase("parity ladder", t0)
+        # 7. parity ladder
+        t0 = time.perf_counter()
+        ladder_phase(render, read_pfm, dev)
+        phase("parity ladder", t0)
 
-    # 8. CLI at full width, both BVH kernels
-    t0 = time.perf_counter()
-    bvh2_launches = cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev)
-    phase("cli", t0)
+        # 8. CLI at full width, both BVH kernels
+        t0 = time.perf_counter()
+        bvh2_launches = cli_phase(render, read_pfm, lightdistrib, counted, ref_img, dev)
+        phase("cli", t0)
 
-    # 9. differentiable rendering on the main scene
-    t0 = time.perf_counter()
-    grad_launches = grad_phase(
-        diff, path, stats, SamplerConfig, scene, camera, film_cfg, cfg, counted,
-        card, dev, None if profile is None
-        else profile.with_name(f"{profile.stem}_grad{profile.suffix}"))
-    del scene
-    phase("grad", t0)
+        # 9. differentiable rendering on the main scene
+        t0 = time.perf_counter()
+        grad_launches = grad_phase(
+            diff, path, stats, SamplerConfig, scene, camera, film_cfg, cfg, counted,
+            card, dev, None if profile is None
+            else profile.with_name(f"{profile.stem}_grad{profile.suffix}"))
+        del scene
+        phase("grad", t0)
 
-    # 10. BASELINE config 3's features through the front end
-    t0 = time.perf_counter()
-    c3 = config3_phase(render, counted, card, dev, profile)
-    phase("config3", t0)
-
-    # 11. the direct-lighting integrator
-    t0 = time.perf_counter()
-    dl = direct_phase(render, read_pfm, counted, card, dev)
-    phase("direct", t0)
-
-    # 12. BASELINE config 4: participating media, volpath
-    t0 = time.perf_counter()
-    c4 = config4_phase(render, counted, card, dev, profile)
-    phase("config4", t0)
-
-    # 13. the Whitted and ambient-occlusion integrators
-    t0 = time.perf_counter()
-    wa = whitted_ao_phase(render, counted, card, dev)
-    phase("whitted and ao", t0)
-
-    # 14. pbrt-v3's classic materials and lights
-    t0 = time.perf_counter()
-    br = breadth_phase(render, counted, card, dev, profile)
-    phase("breadth", t0)
-
-    # 15. pbrt-v3's remaining materials: disney, hair, fourier, subsurface
-    t0 = time.perf_counter()
-    adv = advanced_phase(render, counted, card, dev, profile)
-    phase("advanced", t0)
-
-    # 16. image formation: samplers, filters, cameras, the exact mode
-    t0 = time.perf_counter()
-    img16 = imaging_phase(render, counted, card, dev, profile)
-    phase("imaging", t0)
-
-    # 17. gradients through every family the port renders
-    t0 = time.perf_counter()
-    gb = grad_breadth_phase(counted, card, dev, profile)
-    phase("grad breadth", t0)
-
-    # 18. pbrt-v3's remaining shapes: the quadrics, heightfield, loop
-    # subdivision, NURBS, instancing and curves, the typed build of bvh4
-    t0 = time.perf_counter()
-    geo = geometry_phase(render, counted, card, dev, profile)
-    phase("geometry", t0)
+        # GROUPS[0] here, then the workers' results
+        args = later_args(card, profile)
+        later = run_later(GROUPS[0], args)
+        later.update(join_workers(workers, t_all + DEADLINE_S))
+    finally:
+        stop_workers(workers)
+    c3, dl, c4, wa, br, adv, img16, gb, geo, tr = (later[n] for n in LATER)
 
     # the kernels line
     entries = []
@@ -3649,7 +4166,8 @@ def run(profile: Path | None = None) -> dict:
                    + list(br["results"][kind].values())
                    + list(adv["results"][kind].values())
                    + list(img16["results"][kind].values())
-                   + list(geo["results"].get(kind, {}).values()))
+                   + list(geo["results"].get(kind, {}).values())
+                   + list(tr["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -3676,6 +4194,12 @@ def run(profile: Path | None = None) -> dict:
             "grad_breadth_launches": gb[kind],
             **{f"imaging_{label}_camera_{key}": r[key]
                for label, r in img16["results"][kind].items()
+               for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
+            "bdpt_launches": tr["bdpt"] if kind == "bvh4" else 0,
+            "mlt_launches": tr["mlt"] if kind == "bvh4" else 0,
+            "sppm_launches": tr["sppm"] if kind == "bvh4" else 0,
+            **{f"{label.replace('-', '_')}_{key}": r[key]
+               for label, r in tr["results"][kind].items()
                for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "mismatch_frac": max(r["mismatch_frac"] for r in checked),
@@ -3747,12 +4271,20 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="FILE",
                     help="profile one more sample of the main path; write the "
                          "profiler's table to FILE")
+    # a worker of run(), started by it: phases of GROUPS, its result pickled
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--card", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch  # noqa: F401
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
         return 2
+    if args.worker:
+        return worker_main(args.worker.split(","), args.result, args.parent, args.card,
+                           args.profile)
     try:
         result = run(profile=args.profile)
     except SmokeFailure as e:

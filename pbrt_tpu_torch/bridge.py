@@ -14,7 +14,9 @@ world-to-light matrix and Distribution2D, the texture table (rows, image atlas, 
 level counts), and the medium table with each primitive's inside and
 outside medium and the camera's; ``params_from_numpy``
 carries the differentiable parameters over the same way.  ``compare_setups``
-holds a RenderSetup parsed by the JAX package against one parsed by the port.
+holds a RenderSetup parsed by the JAX package against one parsed by the port
+(the bdpt, mlt and sppm configurations field by field, against the
+parameters the JAX package's render.py reads).
 The port itself never imports JAX or pbrt_tpu.
 """
 from __future__ import annotations
@@ -176,6 +178,25 @@ def compare_setups(jax_setup, port_setup, rtol: float = 1e-6) -> list[str]:
               ti.cos_sample, rtol)
         _diff(out, "integrator.n_samples", jp.find_one_int("nsamples", 64),
               ti.n_samples, rtol)
+    if port_setup.integrator_name in ("bdpt", "mlt", "sppm"):
+        # the JAX package reads these in render.py:121-153
+        from .sceneio.paramset import ParamSet
+
+        jp = jax_setup.integrator_params or ParamSet()
+        want = {"max_depth": jp.find_one_int("maxdepth", 5)}
+        if port_setup.integrator_name == "mlt":
+            want.update(n_bootstrap=jp.find_one_int("bootstrapsamples", 4096),
+                        n_chains=jp.find_one_int("chains", 1024),
+                        mutations_per_pixel=jp.find_one_int("mutationsperpixel", 4),
+                        sigma=jp.find_one_float("sigma", 0.01),
+                        large_step_prob=jp.find_one_float("largestepprobability", 0.3))
+        if port_setup.integrator_name == "sppm":
+            want.update(n_iterations=jp.find_one_int(
+                            "numiterations", jp.find_one_int("iterations", 16)),
+                        photons_per_iteration=jp.find_one_int("photonsperiteration", -1),
+                        initial_radius=jp.find_one_float("radius", 1.0))
+        for k, v in want.items():
+            _diff(out, f"integrator.{k}", v, getattr(ti, k), rtol)
     if hasattr(ti, "light_strategy"):  # the JAX package's PathConfig
         _diff(out, "integrator.rr_threshold", ji.rr_threshold, ti.rr_threshold,
               rtol)

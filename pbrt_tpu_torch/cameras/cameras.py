@@ -235,3 +235,81 @@ def generate_ray_differentials(cam, p_film, p_lens, time_u,
     s = 1.0 / math.sqrt(max(int(spp), 1))
     return (o, d, time, w, o + (rx_o - o) * s, d + (rx_d - d) * s,
             o + (ry_o - o) * s, d + (ry_d - d) * s)
+
+
+# ---------------------------------------------------------------------------
+# The camera's importance (perspective.cpp:185-260: We, Pdf_We, Sample_Wi)
+# for the light subpaths of bdpt and mlt, on the perspective pinhole alone,
+# as the JAX package has them (cameras.py:270-355); the integrators refuse
+# any other camera and a lens radius above 0.
+#
+# The JAX package inverts camera_to_world and raster_to_camera in float32
+# on every call; the port inverts them in float64 and rounds the inverses
+# to float32 once, so the two agree to float32 rounding of the inverses
+# (tests/test_torch_cameras.py states the tolerance).
+# ---------------------------------------------------------------------------
+
+def _inverse(m):
+    """A [4, 4] float32 matrix's inverse, computed in float64 (inv_ex:
+    no host synchronisation on the card)."""
+    return torch.linalg.inv_ex(m.to(torch.float64))[0].to(torch.float32)
+
+
+def _image_plane_area(cam):
+    """The image rectangle's area on the z = 1 plane (perspective.cpp:64-68)."""
+    xr, yr = cam.full_resolution
+    pts = torch.tensor([[0.0, 0.0, 0.0], [float(xr), float(yr), 0.0]],
+                       dtype=torch.float32, device=cam.raster_to_camera.device)
+    p = xform_point(cam.raster_to_camera, pts)
+    p_min = p[0] / p[0, 2]
+    p_max = p[1] / p[1, 2]
+    return torch.abs((p_max[0] - p_min[0]) * (p_max[1] - p_min[1]))
+
+
+def _film_hit(cam, d_c):
+    """The raster point where camera-space direction d_c meets the film,
+    and whether it lands on it."""
+    p_focus = d_c / torch.clamp(d_c[:, 2], min=1e-9)[:, None]
+    p_raster = xform_point(_inverse(cam.raster_to_camera), p_focus)
+    xr, yr = cam.full_resolution
+    on_film = ((d_c[:, 2] > 1e-6) & (p_raster[:, 0] >= 0) & (p_raster[:, 0] < xr)
+               & (p_raster[:, 1] >= 0) & (p_raster[:, 1] < yr))
+    return p_raster, on_film
+
+
+def camera_pdf_we(cam, o_w, d_w):
+    """PerspectiveCamera::Pdf_We (perspective.cpp:214-248): (pdf_pos,
+    pdf_dir) of generating the ray (o, d); the pinhole's pdf_pos is a
+    delta, returned as 1 on the film and 0 off it."""
+    d_c = xform_vector(_inverse(cam.camera_to_world), d_w)
+    cos_t = d_c[:, 2]
+    _, on_film = _film_hit(cam, d_c)
+    cos3 = cos_t * (cos_t * cos_t)
+    pdf_dir = torch.where(on_film, 1.0 / (_image_plane_area(cam) * cos3), 0.0)
+    return torch.where(on_film, 1.0, 0.0), pdf_dir
+
+
+def camera_sample_wi(cam, ref_p):
+    """PerspectiveCamera::Sample_Wi (perspective.cpp:250-260) for a pinhole:
+    the connection from ref_p to the camera's position.  Returns dict: wi
+    [n, 3] (toward the camera), pdf [n] (solid angle), we [n, 3]
+    (importance), p_raster [n, 2], p_cam [n, 3], valid [n]."""
+    n = ref_p.shape[0]
+    dev = ref_p.device
+    cam_p = xform_point(cam.camera_to_world,
+                        torch.zeros((n, 3), dtype=torch.float32, device=dev))
+    d = cam_p - ref_p
+    dist2 = torch.clamp(torch.sum(d * d, -1), min=1e-12)
+    wi = d / torch.sqrt(dist2)[:, None]
+    fwd = xform_vector(cam.camera_to_world,
+                       torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n, 3))
+    cos_t = torch.sum(-wi * normalize(fwd), -1)
+    d_c = xform_vector(_inverse(cam.camera_to_world), -wi)
+    p_raster, on_film = _film_hit(cam, d_c)
+    a = _image_plane_area(cam)
+    cos_c = torch.clamp(cos_t, min=1e-9)
+    cos_c2 = cos_c * cos_c
+    we = torch.where(on_film, 1.0 / (a * (cos_c2 * cos_c2)), 0.0)
+    pdf = torch.where(on_film, dist2 / cos_c, 0.0)
+    return {"wi": wi, "pdf": pdf, "we": we[:, None].expand(n, 3),
+            "p_raster": p_raster[:, :2], "p_cam": cam_p, "valid": on_film}

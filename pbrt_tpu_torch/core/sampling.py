@@ -72,6 +72,14 @@ def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
 
 
+def uniform_sample_cone(u, cos_theta_max):
+    """A direction in the cone about +z of cos_theta_max (sampling.cpp:151)."""
+    cos_t = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = u[..., 1] * 2.0 * PI
+    return _vec(torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t)
+
+
 def uniform_cone_pdf(cos_theta_max):
     """1 / (2 pi (1 - cos_theta_max)): inf where cos_theta_max is 1 (a point
     4096 radii or more from the sphere), with a zero gradient there; the

@@ -9,6 +9,12 @@ lights (Pdf_Li 0); a distant light's shadow ray runs to ref_p + w * 2 *
 world_radius.  An infinite light with a map is importance-sampled through
 the scene's Distribution2D; a constant one samples the uniform sphere.
 Escaped rays carry the infinite lights' radiance.
+
+``sample_le`` and ``pdf_le`` (Light::Sample_Le and Pdf_Le, the light
+subpaths of bdpt, mlt and sppm) cover the point, spot, distant and
+diffuse area lights, as the JAX package's do (lights.py:429-607): its
+sample_le leaves projection, goniometric and infinite lights at zero, so
+the integrators that call it refuse scenes with those lights.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ def _sphere_center_radius(scene, q_idx):
 
 def sample_li(scene, light_idx, ref_p, u, light_types):
     """Light::Sample_Li.  Returns dict: wi, li (radiance), pdf (solid angle),
-    p_light (shadow-ray target), is_delta."""
+    p_light (shadow-ray target), n_light (an area light's surface normal
+    there, -wi for the others), is_delta."""
     lt = scene.lights
     li_t = lt.light_type[light_idx]
     L = lt.L[light_idx]
@@ -46,6 +53,7 @@ def sample_li(scene, light_idx, ref_p, u, light_types):
     li = torch.zeros_like(ref_p)
     pdf = torch.zeros(n, dtype=torch.float32, device=ref_p.device)
     p_light = torch.zeros_like(ref_p)
+    n_light = torch.zeros_like(ref_p)
     is_delta = torch.zeros(n, dtype=torch.bool, device=ref_p.device)
 
     if sc.LIGHT_POINT in light_types:
@@ -144,6 +152,7 @@ def sample_li(scene, light_idx, ref_p, u, light_types):
         li = torch.where(m, torch.where(emit[:, None], L, 0.0), li)
         pdf = torch.where(m[:, 0], torch.where(inside, pdf_in, pdf_cone), pdf)
         p_light = torch.where(m, p_m, p_light)
+        n_light = torch.where(m, n_m, n_light)
 
         # triangle: uniform area sampling, converted to solid angle
         m = (m_area & (stype == sc.SHAPE_TRIANGLE))[:, None]
@@ -164,6 +173,7 @@ def sample_li(scene, light_idx, ref_p, u, light_types):
         li = torch.where(m, torch.where(emit[:, None], L, 0.0), li)
         pdf = torch.where(m[:, 0], pdf_t, pdf)
         p_light = torch.where(m, p_t, p_light)
+        n_light = torch.where(m, ng, n_light)
 
     if sc.LIGHT_INFINITE in light_types:
         # InfiniteAreaLight::Sample_Li (infinite.cpp:126-155).
@@ -191,8 +201,9 @@ def sample_li(scene, light_idx, ref_p, u, light_types):
         pdf = torch.where(m[:, 0], pdf_m, pdf)
         p_light = torch.where(m, ref_p + wi_m * (2.0 * lt.world_radius), p_light)
 
+    area = (li_t == sc.LIGHT_AREA)[:, None]
     return {"wi": wi, "li": li, "pdf": pdf, "p_light": p_light,
-            "is_delta": is_delta}
+            "n_light": torch.where(area, n_light, -wi), "is_delta": is_delta}
 
 
 def _apply_w2l(w2l, v):
@@ -337,6 +348,170 @@ def pdf_li(scene, light_idx, ref_p, wi, light_types):
     pdf_m = torch.where(r["hit"] & (cos_surf > 1e-7),
                         t_s * t_s / torch.clamp(cos_surf * area_t, min=1e-12), 0.0)
     return torch.where(m, pdf_m, pdf)
+
+
+def sample_le(scene, light_idx, u1, u2, light_types):
+    """Light::Sample_Le (point.cpp:58, spot.cpp:87, distant.cpp:76,
+    diffuse.cpp:103): an emitted ray.  Returns dict: o, d, n_light [n, 3],
+    pdf_pos, pdf_dir [n], le [n, 3], is_delta_pos [n] (point, spot and, as
+    in the JAX package, distant)."""
+    lt = scene.lights
+    li_t = lt.light_type[light_idx]
+    L = lt.L[light_idx]
+    n = u1.shape[0]
+    dev = u1.device
+    o = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    d = torch.zeros_like(o)
+    nl = torch.zeros_like(o)
+    pdf_pos = torch.zeros(n, dtype=torch.float32, device=dev)
+    pdf_dir = torch.zeros_like(pdf_pos)
+    le = torch.zeros_like(o)
+    delta_pos = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    if sc.LIGHT_POINT in light_types:
+        m = li_t == sc.LIGHT_POINT
+        mv = m[:, None]
+        w = smp.uniform_sample_sphere(u1)
+        o = torch.where(mv, lt.pos[light_idx], o)
+        d = torch.where(mv, w, d)
+        nl = torch.where(mv, w, nl)
+        pdf_pos = torch.where(m, 1.0, pdf_pos)
+        pdf_dir = torch.where(m, smp.uniform_sphere_pdf(), pdf_dir)
+        le = torch.where(mv, L, le)
+        delta_pos = delta_pos | m
+
+    if sc.LIGHT_SPOT in light_types:
+        # a uniform cone of the total width about the axis
+        m = li_t == sc.LIGHT_SPOT
+        mv = m[:, None]
+        c1 = lt.cos_falloff_end[light_idx]
+        w_local = smp.uniform_sample_cone(u1, c1)
+        axis = lt.dir[light_idx]
+        ax_x, ax_y = coordinate_system(axis)
+        w = (w_local[:, 0:1] * ax_x + w_local[:, 1:2] * ax_y
+             + w_local[:, 2:3] * axis)
+        ct = dot(w, axis)
+        c0 = lt.cos_falloff_start[light_idx]
+        delta = torch.clamp((ct - c1) / torch.clamp(c0 - c1, min=1e-9), 0.0, 1.0)
+        fall = torch.where(ct < c1, 0.0, torch.where(ct > c0, 1.0, delta ** 4))
+        o = torch.where(mv, lt.pos[light_idx], o)
+        d = torch.where(mv, w, d)
+        nl = torch.where(mv, w, nl)
+        pdf_pos = torch.where(m, 1.0, pdf_pos)
+        pdf_dir = torch.where(m, smp.uniform_cone_pdf(c1), pdf_dir)
+        le = torch.where(mv, L * fall[:, None], le)
+        delta_pos = delta_pos | m
+
+    if sc.LIGHT_DISTANT in light_types:
+        # a disk of the scene's radius, facing the light
+        m = li_t == sc.LIGHT_DISTANT
+        mv = m[:, None]
+        w_light = normalize(lt.dir[light_idx])
+        vx, vy = coordinate_system(w_light)
+        cd = smp.concentric_sample_disk(u1)
+        r = lt.world_radius
+        p_disk = (lt.world_center + r * (cd[:, 0:1] * vx + cd[:, 1:2] * vy)
+                  + r * w_light)
+        o = torch.where(mv, p_disk, o)
+        d = torch.where(mv, -w_light, d)
+        nl = torch.where(mv, -w_light, nl)
+        pdf_pos = torch.where(m, 1.0 / (math.pi * r * r), pdf_pos)
+        pdf_dir = torch.where(m, 1.0, pdf_dir)
+        le = torch.where(mv, L, le)
+        delta_pos = delta_pos | m
+
+    if sc.LIGHT_AREA in light_types:
+        # an area sample, then a cosine direction about the normal, flipped
+        # for a two-sided light by a coin from u2[0] (remapped)
+        m_area = li_t == sc.LIGHT_AREA
+        stype = lt.shape_type[light_idx]
+        sidx = lt.shape_idx[light_idx].to(torch.int64)
+        two = lt.two_sided[light_idx]
+
+        m = m_area & (stype == sc.SHAPE_SPHERE)
+        mv = m[:, None]
+        center, radius = _sphere_center_radius(scene, sidx)
+        w_sph = smp.uniform_sample_sphere(u1)
+        p_sph = center + radius[:, None] * w_sph
+        area_sph = 4.0 * math.pi * radius * radius
+        o = torch.where(mv, p_sph, o)
+        nl = torch.where(mv, w_sph, nl)
+        pdf_pos = torch.where(m, 1.0 / torch.clamp(area_sph, min=1e-12), pdf_pos)
+
+        m2 = m_area & (stype == sc.SHAPE_TRIANGLE)
+        mv2 = m2[:, None]
+        p0, p1, p2 = _gather_tri(scene, sidx)
+        b = smp.uniform_sample_triangle(u1)
+        p_t = (b[:, 0:1] * p0 + b[:, 1:2] * p1
+               + (1.0 - b[:, 0:1] - b[:, 1:2]) * p2)
+        ng_t = cross(p1 - p0, p2 - p0)
+        area_t = 0.5 * length(ng_t)
+        ng_t = normalize(ng_t)
+        o = torch.where(mv2, p_t, o)
+        nl = torch.where(mv2, ng_t, nl)
+        pdf_pos = torch.where(m2, 1.0 / torch.clamp(area_t, min=1e-12), pdf_pos)
+
+        m_any = m | m2
+        low = u2[:, 0] < 0.5
+        flip = two & low
+        u2r = torch.stack(
+            [torch.where(two, torch.where(low, 2.0 * u2[:, 0],
+                                          2.0 * (u2[:, 0] - 0.5)), u2[:, 0]),
+             u2[:, 1]], -1)
+        w_loc = smp.cosine_sample_hemisphere(u2r)
+        nrm = torch.where(flip[:, None], -nl, nl)
+        nx, ny = coordinate_system(nrm)
+        w_dir = w_loc[:, 0:1] * nx + w_loc[:, 1:2] * ny + w_loc[:, 2:3] * nrm
+        pd = torch.abs(w_loc[:, 2]) * smp.INV_PI
+        pd = torch.where(two, 0.5 * pd, pd)
+        d = torch.where(m_any[:, None], w_dir, d)
+        pdf_dir = torch.where(m_any, pd, pdf_dir)
+        le = torch.where(m_any[:, None], L, le)
+
+    return {"o": o, "d": d, "n_light": nl, "pdf_pos": pdf_pos,
+            "pdf_dir": pdf_dir, "le": le, "is_delta_pos": delta_pos}
+
+
+def pdf_le(scene, light_idx, p_on_light, n_light, w, light_types):
+    """Light::Pdf_Le: (pdf_pos, pdf_dir) of emitting from p_on_light along
+    w, for the lights sample_le covers."""
+    lt = scene.lights
+    li_t = lt.light_type[light_idx]
+    n = p_on_light.shape[0]
+    pdf_pos = torch.zeros(n, dtype=torch.float32, device=p_on_light.device)
+    pdf_dir = torch.zeros_like(pdf_pos)
+    if sc.LIGHT_POINT in light_types:
+        m = li_t == sc.LIGHT_POINT
+        pdf_pos = torch.where(m, 1.0, pdf_pos)
+        pdf_dir = torch.where(m, smp.uniform_sphere_pdf(), pdf_dir)
+    if sc.LIGHT_SPOT in light_types:
+        m = li_t == sc.LIGHT_SPOT
+        c1 = lt.cos_falloff_end[light_idx]
+        inside = dot(w, lt.dir[light_idx]) >= c1
+        pdf_pos = torch.where(m, 1.0, pdf_pos)
+        pdf_dir = torch.where(m, torch.where(inside, smp.uniform_cone_pdf(c1), 0.0),
+                              pdf_dir)
+    if sc.LIGHT_DISTANT in light_types:
+        m = li_t == sc.LIGHT_DISTANT
+        r = lt.world_radius
+        pdf_pos = torch.where(m, 1.0 / (math.pi * r * r), pdf_pos)
+        pdf_dir = torch.where(m, 0.0, pdf_dir)
+    if sc.LIGHT_AREA in light_types:
+        m_area = li_t == sc.LIGHT_AREA
+        stype = lt.shape_type[light_idx]
+        sidx = lt.shape_idx[light_idx].to(torch.int64)
+        two = lt.two_sided[light_idx]
+        _, radius = _sphere_center_radius(scene, sidx)
+        area_sph = 4.0 * math.pi * radius * radius
+        p0, p1, p2 = _gather_tri(scene, sidx)
+        area_t = 0.5 * length(cross(p1 - p0, p2 - p0))
+        area = torch.where(stype == sc.SHAPE_SPHERE, area_sph, area_t)
+        cos_d = dot(n_light, w)
+        pd = torch.where(two, 0.5 * torch.abs(cos_d),
+                         torch.clamp(cos_d, min=0.0)) * smp.INV_PI
+        pdf_pos = torch.where(m_area, 1.0 / torch.clamp(area, min=1e-12), pdf_pos)
+        pdf_dir = torch.where(m_area, pd, pdf_dir)
+    return pdf_pos, pdf_dir
 
 
 def area_light_emission(scene, arealight_idx, ng, wo):

@@ -2,9 +2,9 @@
 
 Port of pbrt_tpu/render.py (pbrt-v3 pbrtWorldEnd, api.cpp:1590-1649, and
 RenderOptions::MakeIntegrator, api.cpp:1662-1697) for ``Integrator "path"``
-on the lockstep engine, ``"volpath"``, ``"directlighting"``, ``"whitted"``
-and ``"ao"``.  Every other integrator (bdpt, mlt, sppm), and a path
-render under PBRT_TPU_ENGINE other than "lockstep", raises
+on the lockstep engine, ``"volpath"``, ``"directlighting"``, ``"whitted"``,
+``"ao"``, ``"bdpt"``, ``"mlt"`` and ``"sppm"``.  Any other integrator, and a
+path render under PBRT_TPU_ENGINE other than "lockstep", raises
 NotImplementedError.  Runs on the card unless the caller passes
 device="cpu".
 """
@@ -34,7 +34,10 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     render_file parsed), render_cpu_s (this process's CPU seconds over the
     rendering phase) and profile (pbrt's Profile block)."""
     from .integrators import ao
+    from .integrators import bdpt as bd
     from .integrators import direct as dl
+    from .integrators import mlt
+    from .integrators import sppm
     from .integrators import path as pt
     from .integrators import volpath as vp
     from .integrators import whitted as wh
@@ -45,7 +48,8 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     device = resolve_device(device)
     renderers = {"path": pt.render, "volpath": vp.render,
                  "directlighting": dl.render, "whitted": wh.render,
-                 "ao": ao.render}
+                 "ao": ao.render, "bdpt": bd.render, "mlt": mlt.render,
+                 "sppm": sppm.render}
     if setup.integrator_name not in renderers:
         raise NotImplementedError(
             f"integrator {setup.integrator_name!r}: the port has "

@@ -61,6 +61,16 @@ class SamplerConfig:
             raise NotImplementedError(
                 f"sampler {self.name!r}: the port has {SUPPORTED}")
 
+    @classmethod
+    def pss(cls, resolution) -> "SamplerConfig":
+        """MLT's primary-sample-space passthrough (samplers.py:229-237),
+        which no scene file names, so the constructor refuses it."""
+        cfg = object.__new__(cls)
+        for k, v in (("name", "pss"), ("spp", 1), ("resolution", tuple(resolution)),
+                     ("sample_bounds_min", (0, 0)), ("seed", 0), ("exact", False)):
+            object.__setattr__(cfg, k, v)
+        return cfg
+
     def halton_setup(self):
         res = (min(self.resolution[0], K_MAX_RESOLUTION),
                min(self.resolution[1], K_MAX_RESOLUTION))
@@ -151,6 +161,9 @@ def _multiply_generator(c: tuple, a):
 def init_state(cfg: SamplerConfig, pixel_xy, sample_num):
     """Per-lane global sample indices (or keys).  pixel_xy: [N, 2] integer
     tensor; sample_num: [N] pixel-local sample number."""
+    if cfg.name == "pss":
+        raise ValueError("the pss sampler's state is the caller's: "
+                         "{'x': [N, D] vectors, 'chain_key': int}")
     px = pixel_xy[..., 0].to(torch.int64)
     py = pixel_xy[..., 1].to(torch.int64)
     sample_num = sample_num.to(torch.int64) & M32
@@ -198,6 +211,13 @@ def get_1d(cfg: SamplerConfig, state, dim: int):
     next value of each lane's stream, whatever dim is."""
     if "table" in state:
         return state["table"][dim]
+    if cfg.name == "pss":
+        x = state["x"]
+        if dim < x.shape[1]:
+            return x[:, dim]
+        bits = prng.mix32(state["chain_key"] ^ prng.mix32((dim * 0x9E37) & M32))
+        return ld.bits_to_float(torch.full((x.shape[0],), bits, dtype=torch.int64,
+                                           device=x.device))
     if cfg.name == "sobol":
         s = ld.sobol_sample_float64idx(state["hi"], state["lo"], dim)
         if dim < 2:

@@ -209,8 +209,9 @@ class RenderSetup:
     def make_integrator_config(self):
         """PathConfig for "path" and "volpath", DirectLightingConfig for
         "directlighting" (maxdepth; strategy, by default "all") and
-        "whitted" (maxdepth), AOConfig for "ao" (cossample, nsamples);
-        the JAX package's parameters (render.py:55-120)."""
+        "whitted" (maxdepth), AOConfig for "ao" (cossample, nsamples),
+        BDPTConfig, MLTConfig and SPPMConfig for "bdpt", "mlt" and "sppm";
+        the JAX package's parameters and defaults (render.py:55-153)."""
         from ..integrators.path import PathConfig
 
         p = self.integrator_params or ParamSet()
@@ -227,6 +228,29 @@ class RenderSetup:
 
             return AOConfig(cos_sample=p.find_one_bool("cossample", True),
                             n_samples=p.find_one_int("nsamples", 64))
+        if self.integrator_name == "bdpt":
+            from ..integrators.bdpt import BDPTConfig
+
+            return BDPTConfig(max_depth=p.find_one_int("maxdepth", 5))
+        if self.integrator_name == "mlt":
+            from ..integrators.mlt import MLTConfig
+
+            return MLTConfig(
+                max_depth=p.find_one_int("maxdepth", 5),
+                n_bootstrap=p.find_one_int("bootstrapsamples", 4096),
+                n_chains=p.find_one_int("chains", 1024),
+                mutations_per_pixel=p.find_one_int("mutationsperpixel", 4),
+                sigma=p.find_one_float("sigma", 0.01),
+                large_step_prob=p.find_one_float("largestepprobability", 0.3))
+        if self.integrator_name == "sppm":
+            from ..integrators.sppm import SPPMConfig
+
+            return SPPMConfig(
+                max_depth=p.find_one_int("maxdepth", 5),
+                n_iterations=p.find_one_int("numiterations",
+                                            p.find_one_int("iterations", 16)),
+                photons_per_iteration=p.find_one_int("photonsperiteration", -1),
+                initial_radius=p.find_one_float("radius", 1.0))
         return PathConfig(
             max_depth=p.find_one_int("maxdepth", 5),
             rr_threshold=p.find_one_float("rrthreshold", 1.0),

@@ -52,6 +52,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.textures import textures as ttx
 from pbrt_tpu_torch.utils.imageio import read_image, write_pfm
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES, SPP, DEPTH, BLOB = (32, 32), 2, 3, (16, 8)

@@ -41,6 +41,7 @@ from pbrt_tpu_torch.materials import measuredss as tms
 from pbrt_tpu_torch.ops import bvh as kb
 from test_torch_shading import ATOL, LANE_FRAC, RTOL, RTOL_ALL, assert_lanes_close
 from test_torch_traverse import both
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4096

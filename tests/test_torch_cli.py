@@ -20,6 +20,7 @@ from pbrt_tpu_torch import __main__ as cli
 from pbrt_tpu_torch import render as trender
 from pbrt_tpu_torch.utils import imageio as timg
 from pbrt_tpu_torch.utils import stats as tst
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -92,8 +93,11 @@ def test_render_refusals(monkeypatch, tmp_path):
     scene = tmp_path / "s.pbrt"
     scene.write_text((PARITY / "a_floor_point.pbrt").read_text()
                      .replace('Integrator "path"', 'Integrator "bdpt"'))
-    with pytest.raises(NotImplementedError, match="bdpt"):
+    # bdpt renders the file; in the exact sampler mode it raises
+    monkeypatch.setenv("PBRT_TPU_EXACT_SAMPLER", "1")
+    with pytest.raises(NotImplementedError, match="bdpt.*exact sampler"):
         trender.render_file(str(scene), out=str(tmp_path / "o.pfm"), device="cpu")
+    monkeypatch.delenv("PBRT_TPU_EXACT_SAMPLER")
     monkeypatch.setenv("PBRT_TPU_ENGINE", "wavefront")
     with pytest.raises(NotImplementedError, match="wavefront"):
         trender.render_file(str(PARITY / "a_floor_point.pbrt"),

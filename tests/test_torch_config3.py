@@ -21,6 +21,7 @@ from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 SMALL = dict(res=(32, 32), spp=2, blob=(16, 8), skin=(64, 64), env=(32, 16))

@@ -15,6 +15,7 @@ from pbrt_tpu_torch.core import rng as trng
 from pbrt_tpu_torch.core import sampling as tsmp
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.core import vecmath as tvm
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RTOL = 1e-6

@@ -26,7 +26,9 @@ with every record type (quadrics past the gate, curves, instances), under
 a random work list and at the stack cap, the PBRT_TPU_BVH4=0 refusal past
 the gate, and small copies of chip_smoke.py's geometry and instances
 files on the card against the CPU, with their launch counts and a grad
-step.
+step; and bdpt, mlt and sppm on the card against the CPU, bdpt under each
+BVH kernel, and each kernel against its plain version on every batch of a
+bdpt sample and an sppm iteration.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -940,3 +942,63 @@ def test_geometry_files_on_card_match_cpu(tmp_path, label, kernel):
               for x in (v.values() if isinstance(v, dict) else [v])]
     assert all(bool(torch.isfinite(x).all()) for x in leaves
                if isinstance(x, torch.Tensor))
+
+
+# bdpt, mlt and sppm on c4_mirror_d3 (a point light and a mirror: the
+# caustic) with the integrator's parameters; launches a spp (bdpt at depth
+# 3: 4 + 3 + 3 + 3 + 3) or an iteration (sppm: 3 a bounce)
+TRANSPORT = {
+    "bdpt": ('"bdpt" "integer maxdepth" [3]', 16),
+    "mlt": ('"mlt" "integer maxdepth" [2] "integer chains" [256] '
+            '"integer mutationsperpixel" [2] "integer bootstrapsamples" [768]', None),
+    "sppm": ('"sppm" "integer maxdepth" [3] "integer numiterations" [2] '
+             '"float radius" [0.2]', 9),
+}
+
+
+def transport_file(tmp_path, name, spp=2):
+    return parity_file(tmp_path, "c4_mirror_d3", 32, spp, TRANSPORT[name][0])
+
+
+@pytest.mark.parametrize("name", sorted(TRANSPORT))
+def test_transport_on_card_matches_cpu(tmp_path, name):
+    """bdpt (2 spp), mlt (the same CPU draws on both) and sppm (2
+    iterations) at 32x32: the launches, a bit-identical repeat, and the CPU
+    at tests/test_torch_path.py:58-59's bars (bdpt, sppm) or
+    tests/test_mlt_sppm_tools.py's MLT bars (means within 15%, correlation
+    above 0.9: a chain pick can turn on the last bit of a luminance)."""
+    path = transport_file(tmp_path, name)
+    card, n4 = file_render(path, "cuda")
+    per = TRANSPORT[name][1]
+    if per is not None:
+        assert n4 == (2 * per, 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert torch.equal(file_render(path, "cuda")[0], card)
+    cpu = file_render(path, "cpu")[0]
+    if name == "mlt":
+        corr = np.corrcoef(card.numpy().ravel(), cpu.numpy().ravel())[0, 1]
+        assert abs(float(card.mean()) - float(cpu.mean())) < 0.15 * float(cpu.mean())
+        assert corr > 0.9
+    else:
+        assert_image_bars(card, cpu)
+
+
+def test_bdpt_bvh2_matches_bvh4(tmp_path):
+    path = transport_file(tmp_path, "bdpt")
+    card, _ = file_render(path, "cuda")
+    card2, n2 = file_render(path, "cuda", "0")
+    assert n2 == (0, 2 * TRANSPORT["bdpt"][1])
+    assert_image_bars(card2, card)
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+@pytest.mark.parametrize("name", ["bdpt", "sppm"])
+def test_transport_batches_kernel_equals_plain(tmp_path, name, kind):
+    """Every batch one bdpt sample (walks and connections) or one sppm
+    iteration (camera pass, NEE, photon walk) launches, through the kernel
+    and its plain version, bit for bit."""
+    path = transport_file(tmp_path, name, spp=1)
+    if name == "sppm":
+        path.write_text(path.read_text().replace('"integer numiterations" [2]',
+                                                 '"integer numiterations" [1]'))
+    assert assert_batches_equal_plain(path, kind, TRANSPORT[name][1]) > 32 * 32

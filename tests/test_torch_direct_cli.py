@@ -18,6 +18,7 @@ from pbrt_tpu_torch import __main__ as cli
 from pbrt_tpu_torch import render as trender
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -28,6 +28,7 @@ from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.lights import lights as tlt
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from test_torch_shading import _close, _unit, assert_lanes_close
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4000

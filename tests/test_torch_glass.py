@@ -20,6 +20,7 @@ from pbrt_tpu_torch.core import vecmath as tvm
 from pbrt_tpu_torch.materials import bsdf as tbx
 from test_torch_shading import _close, _unit, assert_lanes_close
 from test_torch_traverse import both
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4000

@@ -45,6 +45,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.utils import stats as st
 from test_grad import RES, _camera, _plane_scene
 from test_torch_path import match_frac
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 LEAVES = ("kd", "ks", "roughness", "light_L")

@@ -40,6 +40,7 @@ from test_torch_grad_groups import (DEPTH, FD_CASES, NO_CAMERA, RES, SAMPLE,
                                     SCENES, flat_leaves, make_camera, pixels,
                                     step, weights)
 from test_torch_path import match_frac
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 JAX_CAMERAS = {"perspective": jcam.make_perspective_camera,

@@ -44,6 +44,7 @@ from pbrt_tpu_torch.materials import bssrdf as tbs
 from pbrt_tpu_torch.textures import textures as ttx
 from test_torch_envlight import env_scene
 from test_torch_textures import _image, _lookup_inputs, _tables
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 2048

@@ -41,6 +41,7 @@ from pbrt_tpu_torch.samplers import pixel_exact as tpx
 from pbrt_tpu_torch.samplers import samplers as tsa
 from pbrt_tpu_torch.core import lowdiscrepancy as ld
 from test_sampler_goldens import GOLD, NUM1D, NUM2D, PIXELS, SPP as GOLD_SPP, STRIDE, _load
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 NEW_SAMPLERS = ("random", "stratified", "zerotwosequence", "maxmin")

@@ -33,6 +33,7 @@ from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.film import FilmConfig
 from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES = (32, 32)

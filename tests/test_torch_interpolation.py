@@ -30,6 +30,7 @@ from pbrt_tpu.materials import fourier as jfz
 from pbrt_tpu_torch.core import interpolation as titp
 from pbrt_tpu_torch.materials import fourier as tfz
 from test_torch_shading import ATOL, LANE_FRAC, RTOL, RTOL_ALL
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4096

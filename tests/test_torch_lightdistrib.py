@@ -21,6 +21,7 @@ from pbrt_tpu.lights import lightdistrib as jld
 from pbrt_tpu_torch import render as trender
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.lights import lightdistrib as tld
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PARITY = pathlib.Path(__file__).resolve().parent.parent / "refgold" / "parity"

@@ -20,6 +20,7 @@ from pbrt_tpu_torch.lights import lightdistrib as tld
 from pbrt_tpu_torch.lights import lights as tlt
 from test_torch_shading import _close, _unit, assert_lanes_close
 from test_torch_traverse import both
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4000
@@ -128,3 +129,45 @@ def test_spatial_distribution_matches_jax():
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
     # the delta lights take part: each light is likeliest in some voxel
     assert len(set(np.argmax(got[4], -1).tolist())) >= 4
+
+
+def le_scene(sc, tf):
+    """lights_scene with a one-sided and a two-sided emissive triangle:
+    every light type sample_le covers (point, spot, distant, area sphere
+    and triangle), and the two it leaves dark (projection, goniometric)."""
+    b = lights_scene(sc, tf)
+    b.add_emissive_triangle_mesh([[0, 1, 2]], [[-1, 1, 3], [1, 1, 3], [0, 2, 3.5]],
+                                 L=(5.0, 4.0, 3.0))
+    b.add_emissive_triangle_mesh([[0, 1, 2]], [[2, -1, 2], [3, -1, 2], [2, 0, 2.5]],
+                                 L=(2.0, 2.0, 2.0), two_sided=True)
+    return b
+
+
+def test_sample_le_and_pdf_le_match_jax():
+    """Light::Sample_Le and Pdf_Le (the light subpaths of bdpt, mlt and
+    sppm) on seeded lanes of every light, at tests/test_torch_shading.py's
+    bars; pdf_le at the sampled point, normal and direction gives
+    sample_le's own pdfs."""
+    js, ts = both(le_scene)
+    js = jtv._device_scene(js)
+    rs = np.random.RandomState(11)
+    idx = rs.randint(0, ts.lights.light_type.shape[0], N).astype(np.int32)
+    u1, u2 = rs.rand(N, 2).astype(np.float32), rs.rand(N, 2).astype(np.float32)
+    ref = jlt.sample_le(js, jnp.asarray(idx), jnp.asarray(u1), jnp.asarray(u2),
+                        ts.light_types)
+    got = tlt.sample_le(ts, torch.as_tensor(idx), torch.as_tensor(u1),
+                        torch.as_tensor(u2), ts.light_types)
+    _close(ref, got, ("o", "d", "n_light", "pdf_pos", "pdf_dir", "le", "is_delta_pos"))
+    lt = ts.lights.light_type[torch.as_tensor(idx).long()]
+    assert set(lt.tolist()) == {0, 1, 2, 3, 5, 6}
+    lit = torch.any(got["le"] > 0, -1)
+    assert not lit[(lt == 5) | (lt == 6)].any()  # left dark, as in the JAX package
+    assert lit[lt == 3].all() and lit[lt == 0].all()
+    args = [got["o"], got["n_light"], got["d"]]
+    ref_pdf = jlt.pdf_le(js, jnp.asarray(idx), *(jnp.asarray(x.numpy()) for x in args),
+                         ts.light_types)
+    got_pdf = tlt.pdf_le(ts, torch.as_tensor(idx), *args, ts.light_types)
+    for a, b in zip(ref_pdf, got_pdf):
+        assert_lanes_close(a, b, "pdf_le")
+    area = lt == 3
+    assert_lanes_close(got["pdf_dir"][area], got_pdf[1][area], "pdf_dir")

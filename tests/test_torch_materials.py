@@ -27,6 +27,7 @@ from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.materials import bsdf as tbx
 from test_torch_shading import ATOL, LANE_FRAC, RTOL, RTOL_ALL, _close, _unit
 from test_torch_traverse import both
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4096

@@ -19,6 +19,7 @@ import torch
 from pbrt_tpu.media import media as jm
 from pbrt_tpu_torch.core import rng as trng
 from pbrt_tpu_torch.media import media as tm
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 4096

@@ -23,6 +23,7 @@ from pbrt_tpu_torch.shapes import nurbs as tnurbs
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from chip_smoke import icosphere
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 GRID = np.array([[0, 1, 4], [0, 4, 3], [1, 2, 5], [1, 5, 4], [3, 4, 7],

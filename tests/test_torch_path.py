@@ -22,6 +22,7 @@ from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from test_torch_traverse import both
 from test_torch_scene import demo
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES = (16, 16)

@@ -40,6 +40,7 @@ from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.shapes import quadrics as tq
 from pbrt_tpu_torch.utils.imageio import read_pfm
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 # (name, JAX object test, JAX record, q_params): phi clipped, an inner

@@ -15,6 +15,7 @@ from pbrt_tpu_torch.cameras import cameras as tcam
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.filters import make_filter as tmake_filter
 from pbrt_tpu_torch.samplers import samplers as tsa
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES = (16, 16)
@@ -133,3 +134,88 @@ def test_crop_window_and_other_filters():
         assert tmake_filter(name).radius == jmake_filter(name).radius
     with pytest.raises(ValueError, match="unknown filter"):
         tmake_filter("blackman")
+
+
+def test_camera_importance_matches_jax():
+    """camera_pdf_we and camera_sample_wi (perspective.cpp:185-260) on
+    seeded rays and points, on and off the film.  The JAX package inverts
+    camera_to_world and raster_to_camera in float32 on each call, the port
+    in float64 once a call: they agree to rtol 1e-4 (atol 1e-6), on_film
+    flags on all but lanes at the film's edge."""
+    look = ([0, -8, 4], [0, 0, 2], [0, 0, 1])
+    jc = jcam.make_perspective_camera(jtf.look_at(*look), (24, 16), fov_deg=50.0)
+    tc = tcam.make_perspective_camera(ttf.look_at(*look), (24, 16), fov_deg=50.0)
+    rs = np.random.RandomState(8)
+    n = 2000
+    d = (np.array([0.0, 8.0, -2.0]) + rs.randn(n, 3) * 3.0).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.float32([[0, -8, 4]]), (n, 1))
+    ref = jcam.camera_pdf_we(jc, jnp.asarray(o), jnp.asarray(d))
+    got = tcam.camera_pdf_we(tc, torch.as_tensor(o), torch.as_tensor(d))
+    for a, b in zip(ref, got):
+        assert (np.asarray(a) > 0).mean() > 0.2 and (np.asarray(a) == 0).mean() > 0.2
+        assert ((np.asarray(a) > 0) == (b.numpy() > 0)).mean() >= 0.995
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-6)
+    p = (rs.randn(n, 3) * np.array([4.0, 3.0, 2.0]) + [0, 2, 1]).astype(np.float32)
+    ref = jcam.camera_sample_wi(jc, jnp.asarray(p))
+    got = tcam.camera_sample_wi(tc, torch.as_tensor(p))
+    both_on = np.asarray(ref["valid"]) & got["valid"].numpy()
+    assert (np.asarray(ref["valid"]) == got["valid"].numpy()).mean() >= 0.995
+    assert both_on.mean() > 0.3
+    for k in ("wi", "p_cam"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-5,
+                                   atol=1e-6)
+    for k in ("pdf", "we", "p_raster"):
+        np.testing.assert_allclose(got[k].numpy()[both_on], np.asarray(ref[k])[both_on],
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_add_splats_bit_equal():
+    """add_splats (film.cpp:142) and to_image's splat_scale against the
+    JAX package's, bit for bit: a pixel's splats added in the call's order
+    (many onto a few pixels, as MLT's pile onto bright ones), lanes off the
+    film or not finite dropped."""
+    res = (12, 10)
+    rs = np.random.RandomState(4)
+    n = 3000
+    p_film = (rs.rand(n, 2) * np.array([14.0, 12.0]) - 1.0).astype(np.float32)
+    p_film[: n // 2] = (rs.rand(n // 2, 2) * 2.0 + 4.0).astype(np.float32)
+    v = (rs.rand(n, 3) * 3).astype(np.float32)
+    v[::7] = 0.0
+    v[5] = np.inf
+    jst = jfm.make_film_state(jfm.FilmConfig(full_resolution=res), jmake_filter("box"))
+    tst = tfm.make_film_state(tfm.FilmConfig(full_resolution=res),
+                              tmake_filter("box"), "cpu")
+    ranks = tfm.add_splats.ranks
+    for lo, hi in ((0, n // 3), (n // 3, n)):
+        jst = jfm.add_splats(jst, jnp.asarray(p_film[lo:hi]), jnp.asarray(v[lo:hi]))
+        tfm.add_splats(tst, torch.as_tensor(p_film[lo:hi]), torch.as_tensor(v[lo:hi]))
+    assert tfm.add_splats.ranks - ranks > 20
+    np.testing.assert_array_equal(np.asarray(jst.splat), tst.splat.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jfm.to_image(jst, scale=2.0, splat_scale=0.25)),
+        tfm.to_image(tst, scale=2.0, splat_scale=0.25).numpy())
+
+
+def test_pss_draws_bit_equal():
+    """The "pss" passthrough (samplers.py:229-237, :286-289): dims of the
+    vector, and the counter hash past it (one value for every lane)."""
+    rs = np.random.RandomState(2)
+    x = rs.rand(64, 12).astype(np.float32)
+    jc = jsa.SamplerConfig("pss", 1, RES)
+    tc = tsa.SamplerConfig.pss(RES)
+    js = {"x": jnp.asarray(x), "chain_key": jnp.uint32(7932)}
+    ts = {"x": torch.as_tensor(x), "chain_key": 7932}
+    for dim in (0, 3, 11, 12, 40, 221):
+        np.testing.assert_array_equal(
+            _bits(jnp.broadcast_to(jsa.get_1d(jc, js, dim), (64,))),
+            _bits(tsa.get_1d(tc, ts, dim).numpy()))
+    # (a 2-D draw across the vector's end is ragged in the JAX package)
+    for dim in (2, 10, 30):
+        np.testing.assert_array_equal(
+            _bits(jnp.broadcast_to(jsa.get_2d(jc, js, dim), (64, 2))),
+            _bits(tsa.get_2d(tc, ts, dim).numpy()))
+    ref = jsa.get_camera_sample(jc, js, jnp.zeros((64, 2), jnp.int32))
+    got = tsa.get_camera_sample(tc, ts, torch.zeros((64, 2), dtype=torch.int32))
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))

@@ -11,6 +11,7 @@ from pbrt_tpu_torch import scene as tsc
 from pbrt_tpu_torch.accel import build as tbuild
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.ops import bvh as kb
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 

@@ -16,6 +16,7 @@ from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch import sceneio as tio
 from pbrt_tpu_torch.sceneio import plyload as tply
 from test_sceneio import SIMPLE_SCENE
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PARITY = pathlib.Path(__file__).resolve().parent.parent / "refgold" / "parity"

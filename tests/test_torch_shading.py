@@ -21,6 +21,7 @@ from pbrt_tpu_torch.integrators import common as tcommon
 from pbrt_tpu_torch.lights import lights as tlt
 from pbrt_tpu_torch.materials import bsdf as tbx
 from test_torch_traverse import both, camera_rays, jax_traverse
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RTOL, ATOL = 1e-5, 1e-6

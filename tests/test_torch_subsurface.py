@@ -68,6 +68,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.utils.imageio import read_image
 from pbrt_tpu_torch.utils.stats import COUNTERS
 from test_torch_path import match_frac, mean_rel
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RES, SPP, DEPTH, BLOB = (24, 24), 1, 3, (16, 8)

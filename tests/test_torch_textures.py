@@ -24,6 +24,7 @@ from pbrt_tpu_torch.cameras import cameras as tcam
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.textures import textures as ttx
 from test_torch_shading import assert_lanes_close
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 N = 3000

@@ -13,6 +13,7 @@ from pbrt_tpu.accel import traverse as jtv
 from pbrt_tpu_torch.ops import bvh as kb
 from test_torch_scene import demo, soup
 from test_torch_traverse import assert_hits_agree, both, camera_rays, tri_scene
+from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 KERNELS = {
