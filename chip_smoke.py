@@ -18,7 +18,9 @@ Phases, each printing its result on a line of its own and its seconds:
      any-hit shadow lanes as the render launched it, with its live-lane
      count), once as the default path launches them and once under
      PBRT_TPU_BVH4=0; each with two floors, the bytes of one read of the
-     tables and rays, and the bytes of every node and triangle visit; on
+     tables and rays, and the bytes of every node and triangle visit, and
+     its warp efficiency (warp_efficiency: how much of each warp's time its
+     lanes idle behind its busiest); on
      the main batches bvh4 is also timed without its work list, on the rays
      gathered into sorted order beforehand (ms_gathered), beside the
      gathers and scatters that launch needs around it (glue_ms);
@@ -841,6 +843,32 @@ def time_cuda(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def warp_efficiency(visits, tests, order=None) -> float:
+    """How evenly a launch's warps are loaded: the mean over its warps (32
+    consecutive entries of the work list, in launch order) of the warp's
+    mean lane work over its busiest lane's, a lane's work being its node
+    visits plus its record tests (the typed build's tests of every type;
+    not its curve windows).  Warps of dead lanes alone are left out.  1 if
+    every lane of a warp does as much as the busiest; 1 less it is the
+    share of the warps' lane-steps that idle while the busiest lane walks
+    on, the single-wave tail's cost inside each warp."""
+    import torch
+
+    work = visits.to(torch.float64) + (tests[:, :9].sum(1) if tests.dim() == 2
+                                       else tests).to(torch.float64)
+    if order is not None:
+        work = work[order.to(torch.int64)]
+    pad = (-work.shape[0]) % 32
+    work = torch.cat([work, work.new_zeros(pad)]).view(-1, 32)
+    lanes = torch.full((work.shape[0],), 32.0, dtype=work.dtype, device=work.device)
+    lanes[-1] = 32 - pad
+    busiest = work.max(1).values
+    live = busiest > 0
+    if not bool(live.any()):
+        return 1.0
+    return float((work.sum(1)[live] / lanes[live] / busiest[live]).mean())
+
+
 def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
                 order=None, both_modes=True):
     """Hold one kernel against its plain version on one ray batch (with and
@@ -957,8 +985,8 @@ def kernel_case(name, k, bvh, scene, o, d, t_max, any_mask, timed: str,
                visit_mb=visit_bytes / 1e6,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3, **extra,
-               **by_type)
+               visit_bound_ms=visit_bytes / H100_BYTES_PER_S * 1e3,
+               warp_eff=warp_efficiency(visits, tests, order), **extra, **by_type)
     print(f"kernel-check {json.dumps(out)}", flush=True)
     return out
 

@@ -41,6 +41,12 @@
 //     writes its result at order[j].  order must be a permutation of
 //     0..n-1; a ray's result depends on nothing but its own inputs, so the
 //     order changes the speed, never a bit of the results.
+//   * A ray's (t, prim) depends on the order of its visits: a record is
+//     taken only at t < t_best, so on a tie (a ray through a mesh's shared
+//     edge or vertex) the first record tested wins.  Children are visited
+//     nearest first by (t_near, slot) and a leaf's records in index order,
+//     as in the plain version; the design below changes when each row and
+//     record is loaded, never which ones a ray visits or in what order.
 //
 // Layout (built by pbrt_tpu_torch/ops/bvh.py:build_bvh4_table):
 //   nodes: one 128-byte row per 4-wide node: 4 child boxes (6 f32 each),
@@ -53,29 +59,72 @@
 //   q_packed [Q, 24], curve_packed [C, 28], inst_xf [I, 24] float32 rows
 //          (the typed build only).
 //
-// What bounds it on an H100: the node rows and triangle records read per ray
-// (128 B per node visit, 48 B per triangle test) from L2 and device memory,
-// and the latency of those dependent loads.  The design keeps each node visit
-// to one 128-byte line (8 float4 loads through the read-only path), visits
-// children nearest first by the ray's own t_near so closest-hit rays cull
-// early, and stops any-hit rays at their first hit.  The caller sorts rays by
-// (dead, direction octant, origin Morton code) and passes the permutation as
-// `order`: neighbouring threads walk similar paths through the tree, dead
-// rays fill whole warps at the end of the grid, and no gather or scatter
-// pass runs around the launch.  Persistent warps fetching from a counter,
-// the stack in shared memory and the top rows of the tree in shared memory
-// were each measured slower on an H100 with the main scene's tables in L2
-// (PERF.md); the likely reason is that shared memory is carved out of the
-// L1 that, through the read-only path, already keeps the top of the tree
-// and the touched part of each local stack.
+// What bounds it on an H100.  Not bandwidth: the main scene's tables (27
+// MB) sit in the 50 MB L2, and even counting every node row (128 B) and
+// record (48 B) a ray reads as read from HBM, the main path's batches take
+// 1.5-8x that visit bound.  What bounds them is the latency of each walk's
+// chain of dependent loads (row -> slab tests and sort -> next row; record
+// -> test -> next record), and the tail: a 160,000-lane launch is a single
+// wave (every block resident at once), so once the short walks end the
+// launch lasts as long as its slowest warps' chains, with nothing left to
+// hide their latency.  Warps run at 0.32-0.85 of their lanes' work (mean
+// over a warp's lanes of visits plus tests, over its slowest lane's).
 //
-// Stack: STACK_SIZE entries per thread.  An interior visit pushes at most 3
-// entries, so a tree of depth D needs at most 3 * D; the host wrapper checks
-// that against bvh4_traverse_stack_size() and refuses deeper trees.  The
-// kernel traps rather than overflow silently.
+// The design (PERF.md §6, PR 14; the times are the main path's per-spp sum
+// of kernel ms, the parent kernel against each part in turns in one call,
+// on an "NVIDIA H100 80GB HBM3, 700.00 W"):
+//   * A leaf's records are loaded together and a record ahead.  The parent
+//     loaded a record's edges only after reading its type word: two round
+//     trips a record.  The triangle-only build issues a record's three
+//     float4 together and the next record's before it tests this one
+//     (predicated on there being one), so a leaf of k records costs about
+//     one round trip instead of 2k.  Kept: main's per-spp sum 0.842-0.853x
+//     the parent's, the bdpt connection batch 0.84-0.86x, mesh1M (tables
+//     past the L2) 0.84-0.86x.  The typed build issues a record's three
+//     float4 together but holds no next record: with the look-ahead its
+//     typed loop spilled 48 B at 80 registers and the instances' typed
+//     batches took 1.00-1.02x the parent's; without it 0.955x.
+//   * Launch bounds per build: at least 9 blocks of 128 resident on each SM
+//     for the triangle-only build (56 registers, none spilled; 60 and 8
+//     blocks without the bound), 6 for the typed build (80 registers, the
+//     parent's occupancy; 101 and 4 blocks without).  Kept for the
+//     occupancy; the times move within the turns' spread.
+//   * Tried and lost (main's per-spp sum against the parent's in the same
+//     call unless named): the new stack top's row prefetched into L1 after
+//     each descent 1.012x, and after each pop too 1.070x; a leaf's record
+//     lines prefetched into L1 on entry, on top of the leaf loads, 0.883x
+//     against 0.848x without; the top 4 (or 8) stack entries in registers,
+//     shifted on each push and pop, 1.142x (1.145x); a register copy of
+//     the stack top alone 0.906x against 0.886x without; the typed tests
+//     out of line: the instances' typed per-spp 1.044x, and with the typed
+//     build held to 64 registers 1.210x (216 B spilled); the triangle build
+//     held to 48 registers (10 blocks) 1.148x (spills); two records ahead
+//     0.903x against 0.849x for one; the leaf unrolled by two (no register
+//     moves) 0.886x against 0.848x; blocks of 64 0.862x and of 256 0.883x
+//     against 0.848x; while-while loops (interior nodes until a leaf, then
+//     the leaf) 0.993x against 0.886x; persistent warps fetching 32 rays
+//     from a counter 0.965x against 0.886x, and idle lanes refilled from
+//     the counter whenever 4, 8 or 16 lanes of a warp are idle 1.14-1.16x;
+//     the object-space ray of the last instance kept in registers (typed)
+//     1.044x against 1.006x.  Earlier (PR 3): persistent warps, the stack
+//     in shared memory and the top rows of the tree in shared memory were
+//     each slower with the main scene's tables in L2, shared memory being
+//     carved out of the L1 that keeps the top of the tree and the touched
+//     part of each local stack.
+//
+// The caller sorts rays by (dead, direction octant, origin Morton code) and
+// passes the permutation as `order`: neighbouring threads walk similar
+// paths through the tree, dead rays fill whole warps at the end of the
+// grid, and no gather or scatter pass runs around the launch.
+//
+// Stack: STACK_SIZE entries per thread, in local memory.  An interior visit
+// pushes at most 3 entries, so a tree of depth D needs at most 3 * D; the
+// host wrapper checks that against bvh4_traverse_stack_size() and refuses
+// deeper trees.  The kernel traps rather than overflow silently.
 //
 // Built with -fmad=false so its float arithmetic rounds exactly as the plain
 // PyTorch version in ops/bvh.py does.
+
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -89,6 +138,7 @@ constexpr float kTwoPi = 6.28318530717958647692f;  // float(2 * math.pi)
 
 __device__ __forceinline__ int as_int(float x) { return __float_as_int(x); }
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 // torch's NaN rules: minimum/maximum give NaN if either is NaN, clamp
 // keeps a NaN input.
@@ -476,16 +526,15 @@ __device__ bool curve_test(const float *__restrict__ row, const Ray3 &r,
   return hit;
 }
 
-// One typed record (type != 0); returns whether it is taken (t < t_best).
-__device__ bool typed_test(int type, float4 a, const float4 *__restrict__ rec,
-                           const float *__restrict__ q_packed,
-                           const float *__restrict__ curve_packed,
-                           const float *__restrict__ inst_xf, const Ray3 &ray,
-                           float t_best, float &t) {
+// One typed record (type != 0): its t if it is taken (t < t_best), else NaN.
+__device__ float typed_test(int type, float4 a, float4 e1, float4 e2,
+                            const float *__restrict__ q_packed,
+                            const float *__restrict__ curve_packed,
+                            const float *__restrict__ inst_xf, Ray3 ray,
+                            float t_best) {
   bool hit;
+  float t;
   if (type == 8) {
-    const float4 e1 = __ldg(&rec[1]);
-    const float4 e2 = __ldg(&rec[2]);
     const float *w2i = inst_xf + 24 * (size_t)as_int(e1.w);
     float m[12];
 #pragma unroll
@@ -493,7 +542,7 @@ __device__ bool typed_test(int type, float4 a, const float4 *__restrict__ rec,
     const Ray3 r = to_object(m, ray);
     hit = mt_test(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, a, e1, e2, t_best, t);
   } else {
-    const int row = as_int(__ldg(&rec[1]).x);
+    const int row = as_int(e1.x);
     if (type == 7) {
       hit = curve_test(curve_packed + 28 * (size_t)row, ray, t_best, t);
     } else {
@@ -504,11 +553,197 @@ __device__ bool typed_test(int type, float4 a, const float4 *__restrict__ rec,
       hit = quadric_test(type, m + 12, to_object(m, ray), t_best, t);
     }
   }
-  return hit && t < t_best;
+  return hit && t < t_best ? t : nan_f();
 }
 
+// ---- the walk -------------------------------------------------------------
+
+struct Tables {
+  const float4 *__restrict__ nodes;
+  const float4 *__restrict__ tris;
+  const float *__restrict__ q_packed;
+  const float *__restrict__ curve_packed;
+  const float *__restrict__ inst_xf;
+};
+
+// One ray's walk: the ray, its best hit so far, the entry it is at and its
+// stack depth (the stack itself is the thread's local array).
+struct Walk {
+  float ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, t_best;
+  int i, prim, sp;
+  uint32_t entry;
+  bool any_hit;
+};
+
+// Start the walk of ray order[j]; false (its result written) for a dead
+// lane: nothing can satisfy 1e-4 < t < t_max, and through `order` each of
+// its reads would be a scattered sector.
+__device__ __forceinline__ bool start_walk(
+    int j, const float *__restrict__ o, const float *__restrict__ d,
+    const float *__restrict__ t_max, const float *__restrict__ mode,
+    const int *__restrict__ order, float *__restrict__ t_out,
+    int *__restrict__ prim_out, Walk &w) {
+  const int i = order ? order[j] : j;
+  const float tm = t_max[i];
+  if (!(tm > 0.f)) {
+    t_out[i] = tm;
+    prim_out[i] = -1;
+    return false;
+  }
+  w.i = i;
+  w.t_best = tm;
+  w.ox = o[3 * i];
+  w.oy = o[3 * i + 1];
+  w.oz = o[3 * i + 2];
+  w.dx = d[3 * i];
+  w.dy = d[3 * i + 1];
+  w.dz = d[3 * i + 2];
+  w.any_hit = mode[i] > 0.f;
+  w.prim = -1;
+  w.inv_dx = 1.f / (w.dx == 0.f ? 1e-30f : w.dx);
+  w.inv_dy = 1.f / (w.dy == 0.f ? 1e-30f : w.dy);
+  w.inv_dz = 1.f / (w.dz == 0.f ? 1e-30f : w.dz);
+  w.sp = 0;
+  w.entry = 0;  // the root node
+  return true;
+}
+
+// Take the next stack entry; false if the stack is empty (the walk ends).
+__device__ __forceinline__ bool pop(Walk &w, const uint32_t *stack) {
+  if (w.sp == 0) return false;
+  w.entry = stack[--w.sp];
+  return true;
+}
+
+// Test one record; true if the walk is done (an any-hit lane's first hit).
 template <bool kTyped>
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ bool test_record(Walk &w, const Tables &tb,
+                                            float4 a, float4 e1, float4 e2,
+                                            int id) {
+  float t = 0.f;
+  bool take = false;
+  if (a.w != 0.f) {  // not a triangle: the triangle-only build skips it
+    if (kTyped) {
+      t = typed_test((int)a.w, a, e1, e2, tb.q_packed, tb.curve_packed,
+                     tb.inst_xf, Ray3{w.ox, w.oy, w.oz, w.dx, w.dy, w.dz},
+                     w.t_best);
+      take = t < w.t_best;
+    }
+  } else {
+    take = mt_test(w.ox, w.oy, w.oz, w.dx, w.dy, w.dz, a, e1, e2, w.t_best, t);
+  }
+  if (take) {
+    w.t_best = t;
+    w.prim = id;
+    if (w.any_hit) {
+      w.t_best = -1e30f;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The leaf w.entry, its records in index order, then the pop; true when the
+// walk is finished.  A record's three float4 are loaded together.  The
+// triangle-only build also loads the next record's before it tests this
+// one, so the loads run a record ahead and the tests stay in order; the
+// typed build does not (holding the next record would push its 80
+// registers into spills).
+template <bool kTyped>
+__device__ __forceinline__ bool leaf_step(Walk &w, const uint32_t *stack,
+                                          const Tables &tb) {
+  const int first = (int)(w.entry & 0xFFFFFFu);
+  const int count = (int)((w.entry >> 24) & 0x7Fu);
+  const float4 *rec = tb.tris + 3 * (size_t)first;
+  if (kTyped) {
+    for (int k = 0; k < count; ++k) {
+      if (test_record<kTyped>(w, tb, __ldg(rec + 3 * k), __ldg(rec + 3 * k + 1),
+                              __ldg(rec + 3 * k + 2), first + k))
+        return true;
+    }
+    return !pop(w, stack);
+  }
+  float4 a = __ldg(rec), e1 = __ldg(rec + 1), e2 = __ldg(rec + 2);
+  for (int k = 0; k < count; ++k) {
+    float4 na = a, ne1 = e1, ne2 = e2;
+    if (k + 1 < count) {
+      na = __ldg(rec + 3 * k + 3);
+      ne1 = __ldg(rec + 3 * k + 4);
+      ne2 = __ldg(rec + 3 * k + 5);
+    }
+    if (test_record<kTyped>(w, tb, a, e1, e2, first + k)) return true;
+    a = na;
+    e1 = ne1;
+    e2 = ne2;
+  }
+  return !pop(w, stack);
+}
+
+// The interior node w.entry: descend into its nearest hit child, pushing
+// the farther hit children, or pop.  True when the walk is finished.
+__device__ __forceinline__ bool node_step(Walk &w, uint32_t *stack,
+                                          const Tables &tb) {
+  const float4 *row = tb.nodes + 8 * (size_t)w.entry;
+  float f[32];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 v = __ldg(&row[q]);
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+  float key[4];
+  uint32_t ref[4];
+  int slot[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int cnt = as_int(f[28 + c]);
+    const float t0x = (f[6 * c] - w.ox) * w.inv_dx;
+    const float t1x = (f[6 * c + 3] - w.ox) * w.inv_dx;
+    const float t0y = (f[6 * c + 1] - w.oy) * w.inv_dy;
+    const float t1y = (f[6 * c + 4] - w.oy) * w.inv_dy;
+    const float t0z = (f[6 * c + 2] - w.oz) * w.inv_dz;
+    const float t1z = (f[6 * c + 5] - w.oz) * w.inv_dz;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                           fmaxf(t0z, t1z)) * 1.0000004f;
+    const bool hit = cnt >= 0 && tn <= tf && tf > 0.f && tn < w.t_best;
+    key[c] = hit ? tn : inf_f();  // +inf = miss
+    const uint32_t r = (uint32_t)as_int(f[24 + c]);
+    ref[c] = cnt > 0 ? (kLeafFlag | ((uint32_t)cnt << 24) | r) : r;
+    slot[c] = c;
+  }
+  // Sort the 4 children by (t_near, slot): a 5-comparator network.
+#define CSWAP(a, b)                                                        \
+  if (key[a] > key[b] || (key[a] == key[b] && slot[a] > slot[b])) {        \
+    float tk = key[a]; key[a] = key[b]; key[b] = tk;                       \
+    uint32_t tr = ref[a]; ref[a] = ref[b]; ref[b] = tr;                    \
+    int ts = slot[a]; slot[a] = slot[b]; slot[b] = ts;                     \
+  }
+  CSWAP(0, 1) CSWAP(2, 3) CSWAP(0, 2) CSWAP(1, 3) CSWAP(1, 2)
+#undef CSWAP
+  // Push the farther hit children, farthest first; descend the nearest.
+#pragma unroll
+  for (int c = 3; c >= 1; --c) {
+    if (key[c] != inf_f()) {
+      if (w.sp >= kStackSize) __trap();
+      stack[w.sp++] = ref[c];
+    }
+  }
+  if (key[0] != inf_f()) {
+    w.entry = ref[0];
+    return false;
+  }
+  return !pop(w, stack);
+}
+
+// At least 9 blocks of 128 resident on each SM for the triangle-only build
+// (ptxas then keeps it to 56 registers), 6 for the typed build (80): see
+// the design above.
+template <bool kTyped>
+__global__ void __launch_bounds__(kBlock, kTyped ? 6 : 9)
 bvh4_traverse_kernel(const float4 *__restrict__ nodes,
                      const float4 *__restrict__ tris,
                      const float *__restrict__ q_packed,
@@ -521,116 +756,15 @@ bvh4_traverse_kernel(const float4 *__restrict__ nodes,
                      int *__restrict__ prim_out, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const int i = order ? order[j] : j;
-  float t_best = t_max[i];
-  // A dead lane (nothing can satisfy 1e-4 < t < t_max) reads nothing else:
-  // through `order` each of its reads would be a scattered sector.
-  if (!(t_best > 0.f)) {
-    t_out[i] = t_best;
-    prim_out[i] = -1;
-    return;
-  }
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const bool any_hit = mode[i] > 0.f;
-  int prim = -1;
-  const float inv_dx = 1.f / (dx == 0.f ? 1e-30f : dx);
-  const float inv_dy = 1.f / (dy == 0.f ? 1e-30f : dy);
-  const float inv_dz = 1.f / (dz == 0.f ? 1e-30f : dz);
-
+  Walk w;
+  if (!start_walk(j, o, d, t_max, mode, order, t_out, prim_out, w)) return;
+  const Tables tb{nodes, tris, q_packed, curve_packed, inst_xf};
   uint32_t stack[kStackSize];
-  int sp = 0;
-  uint32_t entry = 0;  // the root node
-  bool done = false;
-  while (true) {
-    if (entry & kLeafFlag) {
-      const int first = (int)(entry & 0xFFFFFFu);
-      const int count = (int)((entry >> 24) & 0x7Fu);
-      for (int k = 0; k < count; ++k) {
-        const float4 a = __ldg(&tris[3 * (first + k)]);
-        float t;
-        bool take;
-        if (a.w != 0.f) {  // not a triangle
-          if (!kTyped) continue;
-          const Ray3 ray{ox, oy, oz, dx, dy, dz};
-          take = typed_test((int)a.w, a, tris + 3 * (first + k), q_packed,
-                            curve_packed, inst_xf, ray, t_best, t);
-        } else {
-          const float4 e1 = __ldg(&tris[3 * (first + k) + 1]);
-          const float4 e2 = __ldg(&tris[3 * (first + k) + 2]);
-          take = mt_test(ox, oy, oz, dx, dy, dz, a, e1, e2, t_best, t);
-        }
-        if (take) {
-          t_best = t;
-          prim = first + k;
-          if (any_hit) {
-            t_best = -1e30f;
-            done = true;
-            break;
-          }
-        }
-      }
-      if (done) break;
-    } else {
-      const float4 *row = nodes + 8 * (size_t)entry;
-      float f[32];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float4 v = __ldg(&row[q]);
-        f[4 * q] = v.x;
-        f[4 * q + 1] = v.y;
-        f[4 * q + 2] = v.z;
-        f[4 * q + 3] = v.w;
-      }
-      float key[4];
-      uint32_t ref[4];
-      int slot[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int cnt = as_int(f[28 + c]);
-        const float t0x = (f[6 * c] - ox) * inv_dx;
-        const float t1x = (f[6 * c + 3] - ox) * inv_dx;
-        const float t0y = (f[6 * c + 1] - oy) * inv_dy;
-        const float t1y = (f[6 * c + 4] - oy) * inv_dy;
-        const float t0z = (f[6 * c + 2] - oz) * inv_dz;
-        const float t1z = (f[6 * c + 5] - oz) * inv_dz;
-        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                               fminf(t0z, t1z));
-        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                               fmaxf(t0z, t1z)) * 1.0000004f;
-        const bool hit = cnt >= 0 && tn <= tf && tf > 0.f && tn < t_best;
-        key[c] = hit ? tn : inf_f();  // +inf = miss
-        const uint32_t r = (uint32_t)as_int(f[24 + c]);
-        ref[c] = cnt > 0 ? (kLeafFlag | ((uint32_t)cnt << 24) | r) : r;
-        slot[c] = c;
-      }
-      // Sort the 4 children by (t_near, slot): a 5-comparator network.
-#define CSWAP(a, b)                                                        \
-  if (key[a] > key[b] || (key[a] == key[b] && slot[a] > slot[b])) {        \
-    float tk = key[a]; key[a] = key[b]; key[b] = tk;                       \
-    uint32_t tr = ref[a]; ref[a] = ref[b]; ref[b] = tr;                    \
-    int ts = slot[a]; slot[a] = slot[b]; slot[b] = ts;                     \
+  while (!((w.entry & kLeafFlag) ? leaf_step<kTyped>(w, stack, tb)
+                                 : node_step(w, stack, tb))) {
   }
-      CSWAP(0, 1) CSWAP(2, 3) CSWAP(0, 2) CSWAP(1, 3) CSWAP(1, 2)
-#undef CSWAP
-      // Push the farther hit children, farthest first; descend the nearest.
-#pragma unroll
-      for (int c = 3; c >= 1; --c) {
-        if (key[c] != inf_f()) {
-          if (sp >= kStackSize) __trap();
-          stack[sp++] = ref[c];
-        }
-      }
-      if (key[0] != inf_f()) {
-        entry = ref[0];
-        continue;
-      }
-    }
-    if (sp == 0) break;
-    entry = stack[--sp];
-  }
-  t_out[i] = t_best;
-  prim_out[i] = prim;
+  t_out[w.i] = w.t_best;
+  prim_out[w.i] = w.prim;
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """The port's CLI and render entry points (python -m pbrt_tpu_torch, render.py)
-on the CPU: parity-ladder scenes against the pbrt-v3 goldens at
-tests/test_parity_images.py's thresholds and against the JAX package's
-render_file of the same file; the refusals; image IO and the Statistics
+on the CPU: the heavier parity-ladder scenes against the pbrt-v3 goldens
+at tests/test_parity_images.py's thresholds (-m slow; the two light ones,
+also against the JAX package's render, are in
+tests/test_torch_cli_golden.py); the refusals; image IO and the Statistics
 block against the JAX package's; and the port's independence from JAX."""
 import ast
 import os
@@ -13,7 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from pbrt_tpu import render as jrender
 from pbrt_tpu.utils import imageio as jimg
 from pbrt_tpu.utils import stats as jst
 from pbrt_tpu_torch import __main__ as cli
@@ -52,19 +52,6 @@ def run_cli(*args, env=None):
     return subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", *args],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=env)
-
-
-@pytest.mark.parametrize("name", ["a_floor_point", "c3_plastic_d1"])
-def test_cli_matches_golden_and_jax(name, tmp_path):
-    out = tmp_path / "out.pfm"
-    r = run_cli(str(PARITY / f"{name}.pbrt"), "--device", "cpu", "-o", str(out))
-    assert r.returncode == 0, r.stderr
-    assert "Mrays/s" in r.stdout and "Statistics:" in r.stdout
-    got = timg.read_pfm(str(out))
-    assert_meets(jimg.read_pfm(str(GOLD / f"{name}.pfm")), got, name)
-    ref, _ = jrender.render_file(str(PARITY / f"{name}.pbrt"),
-                                 out=str(tmp_path / "jax.pfm"))
-    assert_meets(np.asarray(ref), got, name)
 
 
 @pytest.mark.slow

@@ -188,6 +188,123 @@ def test_kernel_equals_plain_at_the_stack_cap(kind, work):
     assert float((p >= 0).float().mean()) > 0.5
 
 
+def tie_grid(g):
+    """A g x g grid of unit cells in z = 0, two triangles a cell, and an
+    instanced copy of it beside it (x + g + 1, type-8 records): integer
+    vertices, so a ray in a dyadic direction through a vertex or an edge
+    meets every triangle there at exactly the same t, and the visit order
+    alone decides its prim."""
+    b = sc.SceneBuilder()
+    m = b.add_material(sc.MAT_MATTE)
+    i, j = np.meshgrid(np.arange(g + 1), np.arange(g + 1), indexing="ij")
+    v = np.stack([i.ravel(), j.ravel(), np.zeros(i.size)], 1).astype(np.float32)
+    a = (np.arange(g)[:, None] * (g + 1) + np.arange(g)[None, :]).ravel()
+    idx = np.concatenate([np.stack([a, a + g + 1, a + g + 2], 1),
+                          np.stack([a, a + g + 2, a + 1], 1)])
+    b.add_triangle_mesh(idx, v, material=m)
+    b.begin_mesh_template()
+    b.add_triangle_mesh(idx, v, material=m)
+    b.add_mesh_instance(b.end_mesh_template(), tf.translate(g + 1, 0, 0))
+    b.add_point_light(tf.translate(0, 0, 5), (1, 1, 1))
+    return b
+
+
+def tie_rays(n, g, seed, device="cuda"):
+    """Rays through the tie grid's vertices (lane % 4 == 0), the midpoints
+    of its axis edges (1) and of its diagonals (2) from z = 3, in directions
+    whose components are 0 or +-1/16, 1/8, 1/4 (every product in the
+    triangle and slab tests exact); lane % 4 == 3 a random ray."""
+    rs = np.random.RandomState(seed)
+    kind = np.arange(n) % 4
+    x = rs.randint(0, 2 * g + 2, n).astype(np.float64)
+    y = rs.randint(0, g + 1, n).astype(np.float64)
+    x[kind == 1] += 0.5
+    x[kind == 2] += 0.5
+    y[kind == 2] += 0.5
+    steps = np.array([-0.25, -0.125, -0.0625, 0.0, 0.0625, 0.125, 0.25])
+    d = np.stack([rs.choice(steps, n), rs.choice(steps, n), -np.ones(n)], 1)
+    o = np.stack([x, y, np.zeros(n)], 1) - 3.0 * d
+    r = kind == 3
+    o[r] = rs.randn(r.sum(), 3) * g / 2 + [g, g / 2, 4]
+    dr = rs.randn(r.sum(), 3)
+    dr[:, 2] = -np.abs(dr[:, 2]) - 0.2
+    d[r] = dr / np.linalg.norm(dr, axis=1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+def tied_share(s, o, d, lanes=2048):
+    """Of the first `lanes` rays aimed at the grid (lane % 4 != 3), the
+    share that meets two or more of its triangles (type 0) at their nearest
+    t: brute force over every record with the kernel's triangle test."""
+    rec = s.prim_tris[s.prim_tris[:, 3] == 0]
+    o, d = o[:4 * lanes][torch.arange(4 * lanes, device=o.device) % 4 != 3][:lanes], \
+        d[:4 * lanes][torch.arange(4 * lanes, device=d.device) % 4 != 3][:lanes]
+    L, P = o.shape[0], rec.shape[0]
+    hit, t = kb.moller_trumbore(o[:, None].expand(L, P, 3).reshape(-1, 3),
+                                d[:, None].expand(L, P, 3).reshape(-1, 3),
+                                rec[None, :, 0:3].expand(L, P, 3).reshape(-1, 3),
+                                rec[None, :, 4:7].expand(L, P, 3).reshape(-1, 3),
+                                rec[None, :, 8:11].expand(L, P, 3).reshape(-1, 3),
+                                torch.full((L * P,), 1e30, device=o.device))
+    t = torch.where(hit, t, torch.inf).view(L, P)
+    near = t.min(1, keepdim=True).values
+    return float(((t == near) & torch.isfinite(near)).sum(1).ge(2).float().mean())
+
+
+@pytest.mark.parametrize("build", ["triangles", "typed"])
+@pytest.mark.parametrize("n", [1, 31, 128, 8193, 200_000])
+def test_kernel_equals_plain_on_ties(n, build):
+    """Rays through a mesh's shared vertices and edges, where the order of
+    the visits decides prim (tests/test_torch_traverse.py pins that
+    contract on the CPU): closest-hit and any-hit lanes, dead lanes, a
+    random work list, from one lane to past one wave of the card (200,000
+    lanes are 1,563 blocks of 128); the triangle-only build (the instanced
+    copy skipped) and the typed build (its type-8 records tested), each
+    bit for bit its plain version."""
+    g = 24
+    s = tie_grid(g).build(device="cuda")
+    o, d = tie_rays(n, g, 21)
+    t_max, mode = typed_lanes(n, 22, "cuda")
+    order = random_order(n, 23)
+    if n >= 8193:
+        assert tied_share(s, o, d) > 0.3
+    typed = kb.typed_tables(s) if build == "typed" else None
+    wrapper = kb.bvh4_traverse_typed if typed else kb.bvh4_traverse
+    before = wrapper.launches
+    for m in (torch.zeros(n, device="cuda"), mode):
+        args = (s.bvh4_nodes, s.prim_tris, *(typed or ()), o, d, t_max, m)
+        t_k, p_k = wrapper(*args, s.bvh4_depth, order)
+        torch.cuda.synchronize()
+        t_p, p_p = kb.bvh4_traverse_plain(s.bvh4_nodes, s.prim_tris, o, d, t_max, m,
+                                          order=order, typed=typed)
+        assert torch.equal(p_k, p_p)
+        assert torch.equal(t_k, t_p)
+    assert wrapper.launches == before + 2
+    if n >= 128:
+        assert float((p_k >= 0).float().mean()) > 0.2
+
+
+@pytest.mark.parametrize("n", [1, 31, 128, 8193, 200_000])
+def test_typed_kernel_equals_plain_at_sizes(n):
+    """The typed build on the scene with every record type, from one lane
+    to past one wave, a random work list, closest-hit and any-hit lanes and
+    dead lanes: bit for bit its plain version."""
+    s = TYPED_SCENES["mixed"]().build(device="cuda")
+    o, d = typed_rays(n, 31, "cuda")
+    t_max, mode = typed_lanes(n, 32, "cuda")
+    order = random_order(n, 33)
+    tables = kb.typed_tables(s)
+    for m in (torch.zeros(n, device="cuda"), mode):
+        t_k, p_k = kb.bvh4_traverse_typed(s.bvh4_nodes, s.prim_tris, *tables, o, d,
+                                          t_max, m, s.bvh4_depth, order)
+        torch.cuda.synchronize()
+        t_p, p_p = kb.bvh4_traverse_plain(s.bvh4_nodes, s.prim_tris, o, d, t_max, m,
+                                          order=order, typed=tables)
+        assert torch.equal(p_k, p_p)
+        assert torch.equal(t_k, t_p)
+
+
 def test_bvh2_refuses_a_tree_deeper_than_its_stack():
     """Binary depth 65 needs 65 entries of the kernel's 64: refused before
     any launch."""

@@ -3,15 +3,16 @@ against the JAX package's (pbrt_tpu.parallel.diff) on the scenes of
 tests/test_grad.py: a matte or plastic ground plane lit by an emissive
 sphere behind the camera, 24x24, sobol, sample 0, the same seeded weights.
 
-* the port's AD against JAX's AD at depth 1 (JAX jitted on its CPU backend,
-  which takes the watertight oracle, no Pallas), on one set of parameter
-  values put into both packages (bridge.params_from_numpy);
+* the port's AD against JAX's AD at depth 1: tests/test_torch_grad_jax.py;
 * the port's AD against its own central finite differences, at
   test_grad.py's epsilons and tolerances;
 * path replay (remat) against no remat, finite and non-zero leaves at depth
   3, the counted rays of a grad step, and the device rule;
-* the gradient guards at their edges, and the input that showed the cone
-  pdf's fault;
+* the gradient guards at their edges (safe_sqrt and the cone pdf's;
+  safe_asin, safe_acos, safe_atan2 and cos_phi / sin_phi at sin theta = 0,
+  refract past total internal reflection, and the Fresnel term of the
+  BSSRDF's Sw at it: the plain formulas' values, finite derivatives), and
+  the input that showed the cone pdf's fault;
 * the step on a one-triangle scene with a texture, glass or an infinite
   light, and its three refusals (the steps the JAX package cannot take).
 """
@@ -25,11 +26,8 @@ import pytest
 import torch
 
 from pbrt_tpu import film as jfm
-from pbrt_tpu.integrators.path import PathConfig as JPath
 from pbrt_tpu.integrators.path import make_pixel_grid
 from pbrt_tpu.parallel import diff as jdiff
-from pbrt_tpu.samplers.samplers import SamplerConfig as JSampler
-from pbrt_tpu.statics import scene_statics
 from chip_smoke import blob_mesh
 from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch import film as tfm
@@ -38,13 +36,14 @@ from pbrt_tpu_torch.cameras.cameras import (make_perspective_camera,
                                             perspective_raster_to_camera)
 from pbrt_tpu_torch.core import transform as ttf
 from pbrt_tpu_torch.core.sampling import uniform_cone_pdf
+from pbrt_tpu_torch.core import vecmath as tvm
 from pbrt_tpu_torch.core.vecmath import offset_ray_origin, safe_sqrt
 from pbrt_tpu_torch.integrators import path as tpath
+from pbrt_tpu_torch.materials import bssrdf as tbs
 from pbrt_tpu_torch.parallel import diff
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TSampler
 from pbrt_tpu_torch.utils import stats as st
 from test_grad import RES, _camera, _plane_scene
-from test_torch_path import match_frac
 from jax_traversal_jit import jit_jax_traversal  # noqa: F401  (autouse)
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
@@ -93,53 +92,6 @@ def _seeded_values(scene, camera):
     vals["light_L"] = (vals["light_L"] * rs.uniform(0.8, 1.2, vals["light_L"].shape)
                        ).astype(np.float32)
     return vals
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_step():
-    """The JAX package's depth-1 grad step, jitted once for both scenes:
-    the statics of the plastic scene, whose material types (matte and
-    plastic) hold the matte scene's, and whose arrays have the matte
-    scene's shapes; a type absent from a scene only adds masked lanes."""
-    pixels = jnp.asarray(make_pixel_grid(jfm.FilmConfig(full_resolution=RES)))
-    w, statics = jnp.asarray(_weights()), scene_statics(_plane_scene(True))
-    # pixels and weights as constants of the trace: XLA compiles it faster.
-    return jax.jit(lambda s, c: jdiff.render_grad_step(
-        s, c, pixels, jnp.uint32(0), w, JSampler("sobol", 4, RES),
-        JPath(max_depth=1), statics, remat=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_and_port(plastic):
-    """Depth-1 (L, grads) of both packages on the same parameter values."""
-    js, jc = _plane_scene(plastic), _camera()
-    vals = _seeded_values(js, jc)
-    js2, jc2 = jdiff.apply_params(js, jc, vals)
-    jL, jg = _jax_step()(js2, jc2)
-    jg = jax.tree_util.tree_map(np.asarray, jg)
-
-    scene, camera, tpix, w, scfg, pcfg = _port(plastic, 1)
-    scene, camera = diff.apply_params(scene, camera,
-                                      bridge.params_from_numpy(vals, "cpu"))
-    L, g = diff.render_grad_step(scene, camera, tpix, 0, w, scfg, pcfg,
-                                 device="cpu")
-    return np.asarray(jL), jg, L.numpy(), g
-
-
-@pytest.mark.parametrize("plastic", [False, True], ids=["matte", "plastic"])
-def test_grads_match_jax_at_depth1(plastic):
-    jL, jg, L, g = _jax_and_port(plastic)
-    assert match_frac(jL, L) >= 0.995
-    pairs = [(k, jg[k], g[k]) for k in LEAVES]
-    pairs += [(f"camera.{k}", jg["camera"][k], g["camera"][k])
-              for k in diff.CAMERA_LEAVES]
-    for name, ref, got in pairs:
-        ref = np.asarray(ref, np.float32)
-        got = got.numpy()
-        assert got.shape == ref.shape, name
-        bar = 1e-3 * np.abs(ref).max() + 1e-6
-        assert np.abs(got - ref).max() <= bar, name
-    assert np.abs(g["kd"].numpy()).max() > 1e-3
 
 
 def _with_material(scene, key, idx, e):
@@ -289,6 +241,53 @@ def test_guards_give_zero_gradients_at_their_edges():
                                                 n / n.norm(dim=-1, keepdim=True), w))
     (g,) = torch.autograd.grad(o.sum(), p)
     assert torch.equal(g, torch.ones_like(p))
+
+
+def _value_and_grad(fn, *xs):
+    ts = [torch.tensor(x, dtype=torch.float32, requires_grad=True) for x in xs]
+    y = fn(*ts)
+    return y.detach(), torch.autograd.grad(y.sum(), ts)
+
+
+def test_new_guards_give_zero_gradients_at_their_edges():
+    """The guards keep the plain formulas' values (asin, acos and atan2 of
+    the clamped input, the quotients of cos_phi and sin_phi, refract's
+    cos_t, FrDielectric's cos_t) and give finite derivatives where those
+    formulas' are infinite or 0 / 0: zero at the edge itself."""
+    x = [-1.5, -1.0, 0.5, 1.0, 2.0]
+    y, (g,) = _value_and_grad(tvm.safe_asin, x)
+    assert torch.equal(y, torch.asin(torch.clamp(torch.tensor(x), -1.0, 1.0)))
+    assert torch.equal(g, torch.tensor([0.0, 0.0, 1.0 / np.sqrt(0.75), 0.0, 0.0],
+                                       dtype=torch.float32))
+    y, (g,) = _value_and_grad(tvm.safe_acos, x)
+    assert torch.equal(y, torch.acos(torch.clamp(torch.tensor(x), -1.0, 1.0)))
+    assert torch.isfinite(g).all() and g[[0, 1, 3, 4]].eq(0).all()
+
+    ys, xs = [0.0, -0.0, 0.0, 1.0], [0.0, 0.0, -0.0, 1.0]
+    y, (gy, gx) = _value_and_grad(tvm.safe_atan2, ys, xs)
+    assert torch.equal(y, torch.atan2(torch.tensor(ys), torch.tensor(xs)))
+    assert torch.equal(gy[:3], torch.zeros(3)) and torch.equal(gx[:3], torch.zeros(3))
+    assert gy[3] == 0.5 and gx[3] == -0.5
+
+    # w along the normal with a stray w.y: sin theta rounds to 0
+    w = [[0.0, 1e-4, 1.0], [0.6, 0.0, 0.8]]
+    for fn, edge in ((tvm.cos_phi, 1.0), (tvm.sin_phi, 0.0)):
+        y, (g,) = _value_and_grad(fn, w)
+        assert y[0] == edge and torch.isfinite(g).all() and g[0].eq(0).all()
+    assert torch.equal(tvm.cos_phi(torch.tensor(w))[1:], torch.tensor([1.0]))
+
+    # past total internal reflection (eta 1.5 from inside at grazing wi)
+    wi = [[0.8, 0.0, 0.6], [0.1, 0.0, float(np.sqrt(0.99))]]
+    n = [[0.0, 0.0, 1.0]] * 2
+    eta = torch.tensor([1.5, 1.5])
+    ok, _ = tvm.refract(torch.tensor(wi), torch.tensor(n), eta)
+    assert not bool(ok[0]) and bool(ok[1])
+    _, (g,) = _value_and_grad(lambda a: tvm.refract(a, torch.tensor(n), eta)[1], wi)
+    assert torch.isfinite(g).all()
+
+    cos_w = [0.05, 0.5, 1.0, -0.3]
+    y, (g,) = _value_and_grad(lambda c: tbs.sw(torch.full((4,), 1.33), c), cos_w)
+    assert torch.isfinite(y).all() and torch.isfinite(g).all()
 
 
 def test_far_hit_point_keeps_camera_gradients_finite():

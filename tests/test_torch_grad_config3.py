@@ -5,7 +5,7 @@ an imagemap floor, a smooth and a rough glass sphere, an env map, a point
 light), 12x12, halton, depth 2, sample 1, on one set of seeded parameter
 values put into both packages with bridge.params_from_numpy.
 
-Bars (tests/test_torch_grad.py:127-139): L at match_frac >= 0.995, and
+Bars (tests/test_torch_grad_jax.py's): L at match_frac >= 0.995, and
 each leaf within 1e-3 of the JAX leaf's largest entry plus 1e-6.  The
 step looks textures up at level 0 in both packages: neither passes ray
 differentials to its step.

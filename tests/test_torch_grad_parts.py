@@ -1,6 +1,6 @@
 """Gradients of the parts the grad step newly reaches, held against the JAX
-package's jax.grad of the same function on the same seeded inputs, and the
-new gradient guards at their edges:
+package's jax.grad of the same function on the same seeded inputs (the
+new gradient guards at their edges are held in tests/test_torch_grad.py):
 
 * the Fourier series (core/interpolation.py fourier_eval, whose backward
   is the float32 recurrence's adjoint) with respect to its coefficients
@@ -9,14 +9,12 @@ new gradient guards at their edges:
 * image-texture lookups (bilinear, trilinear, EWA) under the three wraps,
   with respect to uv (and the footprint);
 * the infinite light's env-map lookup along escaped rays, with respect to
-  the direction;
-* safe_asin, safe_acos, safe_atan2 and cos_phi / sin_phi at sin theta = 0,
-  refract past total internal reflection, and the Fresnel term of the
-  BSSRDF's Sw at it: the plain formulas' values, finite derivatives.
+  the direction.
 
 Bar: each gradient within 1e-3 of the JAX gradient's largest entry (plus
-1e-6) on every lane, the step's leaf bar (tests/test_torch_grad.py:
-127-139), but sample_fourier's, which is held on the lanes whose phi
+1e-6) on every lane, the step's leaf bar
+(tests/test_torch_grad_jax.py:test_grads_match_jax_at_depth1), but
+sample_fourier's, which is held on the lanes whose phi
 agrees with the JAX package's to 1e-5: the two Newton solves stop an
 iteration apart on a few lanes (tests/test_torch_interpolation.py's
 docstring), and there the derivative of the unrolled solve differs too.
@@ -38,9 +36,7 @@ from pbrt_tpu.materials import fourier as jfz
 from pbrt_tpu.textures import textures as jtx
 from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch.core import interpolation as titp
-from pbrt_tpu_torch.core import vecmath as tvm
 from pbrt_tpu_torch.lights import lights as tlt
-from pbrt_tpu_torch.materials import bssrdf as tbs
 from pbrt_tpu_torch.textures import textures as ttx
 from test_torch_envlight import env_scene
 from test_torch_textures import _image, _lookup_inputs, _tables
@@ -168,48 +164,3 @@ def test_env_map_gradient_matches_jax():
     assert_grad_close(ref, got, "d/d direction")
 
 
-def _value_and_grad(fn, *xs):
-    ts = [torch.tensor(x, dtype=torch.float32, requires_grad=True) for x in xs]
-    y = fn(*ts)
-    return y.detach(), torch.autograd.grad(y.sum(), ts)
-
-
-def test_new_guards_give_zero_gradients_at_their_edges():
-    """The guards keep the plain formulas' values (asin, acos and atan2 of
-    the clamped input, the quotients of cos_phi and sin_phi, refract's
-    cos_t, FrDielectric's cos_t) and give finite derivatives where those
-    formulas' are infinite or 0 / 0: zero at the edge itself."""
-    x = [-1.5, -1.0, 0.5, 1.0, 2.0]
-    y, (g,) = _value_and_grad(tvm.safe_asin, x)
-    assert torch.equal(y, torch.asin(torch.clamp(torch.tensor(x), -1.0, 1.0)))
-    assert torch.equal(g, torch.tensor([0.0, 0.0, 1.0 / np.sqrt(0.75), 0.0, 0.0],
-                                       dtype=torch.float32))
-    y, (g,) = _value_and_grad(tvm.safe_acos, x)
-    assert torch.equal(y, torch.acos(torch.clamp(torch.tensor(x), -1.0, 1.0)))
-    assert torch.isfinite(g).all() and g[[0, 1, 3, 4]].eq(0).all()
-
-    ys, xs = [0.0, -0.0, 0.0, 1.0], [0.0, 0.0, -0.0, 1.0]
-    y, (gy, gx) = _value_and_grad(tvm.safe_atan2, ys, xs)
-    assert torch.equal(y, torch.atan2(torch.tensor(ys), torch.tensor(xs)))
-    assert torch.equal(gy[:3], torch.zeros(3)) and torch.equal(gx[:3], torch.zeros(3))
-    assert gy[3] == 0.5 and gx[3] == -0.5
-
-    # w along the normal with a stray w.y: sin theta rounds to 0
-    w = [[0.0, 1e-4, 1.0], [0.6, 0.0, 0.8]]
-    for fn, edge in ((tvm.cos_phi, 1.0), (tvm.sin_phi, 0.0)):
-        y, (g,) = _value_and_grad(fn, w)
-        assert y[0] == edge and torch.isfinite(g).all() and g[0].eq(0).all()
-    assert torch.equal(tvm.cos_phi(torch.tensor(w))[1:], torch.tensor([1.0]))
-
-    # past total internal reflection (eta 1.5 from inside at grazing wi)
-    wi = [[0.8, 0.0, 0.6], [0.1, 0.0, float(np.sqrt(0.99))]]
-    n = [[0.0, 0.0, 1.0]] * 2
-    eta = torch.tensor([1.5, 1.5])
-    ok, _ = tvm.refract(torch.tensor(wi), torch.tensor(n), eta)
-    assert not bool(ok[0]) and bool(ok[1])
-    _, (g,) = _value_and_grad(lambda a: tvm.refract(a, torch.tensor(n), eta)[1], wi)
-    assert torch.isfinite(g).all()
-
-    cos_w = [0.05, 0.5, 1.0, -0.3]
-    y, (g,) = _value_and_grad(lambda c: tbs.sw(torch.full((4,), 1.33), c), cos_w)
-    assert torch.isfinite(y).all() and torch.isfinite(g).all()

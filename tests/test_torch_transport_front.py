@@ -5,7 +5,8 @@ bound texture, an infinite, projection or goniometric light, a camera
 other than the perspective pinhole (bdpt and mlt; sppm takes any camera)
 and the exact sampler mode, each raising NotImplementedError naming the
 integrator and the feature (the JAX package renders each of them unlike
-pbrt-v3; ROADMAP.md §3).  Cheap, and kept apart from
+pbrt-v3; ROADMAP.md §3), also on refgold's mirror file with an infinite
+light.  Cheap, and kept apart from
 tests/test_torch_bdpt.py's JAX comparisons so that file holds few tests:
 xdist's loadfile scheduling dispatches files with many tests first."""
 import numpy as np
@@ -24,6 +25,7 @@ from pbrt_tpu_torch.integrators import mlt as tmlt
 from pbrt_tpu_torch.integrators import sppm as tsppm
 from pbrt_tpu_torch.samplers import samplers as tsa
 from test_torch_bdpt import LOOK, area_scene
+from test_torch_whitted_ao import mirror_file
 import test_torch_threads  # noqa: F401  (torch's threads under xdist)
 
 BASE = """LookAt 0 -9 2  0 0 1  0 0 1
@@ -127,3 +129,16 @@ def test_setup_matches_jax(integrator, config):
     assert tio.parse_pbrt_string(bare).make_integrator_config() == type(config)()
     assert bridge.compare_setups(jio.parse_pbrt_string(bare),
                                  tio.parse_pbrt_string(bare)) == []
+
+
+@pytest.mark.parametrize("name", ["bdpt", "mlt", "sppm"])
+def test_unported_integrators_raise(tmp_path, name):
+    """bdpt, mlt and sppm render the mirror file (tests/test_torch_bdpt.py,
+    test_torch_mlt_sppm.py); with an infinite light, which the JAX
+    package's light subpaths leave dark, each raises naming itself."""
+    path = mirror_file(tmp_path, f'"{name}"')
+    text = open(path).read().replace(
+        "WorldBegin", 'WorldBegin\nLightSource "infinite" "color L" [0.1 0.1 0.1]')
+    open(path, "w").write(text)
+    with pytest.raises(NotImplementedError, match=f"{name}.*infinite light"):
+        trender.render_file(path, out=str(tmp_path / "o.pfm"), device="cpu")

@@ -232,6 +232,52 @@ def test_sort_changes_no_result():
     assert torch.equal(t, t_u) and torch.equal(p, p_u)
 
 
+# two triangles in z = 0 sharing the edge (1, 0, 0)-(0, 1, 0)
+TIE_TRIS = np.array([[0, 0, 0, 1, 0, 0, 0, 1, 0],
+                     [1, 0, 0, 1, 1, 0, 0, 1, 0]], np.float32)
+
+
+def tie_tables(tris, one_leaf):
+    """bvh4 tables for `tris` (records in this order), every box the
+    triangles' bounds grown by 1: one leaf holding them all, or (two
+    triangles) each in a leaf of its own, side by side in one 4-wide node
+    under the same box, so their t_near tie and the slot decides."""
+    n = tris.shape[0]
+    corners = tris.reshape(n, 3, 3)
+    lo, hi = corners.min((0, 1)) - 1.0, corners.max((0, 1)) + 1.0
+    if one_leaf:
+        tree = ([lo], [hi], [0], [n])
+    else:  # the root (its second child is node 2), then the two leaves
+        tree = ([lo] * 3, [hi] * 3, [2, 0, 1], [0, 1, 1])
+    rows, _ = kb.build_bvh4_table(*(np.array(x) for x in tree))
+    recs = kb.build_prim_records(np.zeros(n), np.arange(n), tris)
+    return torch.as_tensor(rows), torch.as_tensor(recs)
+
+
+@pytest.mark.parametrize("one_leaf", [True, False], ids=["one-leaf", "two-leaves"])
+def test_tie_goes_to_the_first_record_tested(one_leaf):
+    """The contract the bvh4 kernel keeps with its plain version: a record
+    is taken only at t < t_best, so when two triangles are hit at the same
+    t (rays through their shared edge and their two shared vertices) the
+    first record the visit order tests wins: in one leaf the lower index,
+    across two leaves whose boxes tie in t_near the lower slot.  Either
+    triangle alone is hit at that very t, and swapping the records swaps
+    the winner."""
+    o = torch.tensor([[0.5, 0.5, 2.0], [1.0, 0.0, 2.0], [0.0, 1.0, 2.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]] * 3)
+    t_max, mode = torch.full((3,), 1e30), torch.zeros(3)
+    alone = [kb.bvh4_traverse_plain(*tie_tables(TIE_TRIS[k:k + 1], True), o, d,
+                                    t_max, mode) for k in range(2)]
+    assert all(bool((p == 0).all()) for _, p in alone)
+    assert torch.equal(alone[0][0], alone[1][0])  # the same t: a tie
+    for tris in (TIE_TRIS, TIE_TRIS[::-1].copy()):
+        nodes, recs = tie_tables(tris, one_leaf)
+        assert nodes.shape[0] == 1  # one 4-wide row: the leaf, or both leaves
+        t, p = kb.bvh4_traverse_plain(nodes, recs, o, d, t_max, mode)
+        assert bool((p == 0).all())
+        assert torch.equal(t, alone[0][0])
+
+
 @pytest.mark.slow
 def test_bvh4_plain_matches_pallas_kernel_interpret():
     """The plain version against the Pallas kernel it replaces

@@ -9,9 +9,8 @@ d_media_volpath.pbrt under Integrator "path" at 16x16 @ 1 spp, depth 2.
 Bars: tests/test_torch_path.py:58-59's, at least 99.5% of pixels within
 rel 1e-3 and image means within 5e-3; the parsed setups agree through
 bridge.compare_setups; the traversal calls a sample are (1 + lights)
-maxdepth + 1 for Whitted and 1 + nsamples for AO.  bdpt, mlt and sppm
-raise NotImplementedError naming themselves on a scene with an infinite
-light.
+maxdepth + 1 for Whitted and 1 + nsamples for AO.  (bdpt, mlt and sppm
+on the mirror file with an infinite light: tests/test_torch_transport_front.py.)
 """
 import re
 
@@ -90,14 +89,3 @@ def test_path_on_a_media_scene_matches_jax(tmp_path):
     assert mean_rel(ref, got) <= 5e-3
 
 
-@pytest.mark.parametrize("name", ["bdpt", "mlt", "sppm"])
-def test_unported_integrators_raise(tmp_path, name):
-    """bdpt, mlt and sppm render the mirror file (tests/test_torch_bdpt.py,
-    test_torch_mlt_sppm.py); with an infinite light, which the JAX
-    package's light subpaths leave dark, each raises naming itself."""
-    path = mirror_file(tmp_path, f'"{name}"')
-    text = open(path).read().replace(
-        "WorldBegin", 'WorldBegin\nLightSource "infinite" "color L" [0.1 0.1 0.1]')
-    open(path, "w").write(text)
-    with pytest.raises(NotImplementedError, match=f"{name}.*infinite light"):
-        trender.render_file(path, out=str(tmp_path / "o.pfm"), device="cpu")
