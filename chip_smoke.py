@@ -211,11 +211,27 @@ Phases, each printing its result on a line of its own and its seconds:
      photon batch); with --profile FILE, one bdpt spp, one mlt render at
      1 mutation a pixel and one sppm iteration profiled (FILE's name plus
      "_bdpt", "_mlt", "_sppm");
+ 20. wavefront: main's file under PBRT_TPU_ENGINE=wavefront and lockstep
+     through render.render_file at 400x400 @ 8 spp (131,072 lanes): walls,
+     Mrays/s, launches (1 + 2 an iteration) and image means; the two held
+     to each other on a copy with the mirror sphere in matte (rtol 1e-5:
+     the film's add order); a checkpoint stop-and-resume of each engine
+     bit-equal to the straight run; bvh4 against its plain version on the
+     A and B launches of a mixed-bounce pool (wavefront_phase), bvh2
+     against bvh4; a 64x64 copy card against CPU; with --profile FILE,
+     one wavefront spp profiled (FILE's name plus "_wavefront");
+ 21. kd spectral sharded (kd_spectral_sharded_phase): the ladder's
+     c1_matte_point_d5 with a 4,096-triangle blob under Accelerator
+     "kdtree" against its BVH render (the build's seconds, the kd
+     traversal's ms a call, card against CPU); the spectral furnace
+     against the RGB render; main's file at 2 spp rendered by two
+     processes sharing the card over gloo against one process, and by a
+     world of one over nccl;
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
 
-Phases 10-19 run in the groups of GROUPS, side by side on the one card:
+Phases 10-21 run in the groups of GROUPS, side by side on the one card:
 the first in this process after phase 9, each other in a worker process
 (`chip_smoke.py --worker`, started after phase 4, its output kept under
 build/smoke/ and printed once it ends).  A worker that fails fails the
@@ -228,6 +244,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -3847,7 +3864,430 @@ def transport_phase(render, counted, card, dev, profile):
     return out
 
 
-# Phases 10-19 by name: (number, the call on the shared arguments).
+# ---------------------------------------------------------------------------
+# Phases 20 and 21: the wavefront engine, checkpoints, the kd-tree, the
+# spectral mode and the sharded render
+# ---------------------------------------------------------------------------
+
+WF_POOL_ITER = 5  # the wavefront iteration whose launches phase 20 holds
+KD_BLOB = (64, 32)  # the kd file's added blob: 4,096 triangles
+
+
+@contextlib.contextmanager
+def engine(value: str):
+    """PBRT_TPU_ENGINE set to `value` inside the block, restored after."""
+    old = os.environ.get("PBRT_TPU_ENGINE")
+    os.environ["PBRT_TPU_ENGINE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PBRT_TPU_ENGINE")
+        else:
+            os.environ["PBRT_TPU_ENGINE"] = old
+
+
+def matte_copy(path: Path) -> Path:
+    """A copy of a main-scene file with the mirror sphere in matte (as
+    phase 19 writes it): no specular vertex, so the two engines draw the
+    same dims."""
+    q = path.with_name(path.stem + "_matte.pbrt")
+    q.write_text(path.read_text().replace('Material "mirror" "rgb Kr" [0.9 0.9 0.9]',
+                                          'Material "matte" "rgb Kd" [0.7 0.7 0.7]'))
+    return q
+
+
+class Stopped(Exception):
+    pass
+
+
+class StopAt:
+    """A progress reporter that stops a render at its n-th update."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, 0
+
+    def update(self, done):
+        self.calls += 1
+        if self.calls == self.n:
+            raise Stopped
+
+
+def wavefront_phase(render, counted, card, dev, profile):
+    """Phase 20: the wavefront engine (PBRT_TPU_ENGINE=wavefront) through
+    render.render_file on main's file at 400x400 @ 8 spp, depth 5, halton,
+    spatial, 131,072 lanes, against the lockstep engine in the same call:
+    each one's wall, Mrays/s, launches and image mean; on a copy with the
+    mirror sphere in matte (no specular vertex: the engines draw the same
+    dims) the two images held to each other at the film's add order, every
+    pixel within rtol 1e-5 and atol 1e-6; main's wavefront render twice,
+    bit-identical.  A checkpoint stop-and-resume on
+    the card for each engine (main's file at 2 spp; the wavefront with a
+    checkpoint every superstep, stopped after the third): bit-equal to the
+    straight run.  bvh4 against its plain version, bit for bit, on the
+    launches A (NEE shadow and MIS rays) and B (extension rays and refilled
+    lanes' camera rays) of iteration WF_POOL_ITER of the 8 spp render,
+    whose pool mixes bounces (its histogram printed), with the kernel-check lines
+    and warp efficiency; bvh2 against bvh4 on both.  A 64x64 @ 1 spp copy
+    under the wavefront on the card against the CPU at tests/test_torch_
+    path.py:58-59's bars.  With --profile FILE, one wavefront render at
+    1 spp profiled (FILE's name plus "_wavefront")."""
+    import torch
+    from pbrt_tpu_torch import film
+    from pbrt_tpu_torch.filters import make_filter
+    from pbrt_tpu_torch.integrators import path as tpath
+    from pbrt_tpu_torch.integrators import wavefront as wf
+    from pbrt_tpu_torch.lights.lightdistrib import ensure_spatial_light_distribution
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "wavefront"
+    p_main = write_main_pbrt(out_dir)
+    out = {"results": {"bvh4": {}, "bvh2": {}}}
+    split = {}
+
+    # main's file under both engines, then the matte copy
+    t0 = time.perf_counter()
+    imgs = {}
+    for label, path in (("main", p_main), ("matte", matte_copy(p_main))):
+        for eng in ("lockstep", "wavefront") + (("wavefront",) if label == "main" else ()):
+            with engine(eng):
+                img, st, launches = timed_render_file(
+                    render, counted, path, out_dir / f"{label}_{eng}.pfm", dev)
+            if (label, eng) in imgs:  # main's wavefront render again
+                check(np.array_equal(img, imgs[label, eng]), "wavefront: a repeat differs")
+                eng = "wavefront_repeat"
+            check(launches["bvh2_traverse"] == 0 and launches["bvh4_traverse_typed"] == 0,
+                  f"{eng}: launches {launches}")
+            if eng == "lockstep":
+                check(launches["bvh4_traverse"] == SPP * (1 + DEPTH),
+                      f"lockstep: launches {launches}")
+            else:
+                check(launches["bvh4_traverse"] % 2 == 1,  # 1 + 2 an iteration
+                      f"wavefront: launches {launches}")
+            wall = st["phases"]["Rendering"]
+            out.setdefault("walls", {})[f"{label}_{eng}"] = wall
+            out.setdefault("mrays", {})[f"{label}_{eng}"] = st["rays_traced"] / wall / 1e6
+            out.setdefault("launches", {})[f"{label}_{eng}"] = launches["bvh4_traverse"]
+            imgs[label, eng] = img
+            print(render_line(f"{eng} {label} {RES[0]}x{RES[1]} @ {SPP} spp", st,
+                              launches, card)
+                  + f", image mean {float(img.mean()):.6f}", flush=True)
+    a, b = imgs["matte", "lockstep"], imgs["matte", "wavefront"]
+    close = np.isclose(b, a, rtol=1e-5, atol=1e-6)
+    print(f"wavefront against lockstep, the sphere in matte: {close.mean():.6f} of "
+          f"the values within rtol 1e-5, max abs diff {float(np.abs(a - b).max()):.3e}, "
+          f"means {float(a.mean()):.6f} / {float(b.mean()):.6f}", flush=True)
+    check(bool(close.all()), "wavefront against lockstep on the matte copy")
+    a, b = imgs["main", "lockstep"], imgs["main", "wavefront"]
+    print(f"wavefront against lockstep, main's file: means {float(a.mean()):.6f} / "
+          f"{float(b.mean()):.6f} (the mirror's vertices draw other dims)", flush=True)
+    out["bvh4"] = out["launches"]["main_wavefront"]
+    split["renders"] = time.perf_counter() - t0
+
+    # checkpoint stop and resume, both engines, on main's scene at 2 spp
+    t0 = time.perf_counter()
+    setup = parse_pbrt_file(str(p_main))
+    scene = ensure_spatial_light_distribution(setup.build_scene(dev))
+    camera = setup.make_camera().to(dev)
+    film_cfg, filt = setup.make_film_config()
+    cfg = setup.make_integrator_config()
+    s2 = SamplerConfig("halton", 2, RES)
+    # the wavefront with 32,768 lanes and 4 iterations a superstep, so that
+    # it has supersteps to stop after
+    for name, fn, stop, kw in (("lockstep", tpath.render, 2, {}),
+                               ("wavefront", wf.render, 3,
+                                dict(n_lanes=1 << 15, iters_per_step=4))):
+        ck = out_dir / f"{name}.ckpt.npz"
+        ck.unlink(missing_ok=True)
+        ref, ref_c = fn(scene, camera, film_cfg, s2, cfg, filt, stats_out=True,
+                        device=dev, **kw)
+        try:
+            fn(scene, camera, film_cfg, s2, cfg, filt, device=dev, progress=StopAt(stop),
+               checkpoint_path=str(ck), checkpoint_every=1, **kw)
+            check(False, f"{name}: the render did not stop")
+        except Stopped:
+            pass
+        got, got_c = fn(scene, camera, film_cfg, s2, cfg, filt, stats_out=True,
+                        device=dev, checkpoint_path=str(ck), checkpoint_every=1, **kw)
+        # a lockstep checkpoint holds the film and the next batch, so its
+        # resumed counters count the batches after it (path.py:737-767);
+        # the wavefront's holds its counters too
+        check(torch.equal(got, ref) and (name == "lockstep" or torch.equal(got_c, ref_c)),
+              f"{name}: the resumed render differs")
+        print(f"checkpoint {name}: stopped at update {stop}, resumed from "
+              f"{ck.stat().st_size / 1e6:.1f} MB, bit-equal to the straight run", flush=True)
+    split["checkpoints"] = time.perf_counter() - t0
+
+    # kernel 1 on a mixed-bounce pool batch
+    t0 = time.perf_counter()
+    kernels = bvh_kernels(bvh)
+    pixels = torch.as_tensor(tpath.make_pixel_grid(film_cfg), device=dev)
+    fs = film.make_film_state(film_cfg, filt or make_filter(film_cfg.filter_name), dev)
+    hist = {}
+
+    def on_step(state, steps, nw, live):
+        if steps == WF_POOL_ITER + 1:  # the pool launch B of that iteration traced
+            b_ = state["bounce"][state["alive"]]
+            hist.update({int(k): int(v) for k, v in
+                         zip(*torch.unique(b_, return_counts=True))})
+
+    s8 = SamplerConfig("halton", SPP, RES)  # work enough to keep refilling
+    with torch.no_grad(), bvh.record_calls() as captured:
+        state = wf.initial_state(scene, camera, fs, s8, pixels,
+                                 pixels.shape[0] * SPP, 1 << 17)
+        for _ in range(WF_POOL_ITER + 1):
+            state = wf._iteration(state, scene, camera, s8, cfg, pixels, [])
+            on_step(state, _ + 1, 0, 0)
+    print(f"wavefront pool at iteration {WF_POOL_ITER}: live lanes by bounce "
+          f"{hist} (bounce 0: refilled lanes' camera rays)", flush=True)
+    check(len(hist) >= 3 and 0 in hist, f"the pool is not mixed: {hist}")
+    picks = {"pool-A": 1 + 2 * WF_POOL_ITER, "pool-B": 2 + 2 * WF_POOL_ITER}
+    for label, i in picks.items():
+        oc, dc, tc, mc, order = captured[i]
+        print(f"batch wavefront-{label}: {tc.shape[0]} lanes, {int((tc > 0).sum())} "
+              f"live, {int((mc > 0).sum())} any-hit", flush=True)
+        for kind, k in kernels.items():
+            out["results"][kind][label] = kernel_case(
+                f"{kind}-wavefront-{label}", k, bvh, scene, oc, dc, tc, mc > 0,
+                "mask", order, both_modes=False)
+        cross_check(f"wavefront-{label}", kernels, scene, oc, dc, tc, mc > 0, order)
+    out["iterations"] = (out["launches"]["main_wavefront"] - 1) // 2
+    del captured, state
+    torch.cuda.empty_cache()
+    split["pool batches"] = time.perf_counter() - t0
+
+    # 64x64 card against CPU
+    t0 = time.perf_counter()
+    small = write_transport_pbrt(out_dir / "small", "path", res=(64, 64), spp=1)
+    with engine("wavefront"):
+        a, b, cpu_s = small_copy(render, small, dev)
+    frac, mrel = image_bars(b, a)
+    print(f"wavefront card against cpu (64x64 @ 1 spp): match_frac {frac:.4f}, "
+          f"mean rel {mrel:.3e}; the CPU render {cpu_s:.2f} s", flush=True)
+    check(frac >= 0.995 and mrel <= 5e-3, f"wavefront card against cpu: {frac}, {mrel}")
+    split["card against cpu"] = time.perf_counter() - t0
+    if profile is not None:
+        profile_render(lambda: wf.render(scene, camera, film_cfg,
+                                         SamplerConfig("halton", 1, RES), cfg, filt,
+                                         device=dev),
+                       profile.with_name(f"{profile.stem}_wavefront{profile.suffix}"),
+                       "wavefront")
+    print("wavefront phase split, s: "
+          + json.dumps({k: round(v, 2) for k, v in split.items()}), flush=True)
+    return out
+
+
+KD_LADDER = "c1_matte_point_d5"
+
+
+def write_kd_pbrt(out_dir: Path, accel: str) -> Path:
+    """The ladder's c1_matte_point_d5 (64x64 @ 4 spp, depth 5, spatial)
+    with a KD_BLOB blob of plastic on its floor, under Accelerator
+    `accel`."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idx, v = blob_mesh(*KD_BLOB, seed=3, center=(-1.5, 0.9, 0.5), radius=0.8)
+    write_ply(out_dir / "kdblob.ply", idx, v)
+    text = (HERE / "refgold" / "parity" / f"{KD_LADDER}.pbrt").read_text()
+    text = text.replace("WorldBegin", f'Accelerator "{accel}"\nWorldBegin', 1)
+    text = text.replace("WorldEnd", 'AttributeBegin\n  Material "plastic" "rgb Kd" '
+                        '[0.4 0.3 0.2] "rgb Ks" [0.3 0.3 0.3]\n  Shape "plymesh" '
+                        '"string filename" "kdblob.ply"\nAttributeEnd\nWorldEnd')
+    path = out_dir / f"{KD_LADDER}_{accel}.pbrt"
+    path.write_text(text)
+    return path
+
+
+def kd_spectral_sharded_phase(render, counted, card, dev, profile):
+    """Phase 21: the kd-tree, the spectral mode and the sharded render.
+    kd: write_kd_pbrt under Accelerator "kdtree" and "bvh" through
+    render.render_file: the kd build's seconds, the kd traversal's calls
+    (no kernel launches), its ms a call on the camera batch and on bounce
+    0's merged batch (CUDA events), each against the CPU's kd traversal
+    of 2,048 of the batch's lanes (prims equal on 99.9%) and the BVH
+    kernel's hits, and the two images at tests/test_torch_path.py:58-59's
+    bars (the kd-tree tests triangles watertight, the kernel with
+    Moller-Trumbore).  Spectral: tests/test_spectrum_sampled.py's furnace
+    at 128x128 @ 16 spp, depth 6, N = 60, against the RGB path render at
+    its bars, its launches.  Sharded: main's file at 400x400 @ 2 spp
+    through `python -m pbrt_tpu_torch.parallel.multihost` in two processes
+    sharing the card over gloo (65,536 lanes each) against this process's
+    one-process render (no group) at dmax <= 1e-5, and one process over
+    nccl against it, bit for bit; their walls."""
+    import torch
+    from pbrt_tpu_torch import scene as sc
+    from pbrt_tpu_torch.accel import traverse as tv
+    from pbrt_tpu_torch.cameras import make_perspective_camera
+    from pbrt_tpu_torch.core import transform as tf
+    from pbrt_tpu_torch.film import FilmConfig
+    from pbrt_tpu_torch.integrators import path as tpath
+    from pbrt_tpu_torch.integrators import spectral
+    from pbrt_tpu_torch.ops import bvh
+    from pbrt_tpu_torch.parallel import multihost
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.sceneio import parse_pbrt_file
+
+    out_dir = SMOKE_DIR / "kd"
+    out = {"walls": {}}
+    split = {}
+
+    # the kd-tree
+    t0 = time.perf_counter()
+    calls = []
+    real = tv.traverse_kd
+
+    def counting(scene, o, d, t_max, any_hit=False):
+        if len(calls) < 2:
+            calls.append((o.clone(), d.clone(),
+                          torch.as_tensor(t_max, dtype=torch.float32,
+                                          device=o.device).expand(o.shape[0]).clone(),
+                          any_hit))
+        else:
+            calls.append(None)
+        return real(scene, o, d, t_max, any_hit)
+
+    imgs = {}
+    for accel in ("bvh", "kdtree"):
+        path = write_kd_pbrt(out_dir, accel)
+        tv.traverse_kd = counting
+        try:
+            img, st, launches = timed_render_file(render, counted, path,
+                                                  out_dir / f"{accel}.pfm", dev)
+        finally:
+            tv.traverse_kd = real
+        imgs[accel] = img
+        wall = st["phases"]["Rendering"]
+        out["walls"][f"kd_{accel}"] = wall
+        extra = ""
+        if accel == "kdtree":
+            check(launches["bvh4_traverse"] == 0, f"kd render launched {launches}")
+            build_s = st["setup_split"]["kd-tree build"]
+            out["kd_build_s"], out["kd_calls"] = build_s, len(calls)
+            extra = f", kd-tree build {build_s:.2f} s, kd traversal calls {len(calls)}"
+        else:
+            check(not calls, "the bvh render walked a kd-tree")
+            out["kd_bvh_launches"] = launches["bvh4_traverse"]
+        print(render_line(f"kd file ({accel}) 64x64 @ 4 spp", st, launches, card)
+              + extra + f", image mean {float(img.mean()):.6f}", flush=True)
+    frac, mrel = image_bars(imgs["bvh"], imgs["kdtree"])
+    print(f"kdtree against bvh: match_frac {frac:.4f}, mean rel {mrel:.3e}", flush=True)
+    check(frac >= 0.995 and mrel <= 5e-3, f"kdtree against bvh: {frac}, {mrel}")
+    setup = parse_pbrt_file(str(write_kd_pbrt(out_dir, "kdtree")))
+    scene = setup.build_scene(dev)
+    scene_cpu = setup.build_scene("cpu")
+    check(scene.kd_nodes is not None, "no kd-tree built")
+    for label, (o, d, tm, any_hit) in zip(("camera", "merged-b0"), calls[:2]):
+        ms = time_cuda(lambda: real(scene, o, d, tm, any_hit), 3)
+        t_k, p_k = real(scene, o, d, tm, any_hit)
+        sub = slice(None, None, max(1, o.shape[0] // 2048))  # 2,048 lanes on the CPU
+        t0c = time.perf_counter()
+        t_c, p_c = real(scene_cpu, o[sub].cpu(), d[sub].cpu(), tm[sub].cpu(), any_hit)
+        cpu_ms = (time.perf_counter() - t0c) * 1e3
+        agree = float((p_k[sub].cpu() == p_c).float().mean())
+        _, p_b = bvh.intersect_kernel_with_quadrics(scene, o, d, tm)
+        bvh.bvh4_traverse.launches -= 1  # a comparison launch
+        hit_agree = float(((p_b >= 0) == (p_k >= 0)).float().mean())
+        out[f"kd_{label}_ms"], out[f"kd_{label}_cpu_ms"] = ms, cpu_ms
+        print(f"kd traversal {label}: {o.shape[0]} rays, {int((tm > 0).sum())} live, "
+              f"{ms:.3f} ms a call on the card ({cpu_ms:.1f} ms on the CPU for "
+              f"{p_c.shape[0]} of them), prims equal to the CPU's on {agree:.6f} of "
+              f"those lanes, hits equal to the "
+              f"BVH kernel's on {hit_agree:.6f} [{card}]", flush=True)
+        check(agree >= 0.999 and hit_agree >= 0.999, f"kd {label}: {agree}, {hit_agree}")
+    del scene, scene_cpu
+    split["kd"] = time.perf_counter() - t0
+
+    # the spectral furnace
+    t0 = time.perf_counter()
+    res = (128, 128)
+    b = sc.SceneBuilder()
+    m = b.add_material(sc.MAT_MATTE, kd=(0.5, 0.5, 0.5), sigma=0.0)
+    b.add_sphere(tf.identity(), 1.0, material=m)
+    b.add_point_light(tf.identity(), (np.pi, np.pi, np.pi))
+    furnace = b.build(device=dev)
+    cam = make_perspective_camera(tf.look_at([0, 0, 0], [0, 0, 1], [0, 1, 0]), res,
+                                  fov_deg=60.0)
+    fc = FilmConfig(full_resolution=res)
+    s16 = SamplerConfig("sobol", 16, res)
+    img_rgb = tpath.render(furnace, cam, fc, s16, tpath.PathConfig(max_depth=6),
+                           device=dev).cpu().numpy()
+    reset_counts(counted)
+    t1 = time.perf_counter()
+    img_spec = spectral.render(furnace, cam, fc, s16, spectral.SpectralConfig(max_depth=6),
+                               device=dev).cpu().numpy()
+    wall = time.perf_counter() - t1
+    launches = read_counts(counted)
+    out["spectral_launches"], out["walls"]["spectral"] = launches["bvh4_traverse"], wall
+    expected = 1.0 - 0.5 ** 6
+    ch = img_spec.reshape(-1, 3).mean(0)
+    print(f"spectral furnace {res[0]}x{res[1]} @ 16 spp, N = 60: mean "
+          f"{img_spec.mean():.5f} (RGB {img_rgb.mean():.5f}, expected {expected:.5f}), "
+          f"channels {ch.round(5).tolist()}, wall {wall:.3f} s, launches {launches} "
+          f"[{card}]", flush=True)
+    check(abs(img_rgb.mean() - expected) < 0.03, f"RGB furnace {img_rgb.mean()}")
+    check(abs(img_spec.mean() - img_rgb.mean()) < 0.08, f"spectral {img_spec.mean()}")
+    check(ch.max() / max(ch.min(), 1e-6) < 1.35, f"spectral channels {ch}")
+    check(launches["bvh4_traverse"] == 16 * (1 + 6 + 6), f"spectral launches {launches}")
+    split["spectral"] = time.perf_counter() - t0
+
+    # the sharded render
+    t0 = time.perf_counter()
+    sh = write_transport_pbrt(out_dir / "sharded", "path", spp=2)
+    lanes = 1 << 16
+    t1 = time.perf_counter()
+    one, _ = multihost.render_file(str(sh), dev, n_lanes_per_shard=lanes)
+    one = one.cpu().numpy()
+    out["walls"]["sharded_one_process"] = time.perf_counter() - t1
+
+    def spawn(n, backend, tag):
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        npy = out_dir / f"sharded_{tag}.npy"
+        npy.unlink(missing_ok=True)
+        env = dict(os.environ, PBRT_TPU_COORDINATOR=f"localhost:{port}",
+                   PBRT_TPU_NUM_PROCESSES=str(n), PYTHONPATH=str(HERE))
+        t_s = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "pbrt_tpu_torch.parallel.multihost", str(sh),
+             "--lanes", str(lanes), *(["--backend", backend] if backend else []),
+             *(["-o", str(npy)] if r == 0 else [])],
+            env=dict(env, PBRT_TPU_PROCESS_ID=str(r)), cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL) for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall_s = time.perf_counter() - t_s
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"sharded {tag} rank {r}: exit {p.returncode}: "
+                  f"{text[-1500:]}")
+        line = [ln for ln in outs[0].splitlines() if "process(es)" in ln][-1]
+        print(f"sharded {tag}: {line.strip()}; {wall_s:.2f} s from spawn to exit "
+              f"[{card}]", flush=True)
+        out["walls"][f"sharded_{tag}"] = wall_s
+        return np.load(npy)
+
+    two = spawn(2, "gloo", "two_gloo")
+    dmax = float(np.abs(two - one).max())
+    print(f"sharded two processes (gloo, one card) against one process: dmax {dmax:.3e}",
+          flush=True)
+    check(dmax <= 1e-5, f"sharded two processes: dmax {dmax}")
+    nccl = spawn(1, None, "one_nccl")
+    check(np.array_equal(nccl, one), "sharded one process over nccl differs")
+    print("sharded one process over nccl: bit-equal to the one-process render",
+          flush=True)
+    split["sharded"] = time.perf_counter() - t0
+    print("kd spectral sharded phase split, s: "
+          + json.dumps({k: round(v, 2) for k, v in split.items()}), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phases 10-21 by name: (number, the call on the shared arguments).
 LATER = {
     "config3": (10, lambda a: config3_phase(a.render, a.counted, a.card, a.dev,
                                             a.profile)),
@@ -3869,23 +4309,29 @@ LATER = {
                                               a.profile)),
     "transport": (19, lambda a: transport_phase(a.render, a.counted, a.card, a.dev,
                                                 a.profile)),
+    "wavefront": (20, lambda a: wavefront_phase(a.render, a.counted, a.card, a.dev,
+                                                a.profile)),
+    "kd spectral sharded": (21, lambda a: kd_spectral_sharded_phase(
+        a.render, a.counted, a.card, a.dev, a.profile)),
 }
 # The script is host-bound (a render waits on Python issuing operations, and
-# the plain versions and CPU copies run on the host), so phases 10-19 run in
+# the plain versions and CPU copies run on the host), so phases 10-21 run in
 # groups side by side: the first group in this process after phase 9, each
 # other in a worker process of its own on the same card, started after phase
 # 4 so that phases 3 and 4's kernel times have the card to themselves.  The
 # groups are balanced by their seconds when the phases ran one after another
 # (PERF.md).  Each process counts its own launches, so a phase's counts stay
 # its own.
-GROUPS = (("direct", "whitted and ao"), ("transport", "config3"), ("grad breadth",),
-          ("geometry", "config4"), ("imaging", "advanced", "breadth"))
+# (a worker gets its phases' names joined by commas: no name holds one)
+GROUPS = (("direct", "whitted and ao", "wavefront"), ("transport", "config3"),
+          ("grad breadth", "kd spectral sharded"), ("geometry", "config4"),
+          ("imaging", "advanced", "breadth"))
 WORKER_THREADS = 2  # torch's CPU threads in each process once the workers run
 DEADLINE_S = 1100.0  # the workers are stopped, and the script fails, past this
 
 
 def later_args(card: str, profile: Path | None):
-    """What phases 10-19 take: the front end, the counted wrappers, the card."""
+    """What phases 10-21 take: the front end, the counted wrappers, the card."""
     import types
 
     import torch
@@ -4078,7 +4524,7 @@ def run(profile: Path | None = None) -> dict:
     probe = probe_phase(bp, dev, counted)
     phase("layout probe", t0)
 
-    # phases 10-19: GROUPS[1:] in workers from here on, GROUPS[0] here after 9
+    # phases 10-21: GROUPS[1:] in workers from here on, GROUPS[0] here after 9
     workers = start_workers(card, profile)
     try:
         torch.set_num_threads(WORKER_THREADS)
@@ -4177,7 +4623,7 @@ def run(profile: Path | None = None) -> dict:
         later.update(join_workers(workers, t_all + DEADLINE_S))
     finally:
         stop_workers(workers)
-    c3, dl, c4, wa, br, adv, img16, gb, geo, tr = (later[n] for n in LATER)
+    c3, dl, c4, wa, br, adv, img16, gb, geo, tr, wfr, kss = (later[n] for n in LATER)
 
     # the kernels line
     entries = []
@@ -4195,7 +4641,8 @@ def run(profile: Path | None = None) -> dict:
                    + list(adv["results"][kind].values())
                    + list(img16["results"][kind].values())
                    + list(geo["results"].get(kind, {}).values())
-                   + list(tr["results"][kind].values()))
+                   + list(tr["results"][kind].values())
+                   + list(wfr["results"][kind].values()))
         nee = res["main-nee-merged-b0"]
         entries.append({
             "name": f"{kind}_traverse", "route": "cuda", "source": src,
@@ -4229,6 +4676,11 @@ def run(profile: Path | None = None) -> dict:
             **{f"{label.replace('-', '_')}_{key}": r[key]
                for label, r in tr["results"][kind].items()
                for key in ("ms", "plain_ms", "bound_ms", "live_rays")},
+            "wavefront_launches": wfr["bvh4"] if kind == "bvh4" else 0,
+            "spectral_launches": kss["spectral_launches"] if kind == "bvh4" else 0,
+            **{f"wavefront_{label.replace('-', '_')}_{key}": r[key]
+               for label, r in wfr["results"][kind].items()
+               for key in ("ms", "plain_ms", "bound_ms", "live_rays", "warp_eff")},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "mismatch_frac": max(r["mismatch_frac"] for r in checked),
             "ms": nee["ms"], "plain_ms": nee["plain_ms"],

@@ -4,7 +4,9 @@ Port of pbrt_tpu/__main__.py (pbrt-v3 main/pbrt.cpp:76-173): scene file(s),
 --outfile, --quick (1/4 the spp), --spp, --res, --cropwindow, --quiet,
 --nthreads (accepted, ignored), plus --device {cuda,cpu}: the card by
 default, the CPU (the kernels' plain versions) only when asked.  Without a
-card the CLI exits with status 2 unless --device cpu is given.  --cat and
+card the CLI exits with status 2 unless --device cpu is given.
+PBRT_TPU_ENGINE=wavefront renders Integrator "path" with the wavefront
+engine (integrators/wavefront.py); lockstep is the default.  --cat and
 --toply (the scene reformatter) are not ported and raise.
 """
 from __future__ import annotations

@@ -35,6 +35,7 @@ from ..ops import bvh as kb
 from ..shapes import quadrics as quad
 from ..shapes.curve import curve_intersect
 from ..shapes.triangle import intersect_triangle, triangle_geometry
+from .kdtree import traverse_kd
 
 STACK_DEPTH = 64  # the oracle's stack, pbrt's todo[64] (bvh.cpp:671)
 _SLAB_EPS = 1.0 + 2.0 * gamma(3)
@@ -178,7 +179,13 @@ def intersect_closest(scene, o, d, t_max, any_mask=None):
     """Closest hit (t [n], prim [n], -1 = miss).  Lanes flagged in any_mask
     stop at their first hit; only prim >= 0 means anything for them.  The
     scene goes through the BVH kernel path (ops/bvh.py traversal_route,
-    which refuses a tree deeper than the kernel's stack)."""
+    which refuses a tree deeper than the kernel's stack), or, with a
+    kd-tree, through its traversal (accel/kdtree.py), which ignores
+    any_mask: a closest hit answers an any-hit query too (traverse.py:
+    303-307)."""
+    if scene.kd_nodes is not None:
+        with torch.no_grad(), record_function("layer: kd traversal"):
+            return traverse_kd(scene, o, d, t_max)
     with torch.no_grad(), record_function("layer: traversal incl. kernel"):
         return kb.intersect_kernel_with_quadrics(scene, o, d, t_max,
                                                  any_mask=any_mask)
@@ -186,6 +193,9 @@ def intersect_closest(scene, o, d, t_max, any_mask=None):
 
 def intersect_any(scene, o, d, t_max):
     """Shadow-ray query with early exit; returns occluded [n] bool."""
+    if scene.kd_nodes is not None:
+        with torch.no_grad(), record_function("layer: kd traversal"):
+            return traverse_kd(scene, o, d, t_max, any_hit=True)[1] >= 0
     mask = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     _, prim = intersect_closest(scene, o, d, t_max, any_mask=mask)
     return prim >= 0

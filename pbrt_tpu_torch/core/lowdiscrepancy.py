@@ -218,6 +218,74 @@ def sobol_sample_float64idx(index_hi, index_lo, dim: int):
     return bits_to_float(sobol_sample_bits64(index_hi, index_lo, dim))
 
 
+@functools.cache
+def _dyn_tables(n_primes: int, device: torch.device):
+    """(primes, prime sums, the first n_primes primes' permutations) as
+    int64 tensors on `device`, uploaded once a (prefix, device)."""
+    return (torch.as_tensor(PRIMES[:n_primes], device=device),
+            torch.as_tensor(PRIME_SUMS[:n_primes], device=device),
+            torch.as_tensor(radical_inverse_permutations(n_primes), device=device))
+
+
+def dyn_prime_count(max_dim: int) -> int:
+    """The primes a per-lane draw at dims up to max_dim needs, rounded up
+    to a multiple of 64 (the permutation caches come in such prefixes)."""
+    return min(64 * (max_dim // 64 + 1), PRIME_TABLE_SIZE)
+
+
+DYN_MIN_DIM = 5  # the smallest dim a per-lane draw asks for
+
+
+def scrambled_radical_inverse_dyn(dim, a, max_dim: int = PRIME_TABLE_SIZE - 1):
+    """ScrambledRadicalInverse at a per-lane dimension tensor
+    (lowdiscrepancy.py:373-414): each lane gathers its own prime and digit
+    permutation.  Dims are clamped to [0, max_dim] (max_dim < 1000), so a
+    lane whose cursor ran past the table (a dead wavefront lane) reads the
+    last prime; the JAX package clamps at 999, which is the same for every
+    dim <= max_dim.  Every dim is at least DYN_MIN_DIM, whose base (13)
+    bounds the digit loop: at most 10 digits a uint32."""
+    n_primes = dyn_prime_count(max_dim)
+    primes, sums, perms = _dyn_tables(n_primes, a.device)
+    dim = torch.clamp(dim, 0, min(max_dim, n_primes - 1))
+    base = primes[dim]
+    off = sums[dim]
+    basef = base.to(torch.float32)
+    inv_base = 1.0 / basef
+    shape = torch.broadcast_shapes(a.shape, dim.shape)
+    a = a.expand(shape)
+    rev = torch.zeros(shape, dtype=torch.float32, device=a.device)
+    inv_n = torch.ones(shape, dtype=torch.float32, device=a.device)
+    for _ in range(_num_digits(int(PRIMES[DYN_MIN_DIM]))):
+        nxt = a // base
+        digit = a - nxt * base
+        live = a > 0
+        pd = perms[off + digit].to(torch.float32)
+        rev = torch.where(live, rev * basef + pd, rev)
+        inv_n = torch.where(live, inv_n * inv_base, inv_n)
+        a = nxt
+    perm0 = perms[off].to(torch.float32)
+    return torch.clamp(inv_n * (rev + inv_base * perm0 / (1.0 - inv_base)),
+                       max=ONE_MINUS_EPSILON)
+
+
+@functools.cache
+def _sobol_matrices(device: torch.device):
+    return torch.as_tensor(sobol_tables()["sobol_matrices32"], device=device)
+
+
+def sobol_sample_float64idx_dyn(index_hi, index_lo, dim):
+    """sobol_sample_float64idx at a per-lane dimension tensor
+    (lowdiscrepancy.py:417-443): each lane gathers its dimension's 52
+    generator columns from the table, kept on the device once."""
+    cols = _sobol_matrices(index_lo.device)[dim]  # [n, 52]
+    v = torch.zeros(torch.broadcast_shapes(index_lo.shape, cols.shape[:-1]),
+                    dtype=torch.int64, device=index_lo.device)
+    for i in range(SOBOL_MATRIX_SIZE):
+        word, sh = (index_lo, i) if i < 32 else (index_hi, i - 32)
+        v = v ^ torch.where(((word >> sh) & 1) != 0, cols[..., i], 0)
+    return bits_to_float(v)
+
+
 def sobol_interval_to_index(m: int, frame, px, py):
     """Global Sobol index of sample `frame` in pixel (px, py)
     (lowdiscrepancy.h:229-249); returns the (hi, lo) uint32 pair."""

@@ -96,9 +96,11 @@ def make_film_state(config: FilmConfig, filt: Filter, device) -> FilmState:
     )
 
 
-def add_samples(state: FilmState, p_film, L, sample_weight=None) -> FilmState:
+def add_samples(state: FilmState, p_film, L, sample_weight=None,
+                mask=None) -> FilmState:
     """FilmTile::AddSample (film.h:121-152) over a flat batch; the film's
-    sums are updated in place and the state is returned."""
+    sums are updated in place and the state is returned.  mask [N]: the
+    lanes that add a sample (all by default)."""
     n = p_film.shape[0]
     dev = p_film.device
     if sample_weight is None:
@@ -131,6 +133,8 @@ def add_samples(state: FilmState, p_film, L, sample_weight=None) -> FilmState:
     iy = py[:, :, None] - state.y0
     valid = (in_x[:, None, :] & in_y[:, :, None] & (ix >= 0) & (ix < w)
              & (iy >= 0) & (iy < h))
+    if mask is not None:
+        valid = valid & mask[:, None, None]
     wgt = torch.where(valid, wxy * sample_weight[:, None, None], 0.0)
     # A zero weight adds zero to both sums, which changes no bit of a sum
     # that starts at +0, so those cells are left out.

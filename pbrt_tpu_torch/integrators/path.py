@@ -69,6 +69,7 @@ from ..samplers import exact_tables as xt
 from ..samplers import samplers as sa
 from ..scene import MAT_BSSRDF_ADAPTER, MAT_SUBSURFACE, SceneArrays, resolve_device
 from ..textures.textures import evaluate_textures
+from ..utils import checkpoint as ckpt
 from ..utils import stats as st
 from . import common
 
@@ -447,21 +448,29 @@ def sample_batch(li, n_dims: int, scene: SceneArrays, camera, film_state,
 
 def render(scene: SceneArrays, camera, film_cfg: fm.FilmConfig, sampler_cfg,
            cfg: PathConfig = PathConfig(), filt=None, count_rays: bool = False,
-           stats_out: bool = False, progress=None, device="cuda"):
+           stats_out: bool = False, progress=None, device="cuda",
+           checkpoint_path: str | None = None, checkpoint_every: int = 0):
     """Full render of the path integrator (render_loop).  The spatial light
-    distribution is built here, once per scene, when cfg asks for it."""
+    distribution is built here, once per scene, when cfg asks for it.
+    checkpoint_path/_every: the film and the next sample index are written
+    every checkpoint_every sample batches, and a render started with an
+    existing checkpoint resumes at its index (path.py:682-767,
+    utils/checkpoint.py)."""
     if cfg.light_strategy == "spatial":
         scene = ldist.ensure_spatial_light_distribution(scene)
     return render_loop(path_li(scene, sampler_cfg, cfg),
                        n_path_dims(cfg, scene.mat_types),
                        scene, camera, film_cfg, sampler_cfg, filt, count_rays,
-                       stats_out, progress, device, exact=True)
+                       stats_out, progress, device, exact=True,
+                       checkpoint_path=checkpoint_path,
+                       checkpoint_every=checkpoint_every)
 
 
 def render_loop(li, n_dims: int, scene: SceneArrays, camera, film_cfg,
                 sampler_cfg, filt=None, count_rays: bool = False,
                 stats_out: bool = False, progress=None, device="cuda",
-                exact: bool = False):
+                exact: bool = False, checkpoint_path: str | None = None,
+                checkpoint_every: int = 0):
     """The sample loop of every integrator's render: one sample_batch per
     sample per pixel.  Runs on the card unless device="cpu"; the scene must
     already be on that device.  Returns the image [H, W, 3]; with count_rays
@@ -469,7 +478,8 @@ def render_loop(li, n_dims: int, scene: SceneArrays, camera, film_cfg,
     (utils/stats.py).  filt: the reconstruction filter (the film's named
     one by default).  progress: a ProgressReporter updated once per spp
     batch.  exact: the integrator reads the exact mode's tables (the path
-    integrator's render); a sampler_cfg.exact render of any other raises."""
+    integrator's render); a sampler_cfg.exact render of any other raises.
+    checkpoint_path/_every: as in render."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
@@ -483,13 +493,18 @@ def render_loop(li, n_dims: int, scene: SceneArrays, camera, film_cfg,
     pixels = torch.as_tensor(make_pixel_grid(film_cfg), device=device)
     tables = (exact_tables(sampler_cfg, pixels, n_dims) if sampler_cfg.exact
               else lambda s: None)
+    start = 0
+    if checkpoint_path:
+        film_state, start = ckpt.maybe_resume(checkpoint_path, film_state)
     counters = st.zeros(device)
     with torch.no_grad():
-        for s in range(sampler_cfg.spp):
+        for s in range(start, sampler_cfg.spp):
             sample_batch(li, n_dims, scene, camera, film_state, pixels, s,
                          sampler_cfg, counters, tables(s))
             if progress is not None:
-                progress.update(s + 1)
+                progress.update(s + 1 - start)
+            if checkpoint_path and checkpoint_every and (s + 1) % checkpoint_every == 0:
+                ckpt.save(checkpoint_path, film_state, s + 1)
         img = fm.to_image(film_state, scale=film_cfg.scale)
     if stats_out:
         return img, counters

@@ -2,9 +2,10 @@
 
 Port of pbrt_tpu/render.py (pbrt-v3 pbrtWorldEnd, api.cpp:1590-1649, and
 RenderOptions::MakeIntegrator, api.cpp:1662-1697) for ``Integrator "path"``
-on the lockstep engine, ``"volpath"``, ``"directlighting"``, ``"whitted"``,
-``"ao"``, ``"bdpt"``, ``"mlt"`` and ``"sppm"``.  Any other integrator, and a
-path render under PBRT_TPU_ENGINE other than "lockstep", raises
+on the lockstep engine or, under PBRT_TPU_ENGINE=wavefront, the wavefront
+engine (render.py:60-91), ``"volpath"``, ``"directlighting"``,
+``"whitted"``, ``"ao"``, ``"bdpt"``, ``"mlt"`` and ``"sppm"``.  Any other
+integrator, and a path render under another PBRT_TPU_ENGINE, raises
 NotImplementedError.  Runs on the card unless the caller passes
 device="cpu".
 """
@@ -40,6 +41,7 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     from .integrators import sppm
     from .integrators import path as pt
     from .integrators import volpath as vp
+    from .integrators import wavefront as wf
     from .integrators import whitted as wh
     from .utils import stats as st
     from .utils.profiling import Timer
@@ -55,9 +57,13 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
             f"integrator {setup.integrator_name!r}: the port has "
             f"{sorted(renderers)}")
     engine = os.environ.get("PBRT_TPU_ENGINE", "lockstep")
-    if engine != "lockstep" and setup.integrator_name == "path":
+    if engine not in ("lockstep", "wavefront") and setup.integrator_name == "path":
         raise NotImplementedError(
-            f"PBRT_TPU_ENGINE={engine}: the port has the lockstep engine only")
+            f"PBRT_TPU_ENGINE={engine}: the port has the lockstep and "
+            "wavefront engines")
+    wavefront = engine == "wavefront" and setup.integrator_name == "path"
+    if wavefront:
+        renderers["path"] = wf.render
     timer = timer or Timer()
     with timer("Scene construction"):
         scene = setup.build_scene(device)
@@ -88,7 +94,10 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
             if device.type == "cuda":
                 import torch
                 torch.cuda.synchronize(device)
-    prog = ProgressReporter(sampler_cfg.spp, "Rendering")
+    w, h = film_cfg.full_resolution
+    # the wavefront reports (pixel, sample) paths retired, lockstep batches
+    prog = ProgressReporter(w * h * sampler_cfg.spp if wavefront
+                            else sampler_cfg.spp, "Rendering")
     c0 = time.process_time()
     with timer("Rendering"):
         img, counters = renderers[setup.integrator_name](
@@ -98,7 +107,6 @@ def render_setup(setup: RenderSetup, spp_override=None, res_override=None,
     render_cpu_s = time.process_time() - c0
     prog.finish()
     wall = time.perf_counter() - t0
-    w, h = film_cfg.full_resolution
     counters = counters.cpu().numpy()
     stats = {
         "wall_s": wall,

@@ -14,11 +14,11 @@ permutation of the sample index, not pbrt's per-tile RNG streams (those
 come from samplers/exact_tables.py in the exact mode).
 
 uint32 quantities live in int64 tensors, masked to 32 bits after every
-product or left shift.  The JAX package's ``get_1d_dyn``/``get_2d_dyn``
-(a traced per-lane dimension, for its lax.scan bounce body) have no
-counterpart: the port's bounce loops are unrolled with static dimensions,
-and for the dims >= 5 the scan draws, the dynamic forms equal the static
-ones (tests/test_torch_imaging.py holds them equal).
+product or left shift.  ``get_1d_dyn``/``get_2d_dyn`` draw at a per-lane
+dimension tensor (every dim >= 5), for the wavefront engine, whose lane
+pool mixes bounces and whose lanes skip dims conditionally; the lockstep
+bounce loops are unrolled with static dimensions, and for the dims >= 5
+both forms give the same values (tests/test_torch_imaging.py).
 """
 from __future__ import annotations
 
@@ -277,6 +277,43 @@ def get_2d(cfg: SamplerConfig, state, dim: int):
             y = _multiply_generator(c1, s) ^ s1
         return torch.stack([ld.bits_to_float(x), ld.bits_to_float(y)], -1)
     return torch.stack([get_1d(cfg, state, dim), get_1d(cfg, state, dim + 1)], -1)
+
+
+DYN_MAX_DIM = 1021  # samplers.py:353, the JAX package's idle-lane clamp
+
+
+def get_1d_dyn(cfg: SamplerConfig, state, dim, max_dim: int = ld.PRIME_TABLE_SIZE - 1):
+    """Sampler::Get1D at a per-lane dimension tensor dim [n] (samplers.py:
+    344-392), every value >= 5: the pixel and camera dims 0-4 are drawn at
+    static dims when a lane is refilled.  max_dim bounds the dims whose
+    draws matter (the wavefront's deepest live cursor); halton reads the
+    permutations of that many primes, uploaded once, and a cursor past it
+    (a dead lane's) is clamped, as the JAX package clamps at its table's
+    end."""
+    dim = torch.clamp(dim, max=DYN_MAX_DIM)
+    if "table" in state:
+        t = state["table"]  # [D, N]
+        d = torch.clamp(dim, 0, t.shape[0] - 1).expand(t.shape[1:])
+        return torch.gather(t, 0, d[None])[0]
+    if cfg.name == "sobol":
+        return ld.sobol_sample_float64idx_dyn(state["hi"], state["lo"], dim)
+    if cfg.name == "halton":
+        return ld.scrambled_radical_inverse_dyn(dim, state["index"], max_dim)
+    if cfg.name in ("random", "stratified", "zerotwosequence", "maxmin"):
+        # the static forms hash a dim tensor as they hash an int
+        return get_1d(cfg, state, dim)
+    raise ValueError(cfg.name)
+
+
+def get_2d_dyn(cfg: SamplerConfig, state, dim, max_dim: int = ld.PRIME_TABLE_SIZE - 1):
+    """Sampler::Get2D at a per-lane dimension tensor (samplers.py:395-428):
+    maxmin draws Sobol02 there, as at every static dim >= 2."""
+    if "table" not in state and cfg.name == "stratified":
+        return get_2d(cfg, state, dim)
+    if "table" not in state and cfg.name in ("zerotwosequence", "maxmin"):
+        return get_2d(dataclasses.replace(cfg, name="zerotwosequence"), state, dim)
+    return torch.stack([get_1d_dyn(cfg, state, dim, max_dim),
+                        get_1d_dyn(cfg, state, dim + 1, max_dim)], -1)
 
 
 def halton_table(cfg: SamplerConfig, state, n_dims: int):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .accel.build import build_bvh
+from .accel.kdtree import KD_FIELDS, kd_arrays
 from .core import sampling as smp
 from .core import transform as tf
 from .materials.fourier import FourierTable
@@ -297,6 +298,12 @@ class SceneArrays:
     curve_packed: Optional[torch.Tensor] = None  # [C, 28] f32
     inst_xf: Optional[torch.Tensor] = None  # [I, 24] f32 w2i rows | i2w rows
     inst_tri: Optional[torch.Tensor] = None  # [IT, 2] i32 (template row, instance)
+    # the kd-tree (accel/kdtree.py; Accelerator "kdtree"), None without:
+    # traversal then walks it instead of the BVH
+    kd_nodes: Optional[torch.Tensor] = None  # [M, 4] f32
+    kd_prim_ids: Optional[torch.Tensor] = None  # [K] i32, BVH-ordered prim rows
+    kd_wb_min: Optional[torch.Tensor] = None  # [3]
+    kd_wb_max: Optional[torch.Tensor] = None  # [3]
 
     @property
     def device(self) -> torch.device:
@@ -335,8 +342,6 @@ class SceneArrays:
         area = np.asarray(lights["light_type"]) == LIGHT_AREA
         _refuse(tuple(np.asarray(lights["shape_type"])[area].tolist()),
                 EMISSIVE_SHAPES, "area light shape")
-        if fields.get("kd_nodes") is not None:
-            raise NotImplementedError("scenes with kd_nodes")
         geo = {k: fields.get(k) for k in GEOMETRY_FIELDS}
         for key, ptype in (("curve_packed", SHAPE_CURVE),
                            ("inst_tri", SHAPE_TRIANGLE_INST)):
@@ -386,7 +391,7 @@ class SceneArrays:
             medium_types=media["medium_types"],
             has_media=media["has_media"],
             **{k: torch.as_tensor(np.asarray(fields[k]), device=device)
-               for k in BSSRDF_FIELDS + GEOMETRY_FIELDS
+               for k in BSSRDF_FIELDS + GEOMETRY_FIELDS + KD_FIELDS
                if fields.get(k) is not None},
         )
 
@@ -528,8 +533,10 @@ class SceneBuilder:
         self.textures = HostTextureTable()
         self.media = HostMediumTable()
         self.camera_medium = -1
-        # host seconds of set-up steps, by name ("BVH build"; the scene
-        # reader adds "loop subdivision", "NURBS" and "instancing")
+        self.accelerator = "bvh"  # "bvh" | "kdtree" (api.cpp:770)
+        # host seconds of set-up steps, by name ("BVH build", "kd-tree
+        # build"; the scene reader adds "loop subdivision", "NURBS" and
+        # "instancing")
         self.timings: dict = {}
 
     # -- materials --
@@ -882,16 +889,25 @@ class SceneBuilder:
 
     # -- freeze --
     def build(self, max_prims_in_node: int = 7, device="cuda",
-              bvh_method: str = "native") -> SceneArrays:
+              bvh_method: str = "native", accelerator: str | None = None
+              ) -> SceneArrays:
         """SceneArrays on `device` (the card unless the caller asks for the
-        CPU).  bvh_method "numpy" selects the slow numpy BVH builder."""
+        CPU).  bvh_method "numpy" selects the slow numpy BVH builder.
+        accelerator: "bvh" or "kdtree" (self.accelerator by default); a
+        kd-tree over more than 200k primitives is not built, with a
+        warning, and the BVH serves (scene.py:966-985)."""
         device = resolve_device(device)
         return SceneArrays.from_numpy(
-            self.build_numpy(max_prims_in_node, bvh_method), device)
+            self.build_numpy(max_prims_in_node, bvh_method, accelerator), device)
 
     def build_numpy(self, max_prims_in_node: int = 7,
-                    bvh_method: str = "native") -> dict:
+                    bvh_method: str = "native",
+                    accelerator: str | None = None) -> dict:
         """The scene as numpy arrays named like SceneArrays' fields."""
+        accelerator = accelerator or self.accelerator
+        if accelerator not in ("bvh", "kdtree"):
+            raise NotImplementedError(
+                f"accelerator {accelerator!r}: the port has bvh and kdtree")
         if not self.blocks:
             raise ValueError("scene has no primitives")
         bmin = np.concatenate([b.bmin for b in self.blocks]).astype(np.float32)
@@ -962,8 +978,10 @@ class SceneBuilder:
                       if self.inst_tri else None))
         light_table, light_distr = self._build_lights(bmin, bmax)
         materials, bssrdf_tables = self._build_materials()
+        kd = (kd_arrays(bmin[bvh.order], bmax[bvh.order], self.timings)
+              if accelerator == "kdtree" else {})
         return dict(
-            **bssrdf_tables, **geometry,
+            **bssrdf_tables, **geometry, **kd,
             bvh_min=bvh.nodes_min, bvh_max=bvh.nodes_max,
             bvh_offset=bvh.offset, bvh_nprims=bvh.n_prims, bvh_axis=bvh.axis,
             prim_meta=prim_meta, tri_indices=tri_indices, tri_p=tri_p,

@@ -354,8 +354,10 @@ class PbrtApi:
     pixel_filter = filter
 
     def accelerator(self, name, params):
-        if name == "kdtree":
-            raise NotImplementedError('Accelerator "kdtree": the port has the BVH')
+        # MakeAccelerator (api.cpp:770): "bvh" (the default) or "kdtree";
+        # the JAX package takes any other name as "bvh" (api.py:259-263)
+        self.setup.scene_builder.accelerator = name if name in (
+            "bvh", "kdtree") else "bvh"
 
     # ---- world block ----
     def world_begin(self):

@@ -85,8 +85,8 @@ def test_render_refusals(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="bdpt.*exact sampler"):
         trender.render_file(str(scene), out=str(tmp_path / "o.pfm"), device="cpu")
     monkeypatch.delenv("PBRT_TPU_EXACT_SAMPLER")
-    monkeypatch.setenv("PBRT_TPU_ENGINE", "wavefront")
-    with pytest.raises(NotImplementedError, match="wavefront"):
+    monkeypatch.setenv("PBRT_TPU_ENGINE", "megakernel")
+    with pytest.raises(NotImplementedError, match="megakernel"):
         trender.render_file(str(PARITY / "a_floor_point.pbrt"),
                             out=str(tmp_path / "o.pfm"), device="cpu")
 

@@ -28,7 +28,10 @@ the gate, and small copies of chip_smoke.py's geometry and instances
 files on the card against the CPU, with their launch counts and a grad
 step; and bdpt, mlt and sppm on the card against the CPU, bdpt under each
 BVH kernel, and each kernel against its plain version on every batch of a
-bdpt sample and an sppm iteration.
+bdpt sample and an sppm iteration; and the wavefront engine on the card
+against the CPU under each BVH kernel, with each of its launches through
+the kernel and its plain version, and the kd-tree on the card against
+the CPU and the BVH.
 
 These need a CUDA card and skip without one.  The file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -1119,3 +1122,64 @@ def test_transport_batches_kernel_equals_plain(tmp_path, name, kind):
         path.write_text(path.read_text().replace('"integer numiterations" [2]',
                                                  '"integer numiterations" [1]'))
     assert assert_batches_equal_plain(path, kind, TRANSPORT[name][1]) > 32 * 32
+
+
+UNIFORM_PATH = '"path" "integer maxdepth" [5] "string lightsamplestrategy" "uniform"'
+
+
+def wavefront_file(tmp_path, spp=2):
+    return parity_file(tmp_path, "c1_matte_point_d5", 32, spp, UNIFORM_PATH)
+
+
+@pytest.mark.parametrize("switch", ["1", "0"])
+def test_wavefront_on_card_matches_cpu(tmp_path, monkeypatch, switch):
+    """PBRT_TPU_ENGINE=wavefront on c1_matte_point_d5 at 32x32 @ 2 spp,
+    under each BVH kernel: 1 + 2 launches an iteration of that kernel
+    alone, a bit-identical repeat, the CPU at tests/test_torch_path.py:
+    58-59's bars."""
+    monkeypatch.setenv("PBRT_TPU_ENGINE", "wavefront")
+    path = wavefront_file(tmp_path)
+    card, (n4, n2) = file_render(path, "cuda", switch)
+    n = n4 if switch == "1" else n2
+    assert n % 2 == 1 and n >= 3 and (n2 if switch == "1" else n4) == 0
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert torch.equal(file_render(path, "cuda", switch)[0], card)
+    assert_image_bars(card, file_render(path, "cpu", switch)[0])
+
+
+@pytest.mark.parametrize("kind", ["bvh4", "bvh2"])
+def test_wavefront_batches_kernel_equals_plain(tmp_path, monkeypatch, kind):
+    """Every launch of a wavefront render (launch A's shadow and MIS rays,
+    launch B's extension and refilled camera rays) through the kernel and
+    its plain version, bit for bit."""
+    from pbrt_tpu_torch.render import render_file
+
+    monkeypatch.setenv("PBRT_TPU_ENGINE", "wavefront")
+    path = wavefront_file(tmp_path, spp=1)
+    with bvh_switch("1" if kind == "bvh4" else "0"), kb.record_calls() as calls:
+        render_file(str(path), out=str(path.with_suffix(".o.pfm")), device="cuda")
+    assert len(calls) % 2 == 1 and len(calls) >= 3
+    scene = parse_pbrt_file(str(path)).build_scene("cuda")
+    wrapper = getattr(kb, f"{kind}_traverse")
+    plain = getattr(kb, f"{kind}_traverse_plain")
+    nodes, depth = getattr(scene, f"{kind}_nodes"), getattr(scene, f"{kind}_depth")
+    for o, d, t_max, mode, order in calls:
+        t_k, p_k = wrapper(nodes, scene.prim_tris, o, d, t_max, mode, depth, order)
+        t_p, p_p = plain(nodes, scene.prim_tris, o, d, t_max, mode, order=order)
+        assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+
+
+def test_kdtree_on_card_matches_cpu(tmp_path):
+    """c1_matte_point_d5 at 32x32 @ 2 spp under Accelerator "kdtree": no
+    kernel launches, a bit-identical repeat, the CPU and the card's BVH
+    render at tests/test_torch_path.py:58-59's bars."""
+    bvh_path = wavefront_file(tmp_path)
+    path = tmp_path / "kd.pbrt"
+    path.write_text(bvh_path.read_text().replace(
+        "WorldBegin", 'Accelerator "kdtree"\nWorldBegin', 1))
+    card, n = file_render(path, "cuda")
+    assert n == (0, 0)
+    assert torch.isfinite(card).all() and float(card.mean()) > 0
+    assert torch.equal(file_render(path, "cuda")[0], card)
+    assert_image_bars(card, file_render(path, "cpu")[0])
+    assert_image_bars(card, file_render(bvh_path, "cuda")[0])

@@ -200,7 +200,9 @@ def test_imaging_options_match_jax(options):
 
 
 def test_kdtree_and_exact_sampler_refused(monkeypatch):
-    """The kd-tree stays refused.  PBRT_TPU_EXACT_SAMPLER=1 turns the exact
+    """Accelerator "kdtree" reaches the builder (the port has the kd-tree;
+    an unknown name means the BVH, as in the JAX package).
+    PBRT_TPU_EXACT_SAMPLER=1 turns the exact
     tables on for halton and the PixelSamplers, as in the JAX package, and
     leaves sobol and random as they are; a render asking random or sobol
     for the exact mode raises the JAX package's message, and so does any
@@ -212,8 +214,9 @@ def test_kdtree_and_exact_sampler_refused(monkeypatch):
     from pbrt_tpu_torch.integrators.direct import DirectLightingConfig
     from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 
-    with pytest.raises(NotImplementedError, match="kdtree"):
-        tio.parse_pbrt_string('Accelerator "kdtree"\nWorldBegin\nWorldEnd\n')
+    for name, kind in (("kdtree", "kdtree"), ("bvh", "bvh"), ("grid", "bvh")):
+        setup = tio.parse_pbrt_string(f'Accelerator "{name}"\nWorldBegin\nWorldEnd\n')
+        assert setup.scene_builder.accelerator == kind, name
     monkeypatch.setenv("PBRT_TPU_EXACT_SAMPLER", "1")
     for name, exact in (("halton", True), ("stratified", True),
                         ("lowdiscrepancy", True), ("maxmin", True),
