@@ -191,8 +191,10 @@ Phases, each printing its result on a line of its own and its seconds:
      one build, a bit-identical repeat, the geometry file bit-equal to its
      SceneBuilder scene, a 64x64 depth-2 copy card against CPU, each
      kernel against its plain version on one spp's batches, a remat grad
-     step (11 launches, 5 replayed bit for bit), the instances refused
-     under PBRT_TPU_BVH4=0; with --profile FILE, one spp of each profiled
+     step (11 launches, 5 replayed bit for bit), the instances file at
+     64x64 @ 2 spp under PBRT_TPU_BVH4=0 byte-equal to the switch unset,
+     the typed build launched alone in both (12 launches, bvh2 none); with
+     --profile FILE, one spp of each profiled
      (FILE's name plus "_geometry", "_instances");
  19. transport: Integrator "bdpt", "mlt" and "sppm" through
      render.render_file on main's scene (write_transport_pbrt) at 400x400,
@@ -227,11 +229,15 @@ Phases, each printing its result on a line of its own and its seconds:
      against the RGB render; main's file at 2 spp rendered by two
      processes sharing the card over gloo against one process, and by a
      world of one over nccl;
+ 22. bsdftest (bsdftest_phase): pbrt_tpu_torch/tools/bsdftest.py through its
+     entry point on the card at its default n (200,000 directions), its
+     table printed: status 0, and each estimate within BSDFTEST_TOL of the
+     same run on the CPU, on the same draws;
 then a JSON line listing each kernel, and last the JSON result line.  A
 failed phase raises, so the script exits non-zero and prints no result.  It
 needs the repository beside it and a CUDA card; it does not use JAX.
 
-Phases 10-21 run in the groups of GROUPS, side by side on the one card:
+Phases 10-22 run in the groups of GROUPS, side by side on the one card:
 the first in this process after phase 9, each other in a worker process
 (`chip_smoke.py --worker`, started after phase 4, its output kept under
 build/smoke/ and printed once it ends).  A worker that fails fails the
@@ -3369,6 +3375,43 @@ def blob_alone(bvh, dev, n_blobs=16, blob=(256, 128)) -> dict:
     return out
 
 
+SWITCH_RES, SWITCH_SPP = (64, 64), 2  # phase 18's renders under the switch
+
+
+def switch_past_the_gate(render, counted, setup, label, dev) -> dict:
+    """The scene of `setup`, past the JAX package's gate, at 64x64 @ 2 spp
+    with PBRT_TPU_BVH4 at its default and under PBRT_TPU_BVH4=0, each with
+    the launch counts set to 0 just before and read just after.  The switch
+    picks the binary kernel only inside the gate, so both renders launch
+    the typed build of bvh4 alone, and their images are byte-equal."""
+    import copy
+    import hashlib
+
+    # render_setup writes res_override into the film parameters, and the
+    # phase reads the caller's setup again at full size
+    setup = dataclasses.replace(setup, film_params=copy.deepcopy(setup.film_params))
+    imgs, counts = {}, {}
+    for switch in ("1", "0"):
+        with bvh_switch(switch):
+            reset_counts(counted)
+            imgs[switch], _ = render.render_setup(setup, spp_override=SWITCH_SPP,
+                                                  res_override=SWITCH_RES, device=dev)
+            counts[switch] = read_counts(counted)
+    want = {k: SWITCH_SPP * (1 + DEPTH) if k == "bvh4_traverse_typed" else 0
+            for k in counted}
+    img = imgs["0"]
+    check(counts["1"] == want and counts["0"] == want,
+          f"{label} under PBRT_TPU_BVH4=0: launches {counts}, not {want}")
+    check(img.shape == (SWITCH_RES[1], SWITCH_RES[0], 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0 and img.tobytes() == imgs["1"].tobytes(),
+          f"{label} under PBRT_TPU_BVH4=0: the image differs from the switch unset")
+    sha = hashlib.sha256(img.tobytes()).hexdigest()
+    print(f"{label} under PBRT_TPU_BVH4=0 ({SWITCH_RES[0]}x{SWITCH_RES[1]} @ "
+          f"{SWITCH_SPP} spp): byte-equal to the switch unset (sha256 {sha[:16]}), "
+          f"launches {counts['0']}, mean {float(img.mean()):.6f}", flush=True)
+    return {"launches": counts["0"], "sha256": sha}
+
+
 def geometry_phase(render, counted, card, dev, profile):
     """Phase 18: pbrt-v3's remaining shapes through render.render_file on
     the card.  write_geometry_pbrt (inside the JAX package's gate: the
@@ -3382,7 +3425,8 @@ def geometry_phase(render, counted, card, dev, profile):
     for bit); a 64x64 copy at depth 2 on the card against the CPU at
     tests/test_torch_path.py:58-59's bars; each kernel against its plain
     version on every batch of one spp; one remat render_grad_step at
-    400x400; the instances scene refused under PBRT_TPU_BVH4=0.  With
+    400x400; the instances scene at 64x64 @ 2 spp under PBRT_TPU_BVH4=0,
+    byte-equal to the switch unset, the typed build launched alone.  With
     profile, one spp of each under torch.profiler ("_geometry",
     "_instances")."""
     import torch
@@ -3446,14 +3490,8 @@ def geometry_phase(render, counted, card, dev, profile):
                  "file's)" if label == "geometry" else ""), flush=True)
         split["repeat"] = time.perf_counter() - t0
         if label != "geometry":
-            with bvh_switch("0"):
-                try:
-                    render.render_setup(setup, spp_override=1, device=dev)
-                    refused = False
-                except NotImplementedError as e:
-                    refused = "PBRT_TPU_BVH4" in str(e)
-            check(refused, "instances: PBRT_TPU_BVH4=0 was not refused")
-            print("instances: refused under PBRT_TPU_BVH4=0", flush=True)
+            out["bvh2_switch"] = switch_past_the_gate(render, counted, setup, label,
+                                                      dev)
             out["blob_alone"] = blob_alone(bvh, dev)
         film_cfg, filt = setup.make_film_config()
         camera = setup.make_camera()
@@ -4287,7 +4325,55 @@ def kd_spectral_sharded_phase(render, counted, card, dev, profile):
     return out
 
 
-# Phases 10-21 by name: (number, the call on the shared arguments).
+# ---------------------------------------------------------------------------
+# Phase 22: pbrt-v3's bsdftest on the card
+# ---------------------------------------------------------------------------
+
+# the largest difference allowed between a reflectance estimate on the card
+# and the CPU's on the same draws (measured 6e-8: float32 sums of 200,000
+# lanes in another order); a lane whose sample fell the other way at a
+# branch would move an estimate by up to ~5e-5; the tool's own bar is 0.05
+BSDFTEST_TOL = 1e-4
+
+
+def bsdftest_phase(card, dev) -> dict:
+    """Phase 22: the port's bsdftest (pbrt_tpu_torch/tools/bsdftest.py)
+    through its entry point on the card at its default n, its table printed;
+    it must return status 0 (every material's two estimates agree), and
+    each estimate must lie within BSDFTEST_TOL of the same run on the CPU,
+    on the same numpy draws."""
+    import io
+
+    from pbrt_tpu_torch.tools import bsdftest
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        status = bsdftest.main(["--device", "cuda"])
+        wall = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    n = 200_000
+    t0 = time.perf_counter()
+    card_rows = bsdftest.rows(n, dev)
+    cpu_rows = bsdftest.rows(n, "cpu")
+    cpu_wall = time.perf_counter() - t0
+    diffs = {a[0]: max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+             for a, b in zip(card_rows, cpu_rows)}
+    print(f"bsdftest (n = {n}): status {status}, {wall:.3f} s on the card; the "
+          f"largest difference from the CPU's estimates {max(diffs.values()):.3e} "
+          f"(bar {BSDFTEST_TOL:g}), by material " + json.dumps(
+              {k: float(f"{v:.3e}") for k, v in diffs.items()})
+          + f"; a run of each, card then CPU, {cpu_wall:.3f} s [{card}]", flush=True)
+    check(status == 0, f"bsdftest: status {status}")
+    check([r[0] for r in card_rows] == [r[0] for r in cpu_rows]
+          and all(r[3] for r in card_rows) and len(card_rows) == 9,
+          "bsdftest: a row disagrees")
+    check(max(diffs.values()) <= BSDFTEST_TOL,
+          f"bsdftest: the card's estimates differ from the CPU's by {diffs}")
+    return {"status": status, "wall": wall, "diffs": diffs}
+
+
+# Phases 10-22 by name: (number, the call on the shared arguments).
 LATER = {
     "config3": (10, lambda a: config3_phase(a.render, a.counted, a.card, a.dev,
                                             a.profile)),
@@ -4313,17 +4399,19 @@ LATER = {
                                                 a.profile)),
     "kd spectral sharded": (21, lambda a: kd_spectral_sharded_phase(
         a.render, a.counted, a.card, a.dev, a.profile)),
+    "bsdftest": (22, lambda a: bsdftest_phase(a.card, a.dev)),
 }
 # The script is host-bound (a render waits on Python issuing operations, and
-# the plain versions and CPU copies run on the host), so phases 10-21 run in
+# the plain versions and CPU copies run on the host), so phases 10-22 run in
 # groups side by side: the first group in this process after phase 9, each
 # other in a worker process of its own on the same card, started after phase
 # 4 so that phases 3 and 4's kernel times have the card to themselves.  The
 # groups are balanced by their seconds when the phases ran one after another
 # (PERF.md).  Each process counts its own launches, so a phase's counts stay
 # its own.
+# bsdftest (~4 s) joined the group that ended first in the whole script.
 # (a worker gets its phases' names joined by commas: no name holds one)
-GROUPS = (("direct", "whitted and ao", "wavefront"), ("transport", "config3"),
+GROUPS = (("direct", "whitted and ao", "wavefront"), ("transport", "config3", "bsdftest"),
           ("grad breadth", "kd spectral sharded"), ("geometry", "config4"),
           ("imaging", "advanced", "breadth"))
 WORKER_THREADS = 2  # torch's CPU threads in each process once the workers run
@@ -4331,7 +4419,7 @@ DEADLINE_S = 1100.0  # the workers are stopped, and the script fails, past this
 
 
 def later_args(card: str, profile: Path | None):
-    """What phases 10-21 take: the front end, the counted wrappers, the card."""
+    """What phases 10-22 take: the front end, the counted wrappers, the card."""
     import types
 
     import torch
@@ -4524,7 +4612,7 @@ def run(profile: Path | None = None) -> dict:
     probe = probe_phase(bp, dev, counted)
     phase("layout probe", t0)
 
-    # phases 10-21: GROUPS[1:] in workers from here on, GROUPS[0] here after 9
+    # phases 10-22: GROUPS[1:] in workers from here on, GROUPS[0] here after 9
     workers = start_workers(card, profile)
     try:
         torch.set_num_threads(WORKER_THREADS)
@@ -4623,7 +4711,7 @@ def run(profile: Path | None = None) -> dict:
         later.update(join_workers(workers, t_all + DEADLINE_S))
     finally:
         stop_workers(workers)
-    c3, dl, c4, wa, br, adv, img16, gb, geo, tr, wfr, kss = (later[n] for n in LATER)
+    c3, dl, c4, wa, br, adv, img16, gb, geo, tr, wfr, kss, _ = (later[n] for n in LATER)
 
     # the kernels line
     entries = []

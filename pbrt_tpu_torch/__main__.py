@@ -7,7 +7,8 @@ default, the CPU (the kernels' plain versions) only when asked.  Without a
 card the CLI exits with status 2 unless --device cpu is given.
 PBRT_TPU_ENGINE=wavefront renders Integrator "path" with the wavefront
 engine (integrators/wavefront.py); lockstep is the default.  --cat and
---toply (the scene reformatter) are not ported and raise.
+--toply print the scene reformatted (sceneio/cat.py) and render nothing, so
+they run with no card and need no --device.
 """
 from __future__ import annotations
 
@@ -27,9 +28,9 @@ def main(argv=None):
     ap.add_argument("--cropwindow", type=float, nargs=4, default=None,
                     metavar=("X0", "X1", "Y0", "Y1"))
     ap.add_argument("--cat", action="store_true",
-                    help="reformat the scene to stdout and exit (not ported)")
+                    help="reformat the scene to stdout and exit")
     ap.add_argument("--toply", action="store_true",
-                    help="like --cat, dumping meshes to .ply (not ported)")
+                    help="like --cat, but dump inline meshes to .ply files")
     ap.add_argument("--nthreads", type=int, default=0,
                     help="accepted for pbrt compatibility (ignored)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -37,8 +38,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.cat or args.toply:
-        raise NotImplementedError("--cat/--toply: the scene reformatter is "
-                                  "not ported")
+        from .sceneio.cat import cat_file
+
+        for scene_path in args.scenes:
+            cat_file(scene_path, to_ply=args.toply)
+        return 0
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -7,8 +7,9 @@ six quadrics, procedural curves and instanced triangles.
   (ops/bvh.py: the CUDA kernel on the card, its plain version on the CPU):
   a scene inside the JAX package's gate (``kernel_supported``) takes the
   4-wide kernel, or the binary one under PBRT_TPU_BVH4=0, with the
-  brute-force quadric pass; a scene past it takes the typed build of the
-  4-wide kernel, which tests every record type in the leaves;
+  brute-force quadric pass; a scene past it, under either value of the
+  switch, takes the typed build of the 4-wide kernel, which tests every
+  record type in the leaves;
 * ``_traverse`` is the watertight oracle over the binary BVH, the JAX
   package's lockstep "if-if" walk (one node visit or one primitive test per
   ray per step), kept for the tests;

@@ -7,7 +7,7 @@ Replaces pbrt_tpu/ops/pallas_bvh.py, with the same ``(t, prim)`` contract:
   ``_make_kernel4`` (launched by ``_run_packets4``), the default;
 * ``csrc/bvh2_traverse.cu`` takes the place of the binary-BVH Pallas kernel
   ``_make_kernel`` (launched by ``_run_packets``), chosen, as in the JAX
-  package, by ``PBRT_TPU_BVH4=0``.
+  package, by ``PBRT_TPU_BVH4=0`` for the scenes inside the gate.
 
 See each source's note for what bounds it on an H100 and what its design
 does about it.  Here:
@@ -66,7 +66,8 @@ _INF = math.inf
 
 def use_bvh2() -> bool:
     """The JAX package's switch (pallas_bvh.py:700-702): PBRT_TPU_BVH4=0
-    traverses the binary BVH.  Read at each call."""
+    traverses the binary BVH in the scenes inside the gate.  Read at each
+    call."""
     return os.environ.get("PBRT_TPU_BVH4", "1") == "0"
 
 
@@ -778,8 +779,8 @@ def sort_rays_key(root_min, root_max, o, d, t_max):
 def kernel_supported(scene) -> bool:
     """The JAX package's gate (pallas_bvh.py:861-890): at most
     MAX_BRUTE_QUADRICS quadrics (brute-forced beside the kernel), no curve,
-    no instanced triangle, and the tree of the kernel that will run fits its
-    stack.  Such scenes take the triangle-only kernels."""
+    no instanced triangle, and the tree of the triangle-only kernel that
+    PBRT_TPU_BVH4 picks fits its stack.  Such scenes take that kernel."""
     if use_bvh2():
         fits = scene.bvh2_depth <= BVH2_STACK_SIZE
     else:
@@ -789,20 +790,14 @@ def kernel_supported(scene) -> bool:
 
 
 def traversal_route(scene) -> str:
-    """"kernel" for a scene inside the gate, "typed" for one past it that
-    the typed build of bvh4 takes; raises NotImplementedError for the rest:
-    a tree deeper than the stack, or a scene past the gate under
-    PBRT_TPU_BVH4=0 (the binary kernel has no typed leaves)."""
+    """"kernel" for a scene inside the gate, "typed" for one past it, under
+    either value of PBRT_TPU_BVH4: the JAX package sends such a scene to its
+    XLA loop whatever the switch says (traverse.py:265-276), and the typed
+    build of bvh4 is that loop's counterpart on the card.  Under the switch
+    a binary tree deeper than BVH2_STACK_SIZE is past the gate too.  Raises
+    NotImplementedError for a 4-wide tree deeper than the stack."""
     if kernel_supported(scene):
         return "kernel"
-    if use_bvh2():
-        if scene.bvh2_depth > BVH2_STACK_SIZE:
-            raise NotImplementedError(
-                f"a binary BVH deeper than {BVH2_STACK_SIZE} levels")
-        raise NotImplementedError(
-            "PBRT_TPU_BVH4=0: scenes with more than "
-            f"{MAX_BRUTE_QUADRICS} quadrics, curves or object instances need "
-            "the typed leaves of the 4-wide kernel; unset PBRT_TPU_BVH4")
     if 3 * scene.bvh4_depth > STACK_SIZE:
         raise NotImplementedError(
             f"a BVH deeper than {STACK_SIZE // 3} 4-wide levels")
@@ -843,11 +838,11 @@ def intersect_kernel_with_quadrics(scene, o, d, t_max, any_mask=None):
     """Closest hit (t [n], prim [n]); any-mask lanes stop at their first
     hit and only prim >= 0 means anything for them.  A scene inside the gate
     goes through bvh4_traverse (or bvh2_traverse under PBRT_TPU_BVH4=0) plus
-    the brute-force quadric pass; one past it through bvh4_traverse_typed,
-    which tests every primitive in the leaves.  The kernel takes the rays in
-    sorted order (live first, then by coherence) through `order` and writes
-    each result in its ray's place; the order changes speed, never
-    results."""
+    the brute-force quadric pass; one past it, under either value of the
+    switch, through bvh4_traverse_typed, which tests every primitive in the
+    leaves.  The kernel takes the rays in sorted order (live first, then by
+    coherence) through `order` and writes each result in its ray's place;
+    the order changes speed, never results."""
     route = traversal_route(scene)
     n = o.shape[0]
     dev = o.device

@@ -2,8 +2,9 @@
 on the CPU: the heavier parity-ladder scenes against the pbrt-v3 goldens
 at tests/test_parity_images.py's thresholds (-m slow; the two light ones,
 also against the JAX package's render, are in
-tests/test_torch_cli_golden.py); the refusals; image IO and the Statistics
-block against the JAX package's; and the port's independence from JAX."""
+tests/test_torch_cli_golden.py); the refusals; --cat with no card; image
+IO and the Statistics block against the JAX package's; and the port's
+independence from JAX."""
 import ast
 import os
 import pathlib
@@ -74,9 +75,24 @@ def test_cli_needs_a_card_or_the_cpu(monkeypatch, capsys):
     assert r.returncode != 0 and "--device cpu" in r.stderr
 
 
+def test_cat_runs_without_a_card(monkeypatch, capsys):
+    """--cat renders nothing: with no card and no --device it prints the
+    JAX package's reformatted file and exits 0, in this process and in a
+    fresh one that sees no card."""
+    from pbrt_tpu.sceneio.cat import cat_file
+
+    path = str(PARITY / "c2_twolights_d2.pbrt")
+    cat_file(path)
+    want = capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["--cat", path]) == 0
+    assert capsys.readouterr().out == want
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = run_cli("--cat", path, env=env)
+    assert r.returncode == 0 and r.stdout == want
+
+
 def test_render_refusals(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="--cat"):
-        cli.main(["--cat", str(PARITY / "a_floor_point.pbrt")])
     scene = tmp_path / "s.pbrt"
     scene.write_text((PARITY / "a_floor_point.pbrt").read_text()
                      .replace('Integrator "path"', 'Integrator "bdpt"'))

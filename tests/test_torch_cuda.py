@@ -23,8 +23,8 @@ filters (repeats bit-identical, the card equal to the CPU) and the
 orthographic, environment and realistic cameras' rays on the card against
 the CPU; and the typed build of bvh4 against its plain version on scenes
 with every record type (quadrics past the gate, curves, instances), under
-a random work list and at the stack cap, the PBRT_TPU_BVH4=0 refusal past
-the gate, and small copies of chip_smoke.py's geometry and instances
+a random work list and at the stack cap, PBRT_TPU_BVH4=0 past the gate
+(the typed build, as with the switch unset), and small copies of chip_smoke.py's geometry and instances
 files on the card against the CPU, with their launch counts and a grad
 step; and bdpt, mlt and sppm on the card against the CPU, bdpt under each
 BVH kernel, and each kernel against its plain version on every batch of a
@@ -998,17 +998,23 @@ def test_typed_kernel_equals_plain_at_the_stack_cap(work):
 
 
 def test_typed_route_refused_under_bvh2(monkeypatch):
-    """PBRT_TPU_BVH4=0 past the gate raises, naming the switch, before any
-    launch."""
+    """PBRT_TPU_BVH4=0 no longer refuses a scene past the gate: on the card
+    it launches the typed build of bvh4 (its counter grows, bvh2's does
+    not), with the results of the switch unset bit for bit."""
     from pbrt_tpu_torch.accel import traverse
 
     s = TYPED_SCENES["mixed"]().build(device="cuda")
     o, d = typed_rays(256, 1, "cuda")
+    t_max, mode = typed_lanes(256, 2, "cuda")
+    monkeypatch.setenv("PBRT_TPU_BVH4", "1")
+    want = traverse.intersect_closest(s, o, d, t_max, mode > 0)
     monkeypatch.setenv("PBRT_TPU_BVH4", "0")
     before = (kb.bvh2_traverse.launches, kb.bvh4_traverse_typed.launches)
-    with pytest.raises(NotImplementedError, match="PBRT_TPU_BVH4"):
-        traverse.intersect_closest(s, o, d, 1e30)
-    assert (kb.bvh2_traverse.launches, kb.bvh4_traverse_typed.launches) == before
+    got = traverse.intersect_closest(s, o, d, t_max, mode > 0)
+    assert kb.bvh2_traverse.launches == before[0]
+    assert kb.bvh4_traverse_typed.launches == before[1] + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1] >= 0).any())
 
 
 def _small_geometry(tmp_path, label):

@@ -4,7 +4,8 @@ port's watertight oracle accel/traverse._traverse on scenes with every
 record type (more than 64 quadrics of all six types, curves of the three
 types, instanced triangles, all at once), with closest and any-hit lanes,
 dead lanes and a random work list; the gate and the route that picks the
-build; the refusal under PBRT_TPU_BVH4=0.
+build, also under PBRT_TPU_BVH4=0 (past the gate, or with a binary tree
+deeper than the binary kernel's stack, the typed build).
 
 The scenes here are made with the port's SceneBuilder alone (the module
 imports neither JAX nor the JAX package), so tests/test_torch_cuda.py
@@ -250,15 +251,71 @@ def test_gate_and_route():
 
 
 def test_bvh2_switch_refuses_scenes_past_the_gate(scenes, monkeypatch):
-    """PBRT_TPU_BVH4=0: the binary kernel has no typed leaves, so a scene
-    past the gate is refused, naming the switch; one inside it runs."""
-    monkeypatch.setenv("PBRT_TPU_BVH4", "0")
-    o, d = typed_rays(64, 1)
+    """PBRT_TPU_BVH4=0 no longer refuses a scene past the gate: as the JAX
+    package sends such a scene to its XLA loop under either value of the
+    switch, the port sends it to the typed build of bvh4, with the default
+    route's (t, prim) bit for bit, closest and any-hit lanes alike; a scene
+    inside the gate still takes the binary kernel."""
+    calls = spy_kernels(monkeypatch)
+    o, d = typed_rays(256, 1)
+    t_max, mode = lanes(256, 2)
     for name, s in scenes.items():
-        with pytest.raises(NotImplementedError, match="PBRT_TPU_BVH4"):
-            ttv.intersect_closest(s, o, d, 1e30)
+        monkeypatch.setenv("PBRT_TPU_BVH4", "1")
+        want = ttv.intersect_closest(s, o, d, t_max, mode > 0)
+        monkeypatch.setenv("PBRT_TPU_BVH4", "0")
+        assert kb.traversal_route(s) == "typed", name
+        got = ttv.intersect_closest(s, o, d, t_max, mode > 0)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+        assert bool((got[1] >= 0).any())
+    assert calls == ["typed"] * 2 * len(scenes)
     inside = sc.SceneBuilder()
     _floor(inside, inside.add_material(sc.MAT_MATTE))
     add_quadrics(inside, 0, 6, 4)
-    t, p = ttv.intersect_closest(inside.build(device="cpu"), o, d, 1e30)
-    assert bool((p >= 0).any())
+    si = inside.build(device="cpu")
+    assert kb.traversal_route(si) == "kernel"
+    t, p = ttv.intersect_closest(si, o, d, 1e30)
+    assert calls[-1] == "bvh2" and bool((p >= 0).any())
+
+
+def spy_kernels(monkeypatch) -> list:
+    """The kernels' wrappers that ops/bvh.py calls, named in call order."""
+    calls = []
+    for name, label in (("bvh4_traverse", "bvh4"), ("bvh2_traverse", "bvh2"),
+                        ("bvh4_traverse_typed", "typed")):
+        orig = getattr(kb, name)
+        monkeypatch.setattr(kb, name, lambda *a, _o=orig, _l=label:
+                            calls.append(_l) or _o(*a))
+    return calls
+
+
+def test_bvh2_switch_sends_a_deep_binary_tree_to_the_typed_build(monkeypatch):
+    """Under PBRT_TPU_BVH4=0 a binary tree deeper than the binary kernel's
+    stack (a caterpillar of 65 levels, tests/test_torch_trees.py, in a
+    triangle scene's tables) is past the gate: it takes the typed build of
+    bvh4, with the default route's (t, prim) bit for bit."""
+    import dataclasses
+
+    from test_torch_trees import caterpillar_rays, caterpillar_tree
+
+    m = kb.BVH2_STACK_SIZE + 1
+    tree, recs = caterpillar_tree(m)
+    rows4, depth4 = kb.build_bvh4_table(*tree[:4])
+    rows2, depth2 = kb.build_bvh2_table(*tree)
+    b = sc.SceneBuilder()
+    _floor(b, b.add_material(sc.MAT_MATTE))
+    s = dataclasses.replace(
+        b.build(device="cpu"), bvh_min=torch.as_tensor(tree[0]),
+        bvh_max=torch.as_tensor(tree[1]), bvh4_nodes=torch.as_tensor(rows4),
+        bvh2_nodes=torch.as_tensor(rows2), prim_tris=torch.as_tensor(recs),
+        bvh4_depth=depth4, bvh2_depth=depth2)
+    assert depth2 > kb.BVH2_STACK_SIZE and 3 * depth4 <= kb.STACK_SIZE
+    calls = spy_kernels(monkeypatch)
+    o, d = caterpillar_rays(512, 3, device="cpu")
+    t_max, mode = lanes(512, 4)
+    want = ttv.intersect_closest(s, o, d, t_max, mode > 0)
+    monkeypatch.setenv("PBRT_TPU_BVH4", "0")
+    assert not kb.kernel_supported(s) and kb.traversal_route(s) == "typed"
+    got = ttv.intersect_closest(s, o, d, t_max, mode > 0)
+    assert calls == ["bvh4", "typed"]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1] >= 0).any())
